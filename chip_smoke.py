@@ -20,19 +20,46 @@ exits non-zero (there is no CPU path):
              cosine, then 4,096 slogans through BatchedEncoder.
  6. index    1,048,576 x 1024 corpus (random unit rows; the first 4,096
              replaced by the encoder's embeddings of synthetic slogans),
-             int8-global FlatIndex + bf16 rescore copy, SearchEngine
+             int8-global FlatIndex + bf16 rescore copy, metadata laid out
+             as the serving benchmark's (tools/serve_bench.py), SearchEngine
              speed path, min recall@10 over 5 draws of 1024 vs the fp32
              exact oracle.
  7. serve    SearchService + BatchScheduler + SearchServer on 127.0.0.1,
              128 POST /search from 64 client threads after one warm
              round of the same, overlap@10 vs the direct path.
- 8. times    B1 vs plain on the engine's 1M index (bit-equal), kernel
-             and plain times at the path's shapes, and torch.profiler
-             tables of one encoder forward and one scan + rescore batch.
+ 8. b1m      B1's mask and gmask forms vs plain at the phase-3 shapes
+             (run right after phase 3, on its corpus)
+             (contiguous range, striped category, 3 survivors, none;
+             gmasks G=8 and G=32 with random mask_ids): bit-equal
+             candidates; then on the 1M index: unmasked, a year mask and
+             the 36-signature stack.
+ 9. filtered the speed engine on the 1M index under the serving
+             benchmark's 3- and 36-signature mixes at B=512: min
+             recall@10 vs the fp32 oracle over the passing rows, every id
+             passes its filter, the broad filter on the over-fetch route,
+             a mixed 36-signature batch (grouped, split 32 + 4) equal to
+             per-signature dispatch.
+10. b5       exact top-k kernel vs plain on the 1M per-row int8 corpus
+             and 262,144 x 1024 bf16 / f32 corpora, B 8 and 512, k 10,
+             40, 400, with and without a 0/-inf bias.
+11. exact    SearchEngine on the 1M per-row int8 index with a bf16 host
+             rescore copy (kernel B5), unfiltered and year-filtered, min
+             recall@10 over 5 draws of 512.
+12. serve_filtered  256 POST /search with filters from the 36-signature
+             mix, 64 client threads, after a warm round: all 200, every
+             result passes its filter, overlap@10 vs the direct path,
+             grouped scans carrying more than one signature.
+13. times    kernel / plain / bound times at the main path's shapes (B1
+             unmasked, mask and gmask G=32 at B=1024 on 1M; B5 at B=512
+             on 1M int8 per-row and bf16; B2 at (512, 64)), and
+             torch.profiler tables of one encoder forward, one scan +
+             rescore batch and one filtered grouped batch.
 
-Launch counters are reset after phase 5's kernel-vs-plain comparison and
-read after phase 7: the `launches` in the kernels line count the main
-path's launches only (BatchedEncoder, SearchEngine, the HTTP stack).
+Each path (phases 5-7, 9, 11, 12) runs with every launch counter set to
+0 just before it and read just after; kernel-vs-plain comparisons run
+outside those windows, so the `launches` in the kernels line count only
+launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
+stack).
 """
 
 from __future__ import annotations
@@ -89,6 +116,83 @@ def slogans(n: int) -> list[str]:
     return out
 
 
+
+
+# The serving benchmark's filtered traffic (tools/serve_bench.py): its
+# metadata layout and its 3- and 36-signature mixes, copied here as the
+# UI filter dicts that POST /search takes.
+CATS = [f"math.{c}" for c in
+        "AG AT AP CA CO CT DG DS FA GM GN GR GT HO KT LO MG NT OA PR RA RT".split()]
+MIX3 = [{"year_range": [2005, 2013]}, {"tags": ["math.NT", "math.AG", "math.CO"]},
+        {"journal_status": "Preprint Only"}]
+MIX36 = ([{"year_range": [1996 + j, 2001 + j]} for j in range(16)]
+         + [{"tags": [f"math.{c}"]} for c in ("AG", "NT", "CO", "PR", "CA", "DG", "FA", "GT")]
+         + [{"citation_range": [50 * j, 50 * j + 120]} for j in range(8)]
+         + [{"year_range": [2004, 2015], "tags": ["math.AG", "math.NT"]},
+            {"journal_status": "Journal Article", "citation_range": [10, 500]},
+            {"year_range": [2010, 2020], "journal_status": "Preprint Only"},
+            {"tags": ["math.CO"], "citation_range": [0, 99]}])
+
+
+def bench_metadata(n: int, texts: list[str], cls):
+    """Years in contiguous id blocks (a year range is a contiguous id
+    mask), categories striped, journal status alternating, citations
+    i % 1000; the first len(texts) rows carry the slogans."""
+    m = len(texts)
+    return cls(
+        paper_id=[f"p{i}" for i in range(n)],
+        paper_title=[f"Paper {i}" if i < m else "T" for i in range(n)],
+        authors=[[] for _ in range(n)],
+        link=[f"https://arxiv.org/abs/2401.{i:05d}" if i < m else "https://arxiv.org/abs/x"
+              for i in range(n)],
+        year=(1995 + np.arange(n) // max(1, n // 30)).astype(np.int32),
+        primary_category=[CATS[i % len(CATS)] for i in range(n)],
+        journal_ref=[None, "J. Math."] * (n // 2),
+        citations=np.arange(n, dtype=np.int64) % 1000,
+        theorem_name=["Theorem" if i < m else "" for i in range(n)],
+        slogan=texts + [""] * (n - m),
+        theorem_body=[f"$x_{{{i}}}$ is bounded." if i < m else "" for i in range(n)],
+    )
+
+
+# H100 SXM data-sheet peaks (dense): what `bound_ms` divides by
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate for their type."""
+    tb, to = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind]
+    return {"bound_ms": 1e3 * max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def topk_agree(sk, ik, sp, ip, exact: bool) -> tuple[bool, float]:
+    """B5 kernel vs plain: int8 (exact sums) bit-equal scores and ids;
+    bf16/f32 (f32 sums in another order) scores within 1e-5 absolute and
+    ids equal except where a neighbouring score is within 1e-5."""
+    import torch
+
+    fin = torch.isfinite(sp)
+    err = float((sk[fin] - sp[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if exact:
+        return torch.equal(sk, sp) and torch.equal(ik, ip), err
+    near = torch.zeros_like(fin)
+    gap = (sp[:, 1:] - sp[:, :-1]).abs() <= 1e-5
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    near[:, -1] = True                  # the k-th slot's neighbour is outside the list
+    ok = torch.equal(fin, torch.isfinite(sk)) and err <= 1e-5 and torch.equal(ik[~near], ip[~near])
+    return ok, err
+
+
+def unit_rows(n: int, d: int, seed: int, dev):
+    import torch
+
+    x = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
 def main() -> int:
     import torch
 
@@ -108,12 +212,13 @@ def main() -> int:
         attention_launches, fused_qknorm_rope_attention, fused_qknorm_rope_attention_plain,
     )
     from theoremsearch_tpu_torch.kernels.mips import (
-        auto_merge_tiles, device_rescore, mips_g_launches, mips_g_scan,
-        mips_g_scan_plain, quantize_queries, select_candidates,
+        auto_merge_tiles, device_rescore, mips_g_gmask_launches, mips_g_launches,
+        mips_g_mask_launches, mips_g_scan, mips_g_scan_plain, mips_topk, mips_topk_launches,
+        mips_topk_plain, quantize_queries, select_candidates,
     )
     from theoremsearch_tpu_torch.search.engine import SearchEngine
     from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
-    from theoremsearch_tpu_torch.serve.app import SearchService
+    from theoremsearch_tpu_torch.serve.app import SearchService, _filters_from_ui
     from theoremsearch_tpu_torch.serve.http_api import SearchServer
     from theoremsearch_tpu_torch.serve.scheduler import BatchScheduler
     from theoremsearch_tpu_torch.utils.device import gpu_name_power, require_cuda
@@ -124,6 +229,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_name_power()
     t_start = time.perf_counter()
+    counters = {
+        "mips_g_scan": mips_g_launches, "mips_g_scan_mask": mips_g_mask_launches,
+        "mips_g_scan_gmask": mips_g_gmask_launches, "mips_topk": mips_topk_launches,
+        "qknorm_rope_attention": attention_launches,
+    }
+    main_launches = dict.fromkeys(counters, 0)
+
+    def path_start() -> None:
+        for c in counters.values():
+            c.reset()
+
+    def path_end() -> dict:
+        got = {name: c.n for name, c in counters.items()}
+        for name, n in got.items():
+            main_launches[name] += n
+        return got
 
     # ---- 1. env ----
     emit("env", gpu=gpu, torch=torch.__version__, cuda=torch.version.cuda,
@@ -135,7 +256,7 @@ def main() -> int:
     _build.load()
     regs = [ln.strip() for ln in _build.ptxas_log.splitlines() if "registers" in ln or "spill" in ln]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         nvcc_seconds=_build.build_seconds, ptxas=regs[:8])
+         nvcc_seconds=_build.build_seconds, ptxas=regs)
 
     # ---- 3. B1 vs plain ----
     g = torch.Generator(device=dev).manual_seed(0)
@@ -147,26 +268,66 @@ def main() -> int:
     q = torch.randn((B, D), generator=g, device=dev)
     q /= q.norm(dim=1, keepdim=True)
     q8, qs = quantize_queries(q)
-    b1_err = 0
+    err_of = dict.fromkeys(counters, 0.0)
+
+    def check_b1(key, n_valid, m, q8_, qs_, gs_, codes_, rb, **masks):
+        """One B1 form, kernel vs plain: bit-equal candidates and equal
+        decoded (scores, ids)."""
+        ck = mips_g_scan(q8_, codes_, n_valid, rb, m, **masks)
+        cp = mips_g_scan_plain(q8_, codes_, n_valid, rb, m, **masks)
+        torch.cuda.synchronize()
+        err = int((ck.long() - cp.long()).abs().max())
+        err_of[key] = max(err_of[key], err)
+        sk, ik = select_candidates(ck, qs_, gs_, 40, rb, m)
+        sp, ip = select_candidates(cp, qs_, gs_, 40, rb, m)
+        ok = torch.equal(ck, cp) and torch.equal(sk, sp) and torch.equal(ik, ip)
+        return ok, err, list(ck.shape)
+
     for n_valid in (N, N - 1000):
         for m in (1, 4):
-            ck = mips_g_scan(q8, codes, n_valid, RB, m)
-            cp = mips_g_scan_plain(q8, codes, n_valid, RB, m)
-            torch.cuda.synchronize()
-            err = int((ck.long() - cp.long()).abs().max())
-            b1_err = max(b1_err, err)
-            sk, ik = select_candidates(ck, qs, gscale, 40, RB, m)
-            sp, ip = select_candidates(cp, qs, gscale, 40, RB, m)
-            ok = torch.equal(ck, cp) and torch.equal(sk, sp) and torch.equal(ik, ip)
-            emit("b1", n_valid=n_valid, merge_tiles=m, shape=list(ck.shape),
-                 bit_equal=torch.equal(ck, cp), decoded_equal=ok, max_abs_err=err)
+            ok, err, shape = check_b1("mips_g_scan", n_valid, m, q8, qs, gscale, codes, RB)
+            emit("b1", n_valid=n_valid, merge_tiles=m, shape=shape, bit_equal=ok, max_abs_err=err)
             if not ok:
                 raise AssertionError(f"B1 kernel disagrees with its plain version (n_valid={n_valid}, M={m})")
-    del codes, ck, cp
+
+    # ---- 8a. B1's mask and gmask forms vs plain at the same shapes ----
+    gcpu = torch.Generator().manual_seed(5)
+    one_masks = {"range": torch.zeros(N, dtype=torch.int8), "stripe": torch.zeros(N, dtype=torch.int8),
+                 "three": torch.zeros(N, dtype=torch.int8), "none": torch.zeros(N, dtype=torch.int8)}
+    one_masks["range"][N // 5 : N // 2] = 1           # a year range over id-ordered rows
+    one_masks["stripe"][3::22] = 1                    # one category of 22
+    one_masks["three"][[17, N // 3, N - 2000]] = 1
+    stack = []
+    for i in range(32):
+        kind = i % 3
+        mk = torch.zeros(N, dtype=torch.int8)
+        if kind == 0:
+            lo = int(torch.randint(0, N // 2, (1,), generator=gcpu))
+            mk[lo : lo + N // 6] = 1
+        elif kind == 1:
+            mk[i % 22 :: 22] = 1
+        else:
+            mk = (torch.rand(N, generator=gcpu) < 0.3).to(torch.int8)
+        stack.append(mk)
+    gm_all = torch.stack(stack).to(dev)
+    forms = [(name, {"mask": mk.to(dev)}) for name, mk in one_masks.items()]
+    for G in (8, 32):
+        ids = torch.randint(0, G, (B,), generator=gcpu, dtype=torch.int32).to(dev)
+        forms.append((f"gmask_G{G}", {"gmasks": gm_all[:G].contiguous(), "mask_ids": ids}))
+    for n_valid in (N, N - 1000):
+        for m in (1, 4):
+            for name, kw in forms:
+                key = "mips_g_scan_gmask" if "gmasks" in kw else "mips_g_scan_mask"
+                ok, err, shape = check_b1(key, n_valid, m, q8, qs, gscale, codes, RB, **kw)
+                emit("b1m", form=name, n_valid=n_valid, merge_tiles=m, shape=shape,
+                     bit_equal=ok, max_abs_err=err)
+                if not ok:
+                    raise AssertionError(f"B1 {name} form disagrees with its plain version "
+                                         f"(n_valid={n_valid}, M={m})")
+    del codes, gm_all, forms
 
     # ---- 4. B2 vs plain ----
     H, HK, DH = 16, 8, 128
-    b2_err = 0.0
     # B=64 over the kernel's S range, and the encoder's (512, 64) batches
     for BB, S in ((64, 32), (64, 64), (64, 128), (512, 64)):
         qa = (torch.randn((BB, S, H * DH), generator=g, device=dev) * 2).to(torch.bfloat16)
@@ -189,7 +350,7 @@ def main() -> int:
         ref = float(op.abs().max())
         a, b = ok_.double().flatten(), op.double().flatten()
         cosv = float((a @ b) / (a.norm() * b.norm()))
-        b2_err = max(b2_err, err)
+        err_of["qknorm_rope_attention"] = max(err_of["qknorm_rope_attention"], err)
         emit("b2", S=S, B=BB, cosine=cosv, max_abs_err=err, max_abs_plain=ref)
         if not (cosv > 0.9999 and err <= 2e-2 * ref):
             raise AssertionError(f"B2 kernel disagrees with its plain version at S={S}")
@@ -211,10 +372,9 @@ def main() -> int:
         # the stack's own noise floor: the same plain path at another
         # batch size (other GEMM shapes, other f32 summation orders)
         ph = encode_pooled(params, t[0][:256], t[1][:256], cfg, fused="plain")
-    # the main path runs from here to the end of phase 7; the comparison
-    # launches above are not counted
-    mips_g_launches.reset()
-    attention_launches.reset()
+    # the text -> ids path runs from here to the end of phase 7; the
+    # comparison launches above are not counted
+    path_start()
     t0 = time.perf_counter()
     slogan_emb = encoder.encode(texts)
     enc_s = time.perf_counter() - t0
@@ -243,25 +403,12 @@ def main() -> int:
     corpus[:4096] = slogan_emb
     index = FlatIndex.build(corpus, config=IndexConfig(dtype="int8", int8_scale="global"), device=dev)
     build_s = time.perf_counter() - t0
-    n_meta = NC
-    blank = [""] * n_meta
-    meta = CorpusMetadata(
-        paper_id=[f"p{i}" if i < 4096 else "" for i in range(n_meta)],
-        paper_title=[f"Paper {i}" if i < 4096 else "" for i in range(n_meta)],
-        authors=[[] for _ in range(n_meta)],
-        link=[f"https://arxiv.org/abs/2401.{i:05d}" if i < 4096 else "" for i in range(n_meta)],
-        year=np.zeros(n_meta, np.int32), primary_category=list(blank),
-        journal_ref=[None] * n_meta, citations=np.full(n_meta, -1, np.int64),
-        theorem_name=["Theorem" if i < 4096 else "" for i in range(n_meta)],
-        slogan=texts + [""] * (n_meta - 4096),
-        theorem_body=[f"$x_{{{i}}}$ is bounded." if i < 4096 else "" for i in range(n_meta)],
-    )
+    meta = bench_metadata(NC, texts, CorpusMetadata)
     engine = SearchEngine(index, meta=meta, rescore_vectors=corpus, device=dev)
-    qd = []
-    for s in range(5):
-        qq = torch.randn((1024, D), generator=torch.Generator(device=dev).manual_seed(1000 + s), device=dev)
-        qd.append(qq / qq.norm(dim=1, keepdim=True))
-    _, oracle = exact_topk(torch.cat(qd), corpus, k=10, device=dev)
+    # the fp32 oracle's corpus, on the card once rather than per call
+    corpus_dev = torch.from_numpy(corpus).to(dev)
+    qd = [unit_rows(1024, D, 1000 + s, dev) for s in range(5)]
+    _, oracle = exact_topk(torch.cat(qd), corpus_dev, k=10, device=dev)
     scans0 = mips_g_launches.n
     recalls = []
     for s in range(5):
@@ -275,37 +422,41 @@ def main() -> int:
         raise AssertionError("index phase failed")
 
     # ---- 7. serving ----
+    def serve_round(service_, bodies, threads=64):
+        server = SearchServer(service_, "127.0.0.1", 0).start()
+        url = f"http://127.0.0.1:{server.port}/search"
+
+        def post(body):
+            req = urllib.request.Request(
+                url, data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+
+        try:
+            with ThreadPoolExecutor(threads) as ex:
+                # one warm round first: each new batch size's first pass
+                # pays one-time set-up (pinned host blocks, GEMM choice)
+                list(ex.map(post, bodies))
+                service_.scheduler.reset_traces()
+                warm = service_.scheduler.stats()
+                t0_ = time.perf_counter()
+                answers_ = list(ex.map(post, bodies))
+                wall = time.perf_counter() - t0_
+            st = service_.scheduler.stats()
+        finally:
+            server.stop()
+            service_.scheduler.shutdown()
+        return answers_, wall, st, warm
+
     sched = BatchScheduler(engine, max_batch=256, encode_fn=encoder.encode_device)
     service = SearchService(engine, encoder.encode, scheduler=sched)
     direct = SearchService(engine, encoder.encode)
-    server = SearchServer(service, "127.0.0.1", 0).start()
-    url = f"http://127.0.0.1:{server.port}/search"
     qtexts = [texts[(37 * i) % 4096] for i in range(128)]
-
-    def post(text):
-        req = urllib.request.Request(
-            url, data=json.dumps({"query": text, "top_k": 10}).encode(),
-            headers={"Content-Type": "application/json"}, method="POST")
-        with urllib.request.urlopen(req, timeout=120) as r:
-            return r.status, json.loads(r.read())
-
-    try:
-        with ThreadPoolExecutor(64) as ex:
-            # one warm round first: each new batch size's first pass pays
-            # one-time set-up (pinned host blocks, GEMM algorithm choice)
-            list(ex.map(post, qtexts))
-            sched.reset_traces()
-            warm = sched.stats()
-            t0 = time.perf_counter()
-            answers = list(ex.map(post, qtexts))
-            serve_s = time.perf_counter() - t0
-        stats = sched.stats()
-        n_batches = stats["batches"] - warm["batches"]
-        n_queries = stats["queries"] - warm["queries"]
-    finally:
-        server.stop()
-        sched.shutdown()
-    main_launches = {"mips_g_scan": mips_g_launches.n, "qknorm_rope_attention": attention_launches.n}
+    answers, serve_s, stats, warm = serve_round(service, [{"query": t_, "top_k": 10} for t_ in qtexts])
+    n_batches = stats["batches"] - warm["batches"]
+    n_queries = stats["queries"] - warm["queries"]
+    path1 = path_end()
     codes_ok = all(code == 200 for code, _ in answers)
     joined = all(
         len(body["results"]) == 10 and all("theorem_slogan" in r and "paper_url" in r for r in body["results"])
@@ -322,29 +473,184 @@ def main() -> int:
          batches=n_batches, avg_batch=n_queries / max(n_batches, 1),
          latency_ms=stats.get("latency_ms"), stages_ms={
              k: v for k, v in stats.get("stages_ms", {}).items() if k != "worst_batches"},
-         launches=main_launches)
+         launches=path1)
     if not (codes_ok and joined and np.mean(overlaps) >= 0.9 and len(answers) >= 64):
         raise AssertionError("serve phase failed")
-    if min(main_launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {main_launches}")
+    if path1["mips_g_scan"] < 1 or path1["qknorm_rope_attention"] < 1:
+        raise AssertionError(f"a kernel of the text -> ids path never launched: {path1}")
 
-    # ---- 8. B1 on the engine's own index, and times at the path's shapes
-    # (not counted as main-path launches) ----
-    qb = qd[0]
+    # ---- 8b. B1's three forms on the engine's own 1M index ----
     n_valid, rb = engine.n_valid, engine.row_block
     m = auto_merge_tiles(D, rb // 128, engine.padded_rows // rb)
+    f3 = [_filters_from_ui(dict(f)) for f in MIX3]
+    f36 = [_filters_from_ui(dict(f)) for f in MIX36]
+    t0 = time.perf_counter()
+    host_masks = [engine._combined_mask_inputs(f)[0] for f in f3 + f36]   # cached per signature
+    mask_build_s = time.perf_counter() - t0
+    year_dev = engine._combined_mask_inputs(f3[0])[1]
+    st36 = torch.stack([engine._combined_mask_inputs(f)[1] for f in f36])
+    gids = torch.randint(0, 36, (1024,), generator=gcpu, dtype=torch.int32).to(dev)
+    q8, qs = quantize_queries(qd[0])
+    for name, key, kw in (("none", "mips_g_scan", {}), ("year_mask", "mips_g_scan_mask", {"mask": year_dev}),
+                          ("gmask_36", "mips_g_scan_gmask", {"gmasks": st36, "mask_ids": gids})):
+        ok, err, shape = check_b1(key, n_valid, m, q8, qs, engine._global_scale, engine.vectors, rb, **kw)
+        emit("b1m", form=name, n_valid=n_valid, merge_tiles=m, shape=shape, bit_equal=ok,
+             max_abs_err=err, index="1M")
+        if not ok:
+            raise AssertionError(f"B1 {name} form disagrees with its plain version on the 1M index")
+
+    # ---- 9. filtered search on the speed path ----
+    qf = unit_rows(512, D, 2000, dev)
+    path_start()
+    rec, passed, routes_of = {}, True, {}
+    for j, (f, mk) in enumerate(zip(f3 + f36, host_masks)):
+        r0 = dict(engine.route_counts)
+        _, ids = engine.search_vectors(qf, k=10, filters=f)
+        routes_of[j] = sorted(r for r, c in engine.route_counts.items() if c > r0.get(r, 0))
+        _, orc = exact_topk(qf, corpus_dev, k=10, device=dev, mask=mk)
+        rec[j] = recall_vs_exact(ids, orc, k=10)
+        passed &= bool(mk[ids[ids >= 0]].all()) and bool((ids >= 0).all())
+    # a mixed batch of the 36 signatures: grouped scans (split 32 + 4)
+    sig_of = np.random.default_rng(9).integers(0, 36, 512)
+    r0 = dict(engine.route_counts)
+    _, gids_out = engine.search_vectors(qf, k=10, filters=[f36[s_] for s_ in sig_of])
+    grouped_runs = engine.route_counts.get("grouped", 0) - r0.get("grouped", 0)
+    path2 = path_end()
+    mismatch = 0
+    for s_ in range(36):
+        rows = np.nonzero(sig_of == s_)[0]
+        if rows.size:
+            _, ip = engine.search_vectors(qf[torch.from_numpy(rows).to(dev)], k=10, filters=f36[s_])
+            mismatch += int((ip != gids_out[rows]).any(axis=1).sum())
+    emit("filtered", batch=512, signatures=len(rec), recall_min=min(rec.values()),
+         recall_mix3=[rec[j] for j in range(3)], recall_mix36_min=min(rec[j] for j in range(3, 39)),
+         all_pass_filter=passed, broad_filter_route=routes_of[2], year_route=routes_of[0],
+         routes=dict(engine.route_counts), grouped_scans=grouped_runs,
+         grouped_vs_per_signature_rows_differing=mismatch, mask_builds=engine.filter_mask_builds,
+         mask_build_s=round(mask_build_s, 3), launches=path2)
+    if not (min(rec.values()) >= 0.99 and passed and "overfetch" in routes_of[2]
+            and routes_of[0] == ["masked"] and grouped_runs == 2 and mismatch == 0
+            and path2["mips_g_scan_mask"] >= 1 and path2["mips_g_scan_gmask"] >= 1):
+        raise AssertionError("filtered phase failed")
+
+    # ---- 10. B5 vs plain ----
+    t0 = time.perf_counter()
+    xindex = FlatIndex.build(corpus, config=IndexConfig(dtype="int8"), device=dev)   # per-row scales
+    rescore_bf16 = torch.from_numpy(corpus).to(torch.bfloat16)                       # host copy
+    xeng = SearchEngine(xindex, meta=meta, rescore_vectors=rescore_bf16, device=dev)
+    xbuild_s = time.perf_counter() - t0
+    bias = torch.where(torch.rand(NC, generator=gcpu) < 0.4, float("-inf"), 0.0).to(dev)
+    xb = unit_rows(262_144, D, 11, dev)
+    corpora = {"int8_perrow_1M": (xeng.vectors, xeng.scales, bias, True),
+               "bf16_262k": (xb.to(torch.bfloat16), None, bias[:262_144].contiguous(), False),
+               "f32_262k": (xb, None, bias[:262_144].contiguous(), False)}
+    del xb
+    cases = [(bb, k_, wb) for bb in (8, 512) for k_ in (10, 40, 400) for wb in (False, True)]
+    for cname, (cc, sc, bi, exact) in corpora.items():
+        qb5 = unit_rows(512, D, 12, dev)
+        qk = quantize_queries(qb5)[0] if cc.dtype == torch.int8 else qb5.to(cc.dtype).contiguous()
+        for bb, k_, wb in (cases if cname != "f32_262k" else [(512, 10, True), (8, 40, False)]):
+            nv = cc.shape[0] - (1000 if wb else 0)
+            sk, ik = mips_topk(qk[:bb], cc, sc, nv, bi if wb else None, k_)
+            sp, ip = mips_topk_plain(qk[:bb], cc, sc, nv, bi if wb else None, k_)
+            torch.cuda.synchronize()
+            ok, err = topk_agree(sk, ik, sp, ip, exact)
+            err_of["mips_topk"] = max(err_of["mips_topk"], err)
+            emit("b5", corpus=cname, batch=bb, k=k_, bias=wb, n_valid=nv, agree=ok, max_abs_err=err)
+            if not ok:
+                raise AssertionError(f"B5 kernel disagrees with its plain version ({cname}, B={bb}, k={k_})")
+    del corpora
+
+    # ---- 11. the exact route: per-row int8 index, bf16 host rescore ----
+    year = f3[0]
+    xq = [unit_rows(512, D, 3000 + s, dev) for s in range(5)]
+    path_start()
+    xres = [(xeng.search_vectors(qq, k=10)[1], xeng.search_vectors(qq, k=10, filters=year)[1]) for qq in xq]
+    path3 = path_end()
+    year_mask = host_masks[0]
+    xrec, xrec_f, xpass = [], [], True
+    for qq, (ids_u, ids_f) in zip(xq, xres):
+        xrec.append(recall_vs_exact(ids_u, exact_topk(qq, corpus_dev, k=10, device=dev)[1], k=10))
+        xrec_f.append(recall_vs_exact(ids_f, exact_topk(qq, corpus_dev, k=10, device=dev,
+                                                        mask=year_mask)[1], k=10))
+        xpass &= bool(year_mask[ids_f[ids_f >= 0]].all())
+    emit("exact", rows=NC, speed_ok=xeng._speed_ok, build_s=round(xbuild_s, 3),
+         recall_draws=xrec, recall_min=min(xrec), recall_year_draws=xrec_f,
+         recall_year_min=min(xrec_f), all_pass_filter=xpass, routes=dict(xeng.route_counts),
+         launches=path3)
+    if not (not xeng._speed_ok and min(xrec) >= 0.99 and min(xrec_f) >= 0.99 and xpass
+            and path3["mips_topk"] >= 10):
+        raise AssertionError("exact phase failed")
+
+    # ---- 12. filtered serving over HTTP ----
+    fsched = BatchScheduler(engine, max_batch=256, encode_fn=encoder.encode_device)
+    fservice = SearchService(engine, encoder.encode, scheduler=fsched)
+    pick = np.random.default_rng(13).integers(0, 36, 256)
+    ftexts = [texts[(53 * i) % 4096] for i in range(256)]
+    bodies = [{"query": t_, "top_k": 10, "filters": MIX36[p_]} for t_, p_ in zip(ftexts, pick)]
+    path_start()
+    fanswers, fserve_s, fstats, fwarm = serve_round(fservice, bodies)
+    path4 = path_end()
+    fcodes = all(code == 200 for code, _ in fanswers)
+    fpass = all(
+        host_masks[3 + p_][[r["doc_id"] for r in body["results"]]].all()
+        for p_, (_, body) in zip(pick, fanswers))
+    fover = []
+    for t_, p_, (_, body) in zip(ftexts, pick, fanswers):
+        got = {r["doc_id"] for r in body["results"]}
+        want = {r["doc_id"] for r in direct.search_and_display(t_, f36[p_])}
+        fover.append(len(got & want) / max(len(want), 1))
+    fb = fstats["batches"] - fwarm["batches"]
+    emit("serve_filtered", requests=len(fanswers), all_200=fcodes, all_pass_filter=fpass,
+         overlap10_mean=float(np.mean(fover)), overlap10_min=float(np.min(fover)),
+         wall_s=round(fserve_s, 3), batches=fb,
+         avg_batch=(fstats["queries"] - fwarm["queries"]) / max(fb, 1),
+         filtered_batches=fstats.get("filtered_batches"), g_mean=fstats.get("filtered_g_mean"),
+         latency_ms=fstats.get("latency_ms"), stages_ms={
+             k: v for k, v in fstats.get("stages_ms", {}).items() if k != "worst_batches"},
+         launches=path4)
+    if not (fcodes and fpass and np.mean(fover) >= 0.9 and fstats.get("filtered_g_mean", 0) > 1
+            and path4["mips_g_scan_gmask"] >= 1):
+        raise AssertionError("serve_filtered phase failed")
+
+    # ---- 13. times at the path's shapes (not counted as main-path
+    # launches) ----
+    qb = qd[0]
     q8, qs = quantize_queries(qb)
-    ck = mips_g_scan(q8, engine.vectors, n_valid, rb, m)
-    cp = mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m)
-    err = int((ck.long() - cp.long()).abs().max())
-    b1_err = max(b1_err, err)
-    emit("b1", n_valid=n_valid, merge_tiles=m, shape=list(ck.shape),
-         bit_equal=torch.equal(ck, cp), max_abs_err=err)
-    if not torch.equal(ck, cp):
-        raise AssertionError("B1 kernel disagrees with its plain version on the 1M index")
-    del ck, cp
-    scan_k = cuda_ms(lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m), 10)
-    scan_p = cuda_ms(lambda: mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m), 3)
+    nrows = engine.padded_rows
+    out_bytes = 1024 * (nrows // (rb * m)) * 128 * 4
+    times = {}
+
+    def timed(name, kernel, plain, nbytes, ops, kind, plain_iters=3):
+        times[name] = {"ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, plain_iters),
+                       **bound(nbytes, ops, kind), "library_ms": None}
+
+    timed("mips_g_scan", lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m),
+          lambda: mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m),
+          nrows * D + 1024 * D + out_bytes, 2 * 1024 * n_valid * D, "int8")
+    # masked forms: only the passing rows' products and codes are needed
+    n_year = int(host_masks[0].sum())
+    timed("mips_g_scan_mask", lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m, mask=year_dev),
+          lambda: mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m, mask=year_dev),
+          nrows + n_year * D + 1024 * D + out_bytes, 2 * 1024 * n_year * D, "int8")
+    st32, g32 = st36[:32].contiguous(), torch.randint(0, 32, (1024,), generator=gcpu, dtype=torch.int32)
+    pass_of = np.array([int(mk.sum()) for mk in host_masks[3:35]])
+    n_union = int(np.logical_or.reduce(host_masks[3:35]).sum())
+    g32 = g32.to(dev)
+    timed("mips_g_scan_gmask",
+          lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m, gmasks=st32, mask_ids=g32),
+          lambda: mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m, gmasks=st32, mask_ids=g32),
+          32 * nrows + n_union * D + 1024 * (D + 4) + out_bytes,
+          2 * int(pass_of[g32.cpu().numpy()].sum()) * D, "int8")
+    qx = quantize_queries(unit_rows(512, D, 14, dev))[0]
+    timed("mips_topk", lambda: mips_topk(qx, xeng.vectors, xeng.scales, NC, None, 40),
+          lambda: mips_topk_plain(qx, xeng.vectors, xeng.scales, NC, None, 40),
+          NC * (D + 4) + 512 * D + 512 * 40 * 8, 2 * 512 * NC * D, "int8", plain_iters=2)
+    qbf = unit_rows(512, D, 15, dev).to(torch.bfloat16)
+    bf_corpus = engine._rescore_device
+    timed("mips_topk_bf16", lambda: mips_topk(qbf, bf_corpus, None, NC, None, 40),
+          lambda: mips_topk_plain(qbf, bf_corpus, None, NC, None, 40),
+          NC * D * 2 + 512 * D * 2 + 512 * 40 * 8, 2 * 512 * NC * D, "bf16", plain_iters=2)
 
     def pipeline(scan):
         def run():
@@ -356,9 +662,6 @@ def main() -> int:
 
     pipe_k = cuda_ms(pipeline(mips_g_scan), 10)
     pipe_p = cuda_ms(pipeline(mips_g_scan_plain), 3)
-    ids_mask, _ = encoder._prep_batch(texts[:512], [encoder.tokenizer.tokenize(t) for t in texts[:512]],
-                                      list(range(512)))
-    t = torch.from_numpy(ids_mask).to(dev)
     with torch.inference_mode():
         enc_k = cuda_ms(lambda: encode_pooled(params, t[0], t[1], cfg, fused="on"), 5)
         enc_p = cuda_ms(lambda: encode_pooled(params, t[0], t[1], cfg, fused="plain"), 5)
@@ -371,20 +674,32 @@ def main() -> int:
     msk = t[1].to(torch.int32).contiguous()
     wq = torch.ones(DH, device=dev)
     kwargs = dict(num_heads=H, num_kv_heads=HK, head_dim=DH, eps=1e-6, causal=True)
-    att_k = cuda_ms(lambda: fused_qknorm_rope_attention(qa, ka, va, wq, wq, cos, sin, msk, **kwargs), 20)
-    att_p = cuda_ms(lambda: fused_qknorm_rope_attention_plain(
-        qa, ka, va, wq, wq, cos, sin, msk, scale=1.0 / np.sqrt(DH), **kwargs), 5)
-    emit("times", gpu=gpu,
-         scan_ms={"kernel": scan_k, "plain": scan_p, "shape": [1024, NC, D]},
+    live = msk.sum(1).double()
+    # causal pairs of live tokens, QK^T and PV at 2 operations a product
+    att_ops = float(4 * H * DH * (live * (live + 1) / 2).sum())
+    att_bytes = (qa.numel() * 2 + ka.numel() * 2 * 2 + qa.numel() * 2
+                 + cos.numel() * 4 * 2 + msk.numel() * 4 + DH * 4 * 2)
+    timed("qknorm_rope_attention",
+          lambda: fused_qknorm_rope_attention(qa, ka, va, wq, wq, cos, sin, msk, **kwargs),
+          lambda: fused_qknorm_rope_attention_plain(
+              qa, ka, va, wq, wq, cos, sin, msk, scale=1.0 / np.sqrt(DH), **kwargs),
+          att_bytes, att_ops, "bf16", plain_iters=5)
+    emit("times", gpu=gpu, kernels=times,
+         shapes={"mips_g_scan*": [1024, NC, D, rb, m], "mips_topk": [512, NC, D, 40],
+                 "qknorm_rope_attention": [512, S, H, HK, DH]},
          scan_rescore_ms_per_batch={"kernel": pipe_k, "plain": pipe_p, "qps_kernel": 1024 / pipe_k * 1e3},
          encoder_forward_ms={"kernel": enc_k, "plain": enc_p, "shape": [512, S]},
-         attention_ms={"kernel": att_k, "plain": att_p, "shape": [512, S, H, HK, DH]},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          total_s=round(time.perf_counter() - t_start, 1))
 
+    # a filtered batch of at most 32 signatures: ONE grouped scan
+    grouped_batch = [f36[s_] for s_ in sig_of if s_ < 32]
+    qg = qf[: len(grouped_batch)]
     for name, fn in (
         ("encoder_forward_512x64", lambda: encode_pooled(params, t[0], t[1], cfg)),
         ("scan_rescore_b1024", pipeline(mips_g_scan)),
+        (f"filtered_grouped_b{len(grouped_batch)}",
+         lambda: engine.search_vectors(qg, k=10, filters=grouped_batch)),
     ):
         with torch.inference_mode(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -394,17 +709,22 @@ def main() -> int:
         emit("profile", what=name, gpu=gpu, top_device_us=[
             [e.key[:60], round(e.self_device_time_total, 1), e.count] for e in rows])
 
+    sources = {
+        "mips_g_scan": ("theoremsearch_tpu_torch/csrc/mips_g.cu", "theoremsearch_tpu/kernels/mips.py:300"),
+        "mips_g_scan_mask": ("theoremsearch_tpu_torch/csrc/mips_g.cu", "theoremsearch_tpu/kernels/mips.py:300"),
+        "mips_g_scan_gmask": ("theoremsearch_tpu_torch/csrc/mips_g.cu", "theoremsearch_tpu/kernels/mips.py:300"),
+        "mips_topk": ("theoremsearch_tpu_torch/csrc/mips_topk.cu", "theoremsearch_tpu/kernels/mips.py:75"),
+        "qknorm_rope_attention": ("theoremsearch_tpu_torch/csrc/attention.cu",
+                                  "theoremsearch_tpu/kernels/attention.py:60"),
+    }
+    missing = [n for n, c in main_launches.items() if c < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main paths: {missing}")
     print(gpu)
     print(json.dumps({"kernels": [
-        {"name": "mips_g_scan", "route": "cuda", "source": "theoremsearch_tpu_torch/csrc/mips_g.cu",
-         "replaces": "theoremsearch_tpu/kernels/mips.py:300", "launches": main_launches["mips_g_scan"],
-         "max_abs_err": b1_err, "ms": scan_k, "plain_ms": scan_p},
-        {"name": "qknorm_rope_attention", "route": "cuda",
-         "source": "theoremsearch_tpu_torch/csrc/attention.cu",
-         "replaces": "theoremsearch_tpu/kernels/attention.py:60",
-         "launches": main_launches["qknorm_rope_attention"],
-         "max_abs_err": b2_err, "ms": att_k, "plain_ms": att_p},
-    ]}))
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": main_launches[name], "max_abs_err": err_of[name], **times[name]}
+        for name, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -21,9 +21,14 @@ from theoremsearch_tpu_torch.kernels.attention import (
     fused_qknorm_rope_attention_plain,
 )
 from theoremsearch_tpu_torch.kernels.mips import (
+    mips_g_gmask_launches,
     mips_g_launches,
+    mips_g_mask_launches,
     mips_g_scan,
     mips_g_scan_plain,
+    mips_topk,
+    mips_topk_launches,
+    mips_topk_plain,
     quantize_queries,
 )
 from theoremsearch_tpu_torch.search.engine import SearchEngine
@@ -56,6 +61,98 @@ def test_mips_g_kernel_bit_equal_plain(cuda, n, d, rb, nv, m, b):
     torch.testing.assert_close(ck, mips_g_scan_plain(q8, codes, nv, rb, m), rtol=0, atol=0)
 
 
+def _mask(kind, n, g):
+    m = torch.zeros(n, dtype=torch.int8)
+    if kind == "range":
+        m[n // 5 : n // 2] = 1
+    elif kind == "stripe":
+        m[3::22] = 1
+    elif kind == "three":
+        m[[17, n // 3, n - 200]] = 1
+    elif kind == "random":
+        m = (torch.rand(n, generator=g) < 0.3).to(torch.int8)
+    return m                                   # "none": all excluded
+
+
+@pytest.mark.parametrize("kind", ["range", "stripe", "three", "none", "random"])
+@pytest.mark.parametrize("n,d,rb,nv,m,b", [
+    (16384, 128, 512, 16000, 2, 100),
+    (16384, 1024, 4096, 16384, 4, 64),
+])
+def test_mips_g_masked_kernel_bit_equal_plain(cuda, kind, n, d, rb, nv, m, b):
+    g = torch.Generator().manual_seed(n + d)
+    codes = torch.randint(-127, 128, (n, d), generator=g, dtype=torch.int8).to(cuda)
+    q8 = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8).to(cuda)
+    mask = _mask(kind, n, g).to(cuda)
+    before = mips_g_mask_launches.n
+    ck = mips_g_scan(q8, codes, nv, rb, m, mask=mask)
+    assert mips_g_mask_launches.n == before + 1
+    torch.testing.assert_close(ck, mips_g_scan_plain(q8, codes, nv, rb, m, mask=mask), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_masks", [1, 3, 8, 32, 128])
+def test_mips_g_gmask_kernel_bit_equal_plain(cuda, n_masks):
+    g = torch.Generator().manual_seed(n_masks)
+    n, d, rb, b = 16384, 256, 1024, 130
+    codes = torch.randint(-127, 128, (n, d), generator=g, dtype=torch.int8).to(cuda)
+    q8 = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8).to(cuda)
+    kinds = ["range", "stripe", "three", "none", "random"]
+    gm = torch.stack([_mask(kinds[i % 5], n, g) for i in range(n_masks)]).to(cuda)
+    ids = torch.randint(-1, n_masks + 1, (b,), generator=g, dtype=torch.int32).to(cuda)
+    before = mips_g_gmask_launches.n
+    ck = mips_g_scan(q8, codes, n - 5, rb, 2, gmasks=gm, mask_ids=ids)
+    assert mips_g_gmask_launches.n == before + 1
+    cp = mips_g_scan_plain(q8, codes, n - 5, rb, 2, gmasks=gm, mask_ids=ids)
+    torch.testing.assert_close(ck, cp, rtol=0, atol=0)
+
+
+def _topk_inputs(cuda, dtype, n, d, b, seed, dup=True):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, d), generator=g)
+    if dup:
+        x[100:140] = x[7]                      # duplicate rows: exact ties
+    q = torch.randn((b, d), generator=g)
+    q[0] = x[7]
+    if dtype == torch.int8:
+        amax = x.abs().amax(1, keepdim=True)
+        corpus = torch.round(x / (amax / 127)).clamp(-127, 127).to(torch.int8)
+        scales = (amax[:, 0] / 127).float()
+        qk = quantize_queries(q)[0]
+    else:
+        corpus, scales, qk = x.to(dtype), None, q.to(dtype)
+    bias = torch.where(torch.rand(n, generator=g) < 0.4, float("-inf"), 0.0)
+    to = (lambda t: None if t is None else t.to(cuda).contiguous())
+    return to(qk), to(corpus), to(scales), to(bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1, 10, 40, 64, 65, 400, 1024])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_mips_topk_kernel_matches_plain(cuda, dtype, k, with_bias):
+    n, d, b, nv = 20480, 256, 70, 20400
+    qk, corpus, scales, bias = _topk_inputs(cuda, dtype, n, d, b, seed=k)
+    bias = bias if with_bias else None
+    before = mips_topk_launches.n
+    sk, ik = mips_topk(qk, corpus, scales, nv, bias, k)
+    assert mips_topk_launches.n == before + 1
+    sp, ip = mips_topk_plain(qk, corpus, scales, nv, bias, k)
+    if dtype == torch.int8:                     # exact sums: bit-equal, same tie rule
+        torch.testing.assert_close(sk, sp, rtol=0, atol=0)
+        torch.testing.assert_close(ik, ip, rtol=0, atol=0)
+        return
+    # f32 sums in other orders: scores within 1e-5, ids equal except
+    # where a neighbouring score is within 1e-5
+    fin = torch.isfinite(sp)
+    assert torch.equal(fin, torch.isfinite(sk))
+    assert float((sk[fin] - sp[fin]).abs().max()) <= 1e-5 * max(1.0, float(sp[fin].abs().max()))
+    near = torch.zeros_like(fin)
+    gap = (sp[:, 1:] - sp[:, :-1]).abs() <= 1e-5
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    near[:, -1] = True                          # the k-th slot's neighbour is outside the list
+    assert torch.equal(ik[~near], ip[~near])
+
+
 @pytest.mark.parametrize("s", [1, 17, 64, 128])
 def test_attention_kernel_matches_plain(cuda, s):
     g = torch.Generator(device=cuda).manual_seed(s)
@@ -86,6 +183,27 @@ def test_engine_on_card_matches_cpu(cuda):
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     s_c, i_c = SearchEngine(idx, rescore_vectors=emb, device="cpu").search_vectors(q, k=10)
     s_g, i_g = SearchEngine(idx, rescore_vectors=emb, device=cuda).search_vectors(q, k=10)
+    np.testing.assert_array_equal(i_g, i_c)
+    np.testing.assert_allclose(s_g, s_c, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cfg", [dict(dtype="int8"), dict(dtype="bfloat16")])
+def test_exact_route_on_card_matches_cpu(cuda, cfg):
+    from theoremsearch_tpu_torch.search.filters import SearchFilters
+    from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
+
+    rng = np.random.default_rng(1)
+    emb = rng.standard_normal((8000, 128)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    q = rng.standard_normal((32, 128)).astype(np.float32)
+    meta = CorpusMetadata.from_rows([{"year": 2000 + i % 20, "link": "https://arxiv.org/abs/1"}
+                                     for i in range(8000)])
+    idx = FlatIndex.build(emb, config=IndexConfig(**cfg))
+    f = SearchFilters(year_range=(2003, 2006))
+    engines = [SearchEngine(idx, meta=meta, rescore_vectors=emb, device=dv) for dv in ("cpu", cuda)]
+    before = mips_topk_launches.n
+    (s_c, i_c), (s_g, i_g) = (e.search_vectors(q, k=10, filters=f) for e in engines)
+    assert mips_topk_launches.n == before + 1
     np.testing.assert_array_equal(i_g, i_c)
     np.testing.assert_allclose(s_g, s_c, rtol=1e-5)
 

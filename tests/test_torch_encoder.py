@@ -38,7 +38,7 @@ def _cos(a, b):
 
 def _carry(jcfg, seed=0):
     jp = j_init_params(jcfg, jax.random.PRNGKey(seed))
-    return jp, params_from_jax(jax.device_get(jp))
+    return jp, params_from_jax(jax.device_get(jp), device="cpu")
 
 
 def test_params_from_jax_keeps_bf16_bits():

@@ -52,7 +52,7 @@ def engines(data):
     )
     teng = SearchEngine(
         FlatIndex.build(emb, config=IndexConfig(**CFG)), meta=CorpusMetadata.from_rows(rows),
-        rescore_vectors=emb,
+        rescore_vectors=emb, device="cpu",
     )
     return jeng, teng
 
@@ -101,20 +101,42 @@ def test_search_with_join_and_rerank_matches_jax(data, engines, weight):
 
 
 def test_trivial_filter_served_and_excluding_filter_not_ported(data, engines):
+    """A filter that excludes nothing takes the unfiltered path; one that
+    excludes rows is now served, with the JAX engine's ids."""
     _, q, _ = data
-    _, teng = engines
+    jeng, teng = engines
     plain = teng.search_vectors(q[:4], k=10)[1]
     wide = SearchFilters(year_range=(1900, 2100))       # excludes nothing
     np.testing.assert_array_equal(teng.search_vectors(q[:4], k=10, filters=wide)[1], plain)
-    with pytest.raises(NotImplementedError):
-        teng.search_vectors(q[:4], k=10, filters=SearchFilters(sources=("arXiv",)))
+    _, ti = teng.search_vectors(q[:4], k=10, filters=SearchFilters(sources=("arXiv",)))
+    _, ji = jeng.search_vectors(q[:4], k=10, filters=JSearchFilters(sources=("arXiv",)))
+    np.testing.assert_array_equal(ti, ji)
+    assert (ti % 3 != 0).all()                          # arXiv rows only
     assert teng.search(q[0], SearchFilters(sources=())) == []
 
 
 def test_unported_configurations_raise(data):
+    """A mesh and live updates still raise; a bf16 index and a global
+    int8 index without a rescore copy now build on the exact route."""
     emb, _, _ = data
+    idx = FlatIndex.build(emb[:2048], config=IndexConfig(**CFG))
     with pytest.raises(NotImplementedError):
-        SearchEngine(FlatIndex.build(emb[:2048], config=IndexConfig(**CFG)))   # no rescore copy
+        SearchEngine(idx, device="cpu", mesh=object())
+    eng = SearchEngine(idx, device="cpu")                # no rescore copy
+    assert not eng._speed_ok
     with pytest.raises(NotImplementedError):
-        SearchEngine(FlatIndex.build(emb[:2048], config=IndexConfig(dtype="bfloat16")),
-                     rescore_vectors=emb[:2048])
+        eng.add_documents(emb[:1])
+    with pytest.raises(NotImplementedError):
+        eng.delete_documents([0])
+    bf = SearchEngine(FlatIndex.build(emb[:2048], config=IndexConfig(dtype="bfloat16")),
+                      rescore_vectors=emb[:2048], device="cpu")
+    assert not bf._speed_ok and bf.search_vectors(emb[:2], k=1)[1][:, 0].tolist() == [0, 1]
+
+
+def test_engine_without_device_needs_the_card(data, monkeypatch):
+    """Entry points run on the card unless given a device: with no CUDA,
+    a SearchEngine without one raises instead of running on the CPU."""
+    emb, _, _ = data
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SearchEngine(FlatIndex.build(emb[:2048], config=IndexConfig(**CFG)), rescore_vectors=emb[:2048])

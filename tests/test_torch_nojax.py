@@ -55,7 +55,7 @@ def test_module_list_covers_the_slice():
                  "search.engine", "serve.scheduler", "serve.app", "serve.http_api",
                  "index.flat", "index.quant", "eval.oracle"):
         assert f"theoremsearch_tpu_torch.{want}" in MODULES
-    assert {p.name for p in (PKG / "csrc").iterdir()} >= {"mips_g.cu", "attention.cu"}
+    assert {p.name for p in (PKG / "csrc").iterdir()} >= {"mips_g.cu", "mips_topk.cu", "attention.cu"}
     importlib.import_module("theoremsearch_tpu_torch.kernels._build")
 
 

@@ -30,7 +30,7 @@ TEXTS = [f"every {w} of rank {i} has a {v} decomposition" for i, (w, v) in enume
 @pytest.fixture(scope="module")
 def stack():
     cfg = EncoderConfig.tiny()
-    params = init_params(cfg, torch.Generator().manual_seed(0))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     enc = BatchedEncoder(params, cfg, batch_size=64)
     rng = np.random.default_rng(1)
     corpus = rng.standard_normal((N, cfg.embedding_dim)).astype(np.float32)
@@ -42,7 +42,7 @@ def stack():
           "theorem_body": f"$x_{i}$"}
          for i in range(N)])
     engine = SearchEngine(FlatIndex.build(corpus, config=IndexConfig(dtype="int8", int8_scale="global")),
-                          meta=meta, rescore_vectors=corpus)
+                          meta=meta, rescore_vectors=corpus, device="cpu")
     sched = BatchScheduler(engine, max_batch=64, max_wait_ms=20, encode_fn=enc.encode_device)
     service = SearchService(engine, enc.encode, scheduler=sched)
     server = SearchServer(service, "127.0.0.1", 0).start()
@@ -97,5 +97,7 @@ def test_health_and_unported_routes(stack):
         assert json.loads(r.read()) == {"status": "ok", "corpus": N}
     code, body = _post(server.port, "/documents", {"documents": [{"slogan": "new"}]})
     assert code == 501 and "not ported" in body["error"]
-    code, body = _post(server.port, "/search", {"query": "x", "filters": {"sources": ["arXiv"]}})
-    assert code == 501
+    # filters reach the engine: the last 8 rows are Stacks Project docs
+    code, body = _post(server.port, "/search", {"query": TEXTS[3], "filters": {"sources": ["Stacks Project"]}})
+    assert code == 200
+    assert sorted(r["doc_id"] for r in body["results"]) == list(range(N - 8, N))

@@ -2,15 +2,27 @@
 // candidate matrix.
 //
 // Replaces the TPU kernel theoremsearch_tpu/kernels/mips.py:_mips_g_kernel
-// (driven by fused_mips_topk_g), unmasked form. For output block j, query b
+// (driven by fused_mips_topk_g), all three forms: unmasked, one filter mask
+// for the batch, and one mask row per query. For output block j, query b
 // and lane l it writes
 //
 //     max over t < M, grp < G of
 //         (q8[b] . codes[(j*M + t)*rb + grp*128 + l]) << log2(G*M) | (t*G + grp)
 //
-// with a row >= n_valid contributing INT32_MIN + 1 instead (the reference's
-// INT32_MIN sentinel). G = rb / 128 column groups per corpus tile, M =
-// merge_tiles tiles per output block.
+// with a row >= n_valid, or a row the query's mask excludes, contributing
+// INT32_MIN + 1 instead (the reference's INT32_MIN sentinel), before the
+// maximum. G = rb / 128 column groups per corpus tile, M = merge_tiles
+// tiles per output block.
+//
+// Masks: `masks` is (n_masks, n_pad) int8, 0 = excluded; query b reads row
+// mask_ids[b] (row 0 when mask_ids is null: the one-mask form), and an id
+// outside [0, n_masks) excludes every row, as the reference's one-hot
+// selector does. The TPU picked each query's mask row with a (B, G) x
+// (G, row_block) one-hot matmul because its matrix unit wanted one; here
+// the block stages the (n_masks, 128) mask bytes of each 128-row group in
+// shared memory beside the corpus ring (one read of the stack per block,
+// not per query) and each accumulator looks up its query's byte. Masking
+// is a template parameter, so the unmasked form keeps its code.
 //
 // What bounds it on an H100: an int8 GEMM of (B, D) x (D, N) whose (B, N)
 // int32 product is reduced on the fly to (B, N / (G*M)): 2*B*N*D integer
@@ -44,6 +56,7 @@ constexpr int BK = 64;        // K bytes per pipeline stage
 constexpr int SSTR = BK + 16; // padded shared row: 20 words, conflict-free
 constexpr int THREADS = 128;  // 4 warps: 2 (queries) x 2 (lanes)
 constexpr int32_t PACK_INVALID = -2147483647;  // kernels/mips.py INT32_MIN
+constexpr int MAX_MASKS = 128;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -69,12 +82,15 @@ __device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+template <bool MASKED>
 __global__ void __launch_bounds__(THREADS) mips_g_scan_kernel(
     const int8_t* __restrict__ q8, const int8_t* __restrict__ codes,
-    int32_t* __restrict__ out, int B, int D, int n_valid, int row_block,
-    int merge_tiles, int g_shift) {
+    int32_t* __restrict__ out, int B, int D, int n_pad, int n_valid, int row_block,
+    int merge_tiles, int g_shift, const int8_t* __restrict__ masks,
+    const int32_t* __restrict__ mask_ids, int n_masks) {
   __shared__ __align__(16) int8_t As[2][BM * SSTR];
   __shared__ __align__(16) int8_t Bs[2][BN * SSTR];
+  __shared__ __align__(16) int8_t Ms[MASKED ? MAX_MASKS * BN : 16];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = warp & 1, wn = warp >> 1;
@@ -85,6 +101,18 @@ __global__ void __launch_bounds__(THREADS) mips_g_scan_kernel(
   const int n_groups = G * merge_tiles;
   const int nk = (D + BK - 1) / BK;
   const long long W = (long long)gridDim.y * 128;
+
+  // mask row of each of this thread's four query rows (mt, h); -1 = none
+  int mrow[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + wm * 32 + mt * 16 + gq + h * 8;
+      int r = 0;
+      if (MASKED && mask_ids != nullptr) r = q < B ? mask_ids[q] : -1;
+      mrow[mt][h] = (r >= 0 && r < n_masks) ? r : -1;
+    }
 
   int32_t best[2][8][4];
 #pragma unroll
@@ -115,6 +143,14 @@ __global__ void __launch_bounds__(THREADS) mips_g_scan_kernel(
         const bool ok = kb < D;
         cp_async16(&Bs[st][r * SSTR + (idx & 3) * 16],
                    ok ? codes + (size_t)(row0 + r) * D + kb : codes, ok ? 16 : 0);
+      }
+      if (MASKED && k0 == 0) {
+        // the group's (n_masks, 128) mask bytes, in the first K slice's
+        // commit group: complete before the epilogue reads them
+        for (int idx = tid; idx < n_masks * 8; idx += THREADS) {
+          const int r = idx >> 3, c = (idx & 7) * 16;
+          cp_async16(&Ms[r * BN + c], masks + (size_t)r * n_pad + row0 + c, 16);
+        }
       }
       cp_async_commit();
     };
@@ -168,12 +204,18 @@ __global__ void __launch_bounds__(THREADS) mips_g_scan_kernel(
         const bool valid = row0 + col < (long long)n_valid;
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
+          bool keep = valid;
+          if (MASKED) {
+            const int r = mrow[mt][i >> 1];
+            keep = keep && r >= 0 && Ms[r * BN + col] != 0;
+          }
           const int32_t packed =
-              valid ? ((int32_t)((uint32_t)acc[mt][nt][i] << g_shift) | g) : PACK_INVALID;
+              keep ? ((int32_t)((uint32_t)acc[mt][nt][i] << g_shift) | g) : PACK_INVALID;
           best[mt][nt][i] = max(best[mt][nt][i], packed);
         }
       }
     }
+    if (MASKED) __syncthreads();  // the next group's first load overwrites Ms
   }
 
 #pragma unroll
@@ -197,16 +239,25 @@ __global__ void __launch_bounds__(THREADS) mips_g_scan_kernel(
 
 extern "C" int ts_mips_g_scan(const void* q8, const void* codes, void* out, int B,
                               int D, int n_pad, int n_valid, int row_block,
-                              int merge_tiles, void* stream) {
+                              int merge_tiles, const void* masks, const void* mask_ids,
+                              int n_masks, void* stream) {
   const int g_eff = (row_block / 128) * merge_tiles;
   int g_shift = 0;
   while ((1 << g_shift) < g_eff) ++g_shift;
   const int n_blocks = n_pad / (row_block * merge_tiles);
-  if (n_blocks > 65535) return (int)cudaErrorInvalidValue;
+  if (n_blocks > 65535 || n_masks > MAX_MASKS || (masks != nullptr && n_masks < 1))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((B + BM - 1) / BM, n_blocks);
-  mips_g_scan_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)q8, (const int8_t*)codes, (int32_t*)out, B, D, n_valid,
-      row_block, merge_tiles, g_shift);
+  if (masks == nullptr) {
+    mips_g_scan_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)q8, (const int8_t*)codes, (int32_t*)out, B, D, n_pad, n_valid,
+        row_block, merge_tiles, g_shift, nullptr, nullptr, 0);
+  } else {
+    mips_g_scan_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)q8, (const int8_t*)codes, (int32_t*)out, B, D, n_pad, n_valid,
+        row_block, merge_tiles, g_shift, (const int8_t*)masks, (const int32_t*)mask_ids,
+        n_masks);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,7 @@ from ..kernels.attention import (
     fused_qknorm_rope_attention,
     fused_qknorm_rope_attention_plain,
 )
-from ..utils.device import tf32_off
+from ..utils.device import resolve_device, tf32_off
 
 Params = dict[str, Any]
 
@@ -36,11 +36,13 @@ _BF16 = torch.bfloat16
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def init_params(cfg: EncoderConfig, generator: torch.Generator, device="cpu") -> Params:
+def init_params(cfg: EncoderConfig, generator: torch.Generator, device=None) -> Params:
     """Random init from an explicit generator, which must live on
-    `device`: unit norms and N(0, 0.02^2) weights, Qwen3's published
-    initializer_range. (The reference draws dense weights N(0, 1/in);
-    tests carry JAX weights over rather than match its draws.)"""
+    `device` (default: the card; pass "cpu" for a CPU run): unit norms
+    and N(0, 0.02^2) weights, Qwen3's published initializer_range. (The
+    reference draws dense weights N(0, 1/in); tests carry JAX weights
+    over rather than match its draws.)"""
+    device = resolve_device(device)
     pdtype = _DTYPES[cfg.param_dtype]
     qkv_dim = cfg.head_dim * cfg.num_heads
     kv_dim = cfg.head_dim * cfg.num_kv_heads
@@ -79,9 +81,11 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(np_params: Params, device="cpu") -> Params:
+def params_from_jax(np_params: Params, device=None) -> Params:
     """JAX params (a pytree of numpy arrays, e.g. jax.device_get(params))
-    -> torch params with the same structure and dtypes."""
+    -> torch params with the same structure and dtypes, on `device`
+    (default: the card; pass "cpu" for a CPU run)."""
+    device = resolve_device(device)
     if isinstance(np_params, dict):
         return {k: params_from_jax(v, device) for k, v in np_params.items()}
     if isinstance(np_params, (list, tuple)):

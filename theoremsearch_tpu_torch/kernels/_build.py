@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All sources under `csrc/` compile with nvcc into ONE shared library with
-a plain C interface, loaded through ctypes. The library is built at first
-use into `theoremsearch_tpu_torch/_build/`, named by a hash of the
-sources and the flags, so an edited source rebuilds and an unchanged one
-loads the existing file. Nothing here runs at import time: the CPU test
+All sources under `csrc/` compile with nvcc, one process per source,
+all started together, into ONE shared library with a plain C interface,
+loaded through ctypes. The library is built at first use into
+`theoremsearch_tpu_torch/_build/`, named by a hash of the sources and the
+flags, so an edited source rebuilds and an unchanged one loads the
+existing file. Nothing here runs at import time: the CPU test
 environment has no nvcc.
 """
 
@@ -23,10 +24,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-    "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -51,8 +51,12 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ts_mips_g_scan.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.ts_mips_g_scan.argtypes = [p, p, p, i, i, i, i, i, i, p, p, i, p]
     lib.ts_mips_g_scan.restype = i
+    lib.ts_mips_topk_chunks.argtypes = [i, i]
+    lib.ts_mips_topk_chunks.restype = i
+    lib.ts_mips_topk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.ts_mips_topk.restype = i
     lib.ts_qknorm_rope_attention.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, p,
     ]
@@ -61,9 +65,40 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ts_error_string.restype = ctypes.c_char_p
 
 
+def _compile(srcs: list[Path], so: Path) -> None:
+    """One nvcc per source, run in parallel, then one link."""
+    global build_seconds, ptxas_log
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)
+    ]
+    logs, failed = [], []
+    for s, pr in zip(srcs, procs):
+        out, _ = pr.communicate(timeout=900)
+        logs.append(f"== {s.name}\n{out}")
+        if pr.returncode != 0:
+            failed.append(s.name)
+    ptxas_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{ptxas_log[-6000:]}")
+    tmp = so.with_suffix(f".{tag}")
+    res = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True, timeout=300)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{(res.stdout + res.stderr)[-6000:]}")
+    build_seconds = time.perf_counter() - t0
+    tmp.replace(so)
+
+
 def load() -> ctypes.CDLL:
     """The kernels' library, built from `csrc/` on first use."""
-    global _lib, build_seconds, ptxas_log
+    global _lib
     if _lib is not None:
         return _lib
     with _lock:
@@ -80,16 +115,7 @@ def load() -> ctypes.CDLL:
         with open(BUILD_DIR / "build.lock", "w") as lk:
             fcntl.flock(lk, fcntl.LOCK_EX)
             if not so.exists():
-                tmp = so.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                       *(str(s) for s in srcs if s.suffix == ".cu")]
-                t0 = time.perf_counter()
-                res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-                build_seconds = time.perf_counter() - t0
-                ptxas_log = res.stdout + res.stderr
-                if res.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({res.returncode}):\n{ptxas_log[-6000:]}")
-                tmp.replace(so)
+                _compile([s for s in srcs if s.suffix == ".cu"], so)
         lib = ctypes.CDLL(str(so))
         _declare(lib)
         _lib = lib

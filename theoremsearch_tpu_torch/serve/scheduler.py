@@ -8,9 +8,11 @@ so throughput grows with the number of queries each scan carries. This
 scheduler collects concurrently-submitted queries into batches of up to
 ``max_batch`` (or whatever arrives within ``max_wait_ms``), runs ONE
 engine dispatch per batch on a dedicated dispatch thread, and resolves
-per-caller futures from a pool of resolver threads. Filtered queries
-batch only with queries sharing the same filter signature (the engine
-port serves only filters that exclude nothing so far).
+per-caller futures from a pool of resolver threads. Filtered queries are
+held for a short window; on an engine with the grouped scan
+(`supports_grouped_filters`) the whole held window, whatever its filter
+signatures, runs as ONE grouped dispatch (a mask row per query), and
+otherwise each signature's requests batch together.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ import torch
 from ..search.engine import SearchEngine
 from ..search.filters import SearchFilters, filter_key as _filter_key
 from ..utils.shapes import pow2_bucket
+
+# hold-bucket key of the grouped window: every filtered request, whatever
+# its signature, when the engine runs grouped scans
+_GROUPED = "__grouped__"
 
 
 class SchedulerOverloaded(RuntimeError):
@@ -61,7 +67,10 @@ class _BatchTrace:
     resolve_wait_ms: float = 0.0   # dispatched -> a resolver picks it up
     sync_ms: float = 0.0           # finalize(): device->host sync + host drops
     total_ms: float = 0.0          # oldest submit -> futures resolved
-    g: int = 0                     # filter signatures in the batch (0 or 1)
+    g: int = 0                     # distinct filter signatures in the dispatch
+    scans: int = 0                 # filtered scans it ran (a grouped window
+                                   # above max_filter_groups splits)
+    mask_build_ms: float = 0.0     # first-sight filter-mask builds in scan_ms
 
 
 class BatchScheduler:
@@ -193,6 +202,12 @@ class BatchScheduler:
             }
         if traces:
             s["stages_ms"] = self._stage_percentiles(traces)
+            filt = [t for t in traces if t.g]
+            # filter signatures per filtered scan: above 1 only when the
+            # grouped window coalesces mixed signatures into one scan
+            n_scans = sum(t.scans for t in filt)
+            s["filtered_batches"] = len(filt)
+            s["filtered_g_mean"] = sum(t.g for t in filt) / n_scans if n_scans else 0.0
         return s
 
     @staticmethod
@@ -201,7 +216,7 @@ class BatchScheduler:
         stage mix of the WORST batches — the attribution a p99
         investigation needs (which stage do tail batches spend in?)."""
         fields = ("queue_ms", "encode_ms", "scan_ms", "resolve_wait_ms",
-                  "sync_ms", "total_ms")
+                  "sync_ms", "total_ms", "mask_build_ms")
         out: dict[str, Any] = {}
         for f in fields:
             v = sorted(getattr(t, f) for t in traces)
@@ -294,14 +309,18 @@ class BatchScheduler:
         # deadline passes; unfiltered requests dispatch immediately
         now = time.time()
         immediate: list[_Request] = []
+        # an engine with the grouped scan coalesces the WHOLE filtered
+        # window into one scan (one hold bucket across every signature)
+        grouped = getattr(self.engine, "supports_grouped_filters", False)
         for r in batch:
             key = _filter_key(r.filters)
             if key == ():
                 immediate.append(r)
             else:
-                if key not in self._held:
-                    self._held_deadline[key] = now + self.filter_coalesce_s
-                self._held.setdefault(key, []).append(r)
+                hkey = _GROUPED if grouped else key
+                if hkey not in self._held:
+                    self._held_deadline[hkey] = now + self.filter_coalesce_s
+                self._held.setdefault(hkey, []).append(r)
         groups: list[tuple[tuple, list[_Request]]] = []
         total = 0
         if immediate:
@@ -323,6 +342,12 @@ class BatchScheduler:
                 continue  # defer (bounded: force-release past 4x deadline)
             reqs = self._held.pop(key)
             self._held_deadline.pop(key)
+            if key == _GROUPED and len(reqs) > self.max_batch:
+                # bound the grouped scan to max_batch; the remainder
+                # re-holds and releases next cycle
+                self._held[_GROUPED] = reqs[self.max_batch :]
+                self._held_deadline[_GROUPED] = now
+                reqs = reqs[: self.max_batch]
             groups.append((key, reqs))
             total += len(reqs)
         if not groups:
@@ -354,7 +379,7 @@ class BatchScheduler:
                 text_reqs = []
         text_pos = {id(r): i for i, r in enumerate(text_reqs)}
 
-        # one ASYNC dispatch per filter group
+        # one ASYNC dispatch per filter group (the grouped window is one)
         n_groups = 0
         n_queries = 0
         for key, reqs in groups:
@@ -363,6 +388,7 @@ class BatchScheduler:
             reqs_ord = treqs + vreqs
             try:
                 t_g = time.monotonic()
+                mb0 = getattr(self.engine, "filter_mask_build_s", 0.0)
                 q = self._group_queries(
                     enc,
                     [text_pos[id(r)] for r in treqs],
@@ -370,7 +396,17 @@ class BatchScheduler:
                     np.stack([r.vec for r in vreqs]) if vreqs else None,
                 )
                 k_max = max(r.k for r in reqs_ord)
-                filters_arg = reqs_ord[0].filters if key else None
+                if key == _GROUPED:
+                    filters_arg = [r.filters for r in reqs_ord]
+                    n_sigs = len({_filter_key(r.filters) for r in reqs_ord})
+                    cap = getattr(self.engine, "max_filter_groups", n_sigs)
+                    n_scans = -(-n_sigs // cap)
+                elif key:
+                    filters_arg = reqs_ord[0].filters
+                    n_sigs = n_scans = 1
+                else:
+                    filters_arg = None
+                    n_sigs = n_scans = 0
                 fin = self.engine.search_vectors_async(
                     q, k=k_max, filters=filters_arg
                 )
@@ -380,7 +416,11 @@ class BatchScheduler:
                     queue_ms=1000.0 * (t_drain - min(r.t_submit for r in reqs_ord)),
                     encode_ms=encode_ms,
                     scan_ms=1000.0 * (t_put - t_g),
-                    g=1 if key else 0,
+                    g=n_sigs,
+                    scans=n_scans,
+                    mask_build_ms=1000.0 * (
+                        getattr(self.engine, "filter_mask_build_s", 0.0) - mb0
+                    ),
                 )
                 self._rq.put((reqs_ord, fin, trace, t_put))
                 n_groups += 1

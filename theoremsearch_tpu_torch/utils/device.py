@@ -10,16 +10,22 @@ from __future__ import annotations
 
 import contextlib
 import subprocess
+import threading
 
 import torch
 
 
 def require_cuda() -> torch.device:
-    """The CUDA device, or a RuntimeError: measurement paths never fall
-    back to the CPU."""
+    """The CUDA device, or a RuntimeError: entry points run on the card
+    unless the caller passes a device, and never fall back to the CPU."""
     if not torch.cuda.is_available():
         raise RuntimeError("a CUDA device is required (torch.cuda.is_available() is False)")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; None means the card (`require_cuda`)."""
+    return require_cuda() if device is None else torch.device(device)
 
 
 def gpu_name_power() -> str:
@@ -31,15 +37,32 @@ def gpu_name_power() -> str:
     return out.strip().splitlines()[0].strip()
 
 
+_tf32_lock = threading.Lock()
+_tf32_depth = 0
+_tf32_saved: tuple[bool, bool] | None = None
+
+
 @contextlib.contextmanager
 def tf32_off():
     """fp32 matmuls at full fp32 inside the block (the reference's
     Precision.HIGHEST): the exact oracle, the rescore and the plain
-    kernel versions must not run on TF32, which keeps ~3 decimal digits."""
-    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    kernel versions must not run on TF32, which keeps ~3 decimal digits.
+
+    The flags are process-wide, so the guard is reference-counted: the
+    first thread in saves them and turns TF32 off, the last thread out
+    restores them, and no thread inside ever sees TF32 back on."""
+    global _tf32_depth, _tf32_saved
+    with _tf32_lock:
+        if _tf32_depth == 0:
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        with _tf32_lock:
+            _tf32_depth -= 1
+            if _tf32_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = _tf32_saved
+                _tf32_saved = None
