@@ -15,9 +15,19 @@ exits non-zero (there is no CPU path):
  4. b2       fused attention kernel vs its plain version, H=16/8,
              Dh=128, S in {32, 64, 128} at B=64 and the encoder's
              (B, S) = (512, 64), ragged masks.
+ 4b. b3b4    the whole-layer int8 kernels B4 (MLP block) and B3
+             (attention block) vs their plain versions on one full-width
+             layer of random weights quantized by quantize_params_int8:
+             (B, S) = (512, 64) with the slogans' ragged masks, (64, 32),
+             (64, 128), and an MLP input of 70 * 128 + 70 rows; the norm +
+             quant stage's int8 codes bit-equal.
  5. encoder  full-width Qwen3-0.6B-class encoder (28 layers, random bf16
              weights from a seeded generator): kernel path vs plain path
              cosine, then 4,096 slogans through BatchedEncoder.
+ 5b. encoder_int8  the same encoder in int8 (w8a8) serving mode, every
+             layer on B3 and B4: kernel vs plain pooled cosine, the plain
+             path at B 256 vs 512 (the stack's own floor), int8 vs bf16,
+             then 4,096 slogans through BatchedEncoder(quant="int8").
  6. index    1,048,576 x 1024 corpus (random unit rows; the first 4,096
              replaced by the encoder's embeddings of synthetic slogans),
              int8-global FlatIndex + bf16 rescore copy, metadata laid out
@@ -27,6 +37,9 @@ exits non-zero (there is no CPU path):
  7. serve    SearchService + BatchScheduler + SearchServer on 127.0.0.1,
              128 POST /search from 64 client threads after one warm
              round of the same, overlap@10 vs the direct path.
+ 7b. serve_int8  phase 7 with the int8 encoder behind the scheduler:
+             overlap@10 vs the direct path with the same encoder, B3 and
+             B4 launched on the served path.
  8. b1m      B1's mask and gmask forms vs plain at the phase-3 shapes
              (run right after phase 3, on its corpus)
              (contiguous range, striped category, 3 survivors, none;
@@ -51,11 +64,12 @@ exits non-zero (there is no CPU path):
              grouped scans carrying more than one signature.
 13. times    kernel / plain / bound times at the main path's shapes (B1
              unmasked, mask and gmask G=32 at B=1024 on 1M; B5 at B=512
-             on 1M int8 per-row and bf16; B2 at (512, 64)), and
-             torch.profiler tables of one encoder forward, one scan +
-             rescore batch and one filtered grouped batch.
+             on 1M int8 per-row and bf16; B2, B3 and B4 at (512, 64)), the
+             bf16 and int8 encoder forwards, and torch.profiler tables of
+             one bf16 and one int8 encoder forward, one scan + rescore
+             batch and one filtered grouped batch.
 
-Each path (phases 5-7, 9, 11, 12) runs with every launch counter set to
+Each path (phases 5-7, 7b, 9, 11, 12) runs with every launch counter set to
 0 just before it and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
@@ -160,11 +174,19 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 
-def bound(nbytes: float, ops: float, kind: str) -> dict:
+def bound(nbytes: float, ops: dict) -> dict:
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate for their type."""
-    tb, to = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind]
+    memory rate and operations over the peak rate for their type
+    (`ops` maps a type to its count; the times of the types add)."""
+    tb = nbytes / HBM_BYTES_S
+    to = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
     return {"bound_ms": 1e3 * max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def agreement(out, ref) -> tuple[float, float, float]:
+    """(cosine, max abs difference, max |ref|) of two tensors, in f64."""
+    a, b = out.double().flatten(), ref.double().flatten()
+    return float(a @ b / (a.norm() * b.norm())), float((a - b).abs().max()), float(b.abs().max())
 
 
 def topk_agree(sk, ik, sp, ip, exact: bool) -> tuple[bool, float]:
@@ -202,7 +224,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from theoremsearch_tpu_torch.core.config import EncoderConfig, IndexConfig
     from theoremsearch_tpu_torch.encoder.batching import BatchedEncoder
-    from theoremsearch_tpu_torch.encoder.model import encode_pooled, init_params
+    from theoremsearch_tpu_torch.encoder.model import (
+        _rope_tables, encode_pooled, init_params, quantize_params_int8,
+    )
+    from theoremsearch_tpu_torch.encoder.tokenizer import SimpleTokenizer
     from theoremsearch_tpu_torch.eval.metrics import recall_vs_exact
     from theoremsearch_tpu_torch.eval.oracle import exact_topk
     from theoremsearch_tpu_torch.index.flat import FlatIndex
@@ -210,6 +235,11 @@ def main() -> int:
     from theoremsearch_tpu_torch.kernels import _build
     from theoremsearch_tpu_torch.kernels.attention import (
         attention_launches, fused_qknorm_rope_attention, fused_qknorm_rope_attention_plain,
+    )
+    from theoremsearch_tpu_torch.kernels.layer_int8 import (
+        attn_int8_launches, fused_attn_int8_layer, fused_attn_int8_layer_plain,
+        fused_mlp_int8_layer, fused_mlp_int8_layer_plain, kernel_layout, mlp_int8_launches,
+        rmsnorm_quant_plain,
     )
     from theoremsearch_tpu_torch.kernels.mips import (
         auto_merge_tiles, device_rescore, mips_g_gmask_launches, mips_g_launches,
@@ -233,6 +263,7 @@ def main() -> int:
         "mips_g_scan": mips_g_launches, "mips_g_scan_mask": mips_g_mask_launches,
         "mips_g_scan_gmask": mips_g_gmask_launches, "mips_topk": mips_topk_launches,
         "qknorm_rope_attention": attention_launches,
+        "fused_attn_int8_layer": attn_int8_launches, "fused_mlp_int8_layer": mlp_int8_launches,
     }
     main_launches = dict.fromkeys(counters, 0)
 
@@ -355,13 +386,64 @@ def main() -> int:
         if not (cosv > 0.9999 and err <= 2e-2 * ref):
             raise AssertionError(f"B2 kernel disagrees with its plain version at S={S}")
 
-    # ---- 5. encoder at full width ----
+    # ---- 4b. B3 and B4 vs plain on one full-width int8 layer ----
     cfg = EncoderConfig()
+    lcfg = EncoderConfig(num_layers=1)
+    layer = init_params(lcfg, torch.Generator(device=dev).manual_seed(2), device=dev)["layers"][0]
+    lq = kernel_layout(quantize_params_int8({"layers": [layer]}))[0]
+    texts = slogans(4096)
+    tok = SimpleTokenizer(vocab_size=cfg.vocab_size)
+    slog_len = torch.tensor([min(len(tok.tokenize(t_)) + 2, 64) for t_ in texts[:512]], device=dev)
+    mask512 = (torch.arange(64, device=dev)[None] < slog_len[:, None]).to(torch.int32)
+
+    def rand_x(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def check_b3b4(kind, x, mask=None):
+        """One kernel vs its plain version: the output and the block's own
+        contribution (out - x) at cosine > 0.9999 and max abs <=
+        2e-2 * max|plain|, and the norm + quant codes bit-equal."""
+        stages = {}
+        if kind == "attn":
+            rope = _rope_tables(torch.clamp(mask.cumsum(1) - 1, min=0), DH, lcfg.rope_theta)
+            out = fused_attn_int8_layer(x, layer, lq, mask, rope, lcfg, stages=stages)
+            ref = fused_attn_int8_layer_plain(x, layer, lq, mask, rope, lcfg)
+            norm_w, name = layer["attn_norm"], "fused_attn_int8_layer"
+        else:
+            args = (x, layer["mlp_norm"], lq["w_gate"], lq["w_up"], lq["w_down"])
+            out = fused_mlp_int8_layer(*args, eps=lcfg.rms_norm_eps, stages=stages)
+            ref = fused_mlp_int8_layer_plain(*args, eps=lcfg.rms_norm_eps)
+            norm_w, name = layer["mlp_norm"], "fused_mlp_int8_layer"
+        xq, sx = rmsnorm_quant_plain(x.reshape(-1, x.shape[-1]), norm_w, lcfg.rms_norm_eps)
+        torch.cuda.synchronize()
+        codes_equal = torch.equal(stages["xq"], xq) and torch.equal(stages["sx"], sx[:, 0])
+        cosv, err, ref_max = agreement(out, ref)
+        dcos, derr, dmax = agreement(out.float() - x.float(), ref.float() - x.float())
+        err_of[name] = max(err_of[name], err)
+        shape = list(x.shape)
+        emit("b3b4", kernel=name, shape=shape, cosine=cosv, max_abs_err=err, max_abs_plain=ref_max,
+             block_cosine=dcos, block_max_abs_err=derr, block_max_abs_plain=dmax,
+             codes_bit_equal=codes_equal)
+        if not (cosv > 0.9999 and err <= 2e-2 * ref_max and dcos > 0.9999
+                and derr <= 2e-2 * dmax and codes_equal):
+            raise AssertionError(f"{name} disagrees with its plain version at {shape}")
+
+    x512 = rand_x(512, 64, cfg.hidden_size)
+    check_b3b4("attn", x512, mask512)
+    for S in (32, 128):
+        lens = torch.randint(1, S + 1, (64,), generator=g, device=dev)
+        check_b3b4("attn", rand_x(64, S, cfg.hidden_size),
+                   (torch.arange(S, device=dev)[None] < lens[:, None]).to(torch.int32))
+    for shape in ((512, 64), (64, 32), (64, 128), (70 * 128 + 70,)):
+        check_b3b4("mlp", rand_x(*shape, cfg.hidden_size))
+
+    # ---- 5. encoder at full width ----
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
     n_params = params["embed"].numel() + sum(
-        t.numel() for layer in params["layers"] for t in layer.values())
+        t_.numel() for layer_ in params["layers"] for t_ in layer_.values())
     encoder = BatchedEncoder(params, cfg, batch_size=512, device=dev)
-    texts = slogans(4096)
+    encoder8 = BatchedEncoder(params, cfg, batch_size=512, device=dev, quant="int8")
+    ql = encoder8.qlayers
     ids_mask, _ = encoder._prep_batch(texts[:512], [encoder.tokenizer.tokenize(t) for t in texts[:512]],
                                       list(range(512)))
     t = torch.from_numpy(ids_mask).to(dev)
@@ -372,12 +454,22 @@ def main() -> int:
         # the stack's own noise floor: the same plain path at another
         # batch size (other GEMM shapes, other f32 summation orders)
         ph = encode_pooled(params, t[0][:256], t[1][:256], cfg, fused="plain")
+        # int8 (w8a8): every layer on B3 and B4, and through their plain versions
+        p8k = encode_pooled(params, t[0], t[1], cfg, qlayers=ql, fused_layers=True)
+        p8p = encode_pooled(params, t[0], t[1], cfg, fused="plain", qlayers=ql, fused_layers=True)
+        p8h = encode_pooled(params, t[0][:256], t[1][:256], cfg, fused="plain", qlayers=ql,
+                            fused_layers=True)
     # the text -> ids path runs from here to the end of phase 7; the
     # comparison launches above are not counted
     path_start()
     t0 = time.perf_counter()
     slogan_emb = encoder.encode(texts)
     enc_s = time.perf_counter() - t0
+    int8_before = (attn_int8_launches.n, mlp_int8_launches.n)
+    t0 = time.perf_counter()
+    slogan_emb8 = encoder8.encode(texts)
+    enc8_s = time.perf_counter() - t0
+    int8_enc_launches = (attn_int8_launches.n - int8_before[0], mlp_int8_launches.n - int8_before[1])
     enc_cos = (pk.double() * pp.double()).sum(1)
     off_cos = (pk.double() * po.double()).sum(1)
     floor_cos = (ph.double() * pp[:256].double()).sum(1)
@@ -391,6 +483,19 @@ def main() -> int:
     if not (float(enc_cos.min()) > 0.9999 and attention_launches.n > 0
             and np.isfinite(slogan_emb).all() and slogan_emb.shape == (4096, cfg.embedding_dim)):
         raise AssertionError("encoder phase failed")
+    cos8 = float((p8k.double() * p8p.double()).sum(1).min())
+    floor8 = float((p8h.double() * p8p[:256].double()).sum(1).min())
+    vs_bf16 = float((p8k.double() * pk.double()).sum(1).min())
+    slogan_self = float(np.min(np.sum(slogan_emb8 * slogan_emb, axis=1)))
+    emit("encoder_int8", encode_4096_s=round(enc8_s, 3),
+         cos_kernel_vs_plain_min=cos8, cos_plain_b256_vs_plain_b512_min=floor8,
+         cos_int8_vs_bf16_kernel_min=vs_bf16, cos_slogans_int8_vs_bf16_min=slogan_self,
+         finite=bool(np.isfinite(slogan_emb8).all()),
+         launches={"fused_attn_int8_layer": int8_enc_launches[0],
+                   "fused_mlp_int8_layer": int8_enc_launches[1]})
+    if not (cos8 > 0.999 and vs_bf16 > 0.98 and min(int8_enc_launches) >= cfg.num_layers
+            and np.isfinite(slogan_emb8).all() and slogan_emb8.shape == (4096, cfg.embedding_dim)):
+        raise AssertionError("encoder_int8 phase failed")
 
     # ---- 6. index and recall gate ----
     NC = 1_048_576
@@ -478,6 +583,36 @@ def main() -> int:
         raise AssertionError("serve phase failed")
     if path1["mips_g_scan"] < 1 or path1["qknorm_rope_attention"] < 1:
         raise AssertionError(f"a kernel of the text -> ids path never launched: {path1}")
+
+    # ---- 7b. serving with the int8 encoder ----
+    sched8 = BatchScheduler(engine, max_batch=256, encode_fn=encoder8.encode_device)
+    service8 = SearchService(engine, encoder8.encode, scheduler=sched8)
+    direct8 = SearchService(engine, encoder8.encode)
+    path_start()
+    answers8, serve8_s, stats8, warm8 = serve_round(service8, [{"query": t_, "top_k": 10} for t_ in qtexts])
+    path5 = path_end()
+    codes8 = all(code == 200 for code, _ in answers8)
+    joined8 = all(
+        len(body["results"]) == 10 and all("theorem_slogan" in r and "paper_url" in r for r in body["results"])
+        for _, body in answers8)
+    overlaps8, self_hits8 = [], 0
+    for text, (_, body) in zip(qtexts, answers8):
+        got = [r["doc_id"] for r in body["results"]]
+        want = [r["doc_id"] for r in direct8.search_and_display(text)]
+        overlaps8.append(len(set(got) & set(want)) / 10)
+        self_hits8 += texts.index(text) == got[0]
+    nb8 = stats8["batches"] - warm8["batches"]
+    emit("serve_int8", requests=len(answers8), all_200=codes8, metadata_joined=joined8,
+         overlap10_mean=float(np.mean(overlaps8)), overlap10_min=float(np.min(overlaps8)),
+         self_top1=self_hits8, wall_s=round(serve8_s, 3), batches=nb8,
+         avg_batch=(stats8["queries"] - warm8["queries"]) / max(nb8, 1),
+         latency_ms=stats8.get("latency_ms"), stages_ms={
+             k: v for k, v in stats8.get("stages_ms", {}).items() if k != "worst_batches"},
+         launches=path5)
+    if not (codes8 and joined8 and np.mean(overlaps8) >= 0.9 and len(answers8) == 128):
+        raise AssertionError("serve_int8 phase failed")
+    if path5["fused_attn_int8_layer"] < 1 or path5["fused_mlp_int8_layer"] < 1:
+        raise AssertionError(f"B3 or B4 never launched on the int8 serving path: {path5}")
 
     # ---- 8b. B1's three forms on the engine's own 1M index ----
     n_valid, rb = engine.n_valid, engine.row_block
@@ -621,18 +756,18 @@ def main() -> int:
     out_bytes = 1024 * (nrows // (rb * m)) * 128 * 4
     times = {}
 
-    def timed(name, kernel, plain, nbytes, ops, kind, plain_iters=3):
+    def timed(name, kernel, plain, nbytes, ops, plain_iters=3):
         times[name] = {"ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, plain_iters),
-                       **bound(nbytes, ops, kind), "library_ms": None}
+                       **bound(nbytes, ops), "library_ms": None}
 
     timed("mips_g_scan", lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m),
           lambda: mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m),
-          nrows * D + 1024 * D + out_bytes, 2 * 1024 * n_valid * D, "int8")
+          nrows * D + 1024 * D + out_bytes, {"int8": 2 * 1024 * n_valid * D})
     # masked forms: only the passing rows' products and codes are needed
     n_year = int(host_masks[0].sum())
     timed("mips_g_scan_mask", lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m, mask=year_dev),
           lambda: mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m, mask=year_dev),
-          nrows + n_year * D + 1024 * D + out_bytes, 2 * 1024 * n_year * D, "int8")
+          nrows + n_year * D + 1024 * D + out_bytes, {"int8": 2 * 1024 * n_year * D})
     st32, g32 = st36[:32].contiguous(), torch.randint(0, 32, (1024,), generator=gcpu, dtype=torch.int32)
     pass_of = np.array([int(mk.sum()) for mk in host_masks[3:35]])
     n_union = int(np.logical_or.reduce(host_masks[3:35]).sum())
@@ -641,16 +776,16 @@ def main() -> int:
           lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m, gmasks=st32, mask_ids=g32),
           lambda: mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m, gmasks=st32, mask_ids=g32),
           32 * nrows + n_union * D + 1024 * (D + 4) + out_bytes,
-          2 * int(pass_of[g32.cpu().numpy()].sum()) * D, "int8")
+          {"int8": 2 * int(pass_of[g32.cpu().numpy()].sum()) * D})
     qx = quantize_queries(unit_rows(512, D, 14, dev))[0]
     timed("mips_topk", lambda: mips_topk(qx, xeng.vectors, xeng.scales, NC, None, 40),
           lambda: mips_topk_plain(qx, xeng.vectors, xeng.scales, NC, None, 40),
-          NC * (D + 4) + 512 * D + 512 * 40 * 8, 2 * 512 * NC * D, "int8", plain_iters=2)
+          NC * (D + 4) + 512 * D + 512 * 40 * 8, {"int8": 2 * 512 * NC * D}, plain_iters=2)
     qbf = unit_rows(512, D, 15, dev).to(torch.bfloat16)
     bf_corpus = engine._rescore_device
     timed("mips_topk_bf16", lambda: mips_topk(qbf, bf_corpus, None, NC, None, 40),
           lambda: mips_topk_plain(qbf, bf_corpus, None, NC, None, 40),
-          NC * D * 2 + 512 * D * 2 + 512 * 40 * 8, 2 * 512 * NC * D, "bf16", plain_iters=2)
+          NC * D * 2 + 512 * D * 2 + 512 * 40 * 8, {"bf16": 2 * 512 * NC * D}, plain_iters=2)
 
     def pipeline(scan):
         def run():
@@ -665,6 +800,9 @@ def main() -> int:
     with torch.inference_mode():
         enc_k = cuda_ms(lambda: encode_pooled(params, t[0], t[1], cfg, fused="on"), 5)
         enc_p = cuda_ms(lambda: encode_pooled(params, t[0], t[1], cfg, fused="plain"), 5)
+        enc8_k = cuda_ms(lambda: encode_pooled(params, t[0], t[1], cfg, qlayers=ql, fused_layers=True), 5)
+        enc8_p = cuda_ms(lambda: encode_pooled(params, t[0], t[1], cfg, fused="plain", qlayers=ql,
+                                               fused_layers=True), 2)
     S = int(t.shape[2])
     qa = torch.randn((512, S, H * DH), generator=g, device=dev).to(torch.bfloat16)
     ka = torch.randn((512, S, HK * DH), generator=g, device=dev).to(torch.bfloat16)
@@ -683,12 +821,30 @@ def main() -> int:
           lambda: fused_qknorm_rope_attention(qa, ka, va, wq, wq, cos, sin, msk, **kwargs),
           lambda: fused_qknorm_rope_attention_plain(
               qa, ka, va, wq, wq, cos, sin, msk, scale=1.0 / np.sqrt(DH), **kwargs),
-          att_bytes, att_ops, "bf16", plain_iters=5)
+          att_bytes, {"bf16": att_ops}, plain_iters=5)
+    # B3 and B4 at (512, 64) on the phase-4b layer: x read and the output
+    # written once, the int8 weights and scales read once
+    T, DM, HQ, HKD, I = x512.shape[0] * x512.shape[1], cfg.hidden_size, H * DH, HK * DH, cfg.intermediate_size
+    rope512 = _rope_tables(torch.clamp(mask512.cumsum(1) - 1, min=0), DH, cfg.rope_theta)
+    live512 = mask512.sum(1).double()
+    att512_ops = float(4 * H * DH * (live512 * (live512 + 1) / 2).sum())
+    timed("fused_attn_int8_layer",
+          lambda: fused_attn_int8_layer(x512, layer, lq, mask512, rope512, lcfg),
+          lambda: fused_attn_int8_layer_plain(x512, layer, lq, mask512, rope512, lcfg),
+          2 * T * DM * 2 + 2 * DM * (HQ + HKD) + 4 * (HQ + 2 * HKD + DM) + T * (DH * 4 + 4),
+          {"int8": 2 * T * DM * (2 * HQ + 2 * HKD), "bf16": att512_ops})
+    timed("fused_mlp_int8_layer",
+          lambda: fused_mlp_int8_layer(x512, layer["mlp_norm"], lq["w_gate"], lq["w_up"], lq["w_down"]),
+          lambda: fused_mlp_int8_layer_plain(x512, layer["mlp_norm"], lq["w_gate"], lq["w_up"],
+                                             lq["w_down"]),
+          2 * T * DM * 2 + 3 * DM * I + 4 * (2 * I + 2 * DM), {"int8": 6 * T * DM * I})
     emit("times", gpu=gpu, kernels=times,
          shapes={"mips_g_scan*": [1024, NC, D, rb, m], "mips_topk": [512, NC, D, 40],
-                 "qknorm_rope_attention": [512, S, H, HK, DH]},
+                 "qknorm_rope_attention": [512, S, H, HK, DH],
+                 "fused_*_int8_layer": [*x512.shape[:2], DM, I, H, HK, DH]},
          scan_rescore_ms_per_batch={"kernel": pipe_k, "plain": pipe_p, "qps_kernel": 1024 / pipe_k * 1e3},
          encoder_forward_ms={"kernel": enc_k, "plain": enc_p, "shape": [512, S]},
+         encoder_int8_forward_ms={"kernel": enc8_k, "plain": enc8_p, "shape": [512, S]},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          total_s=round(time.perf_counter() - t_start, 1))
 
@@ -697,6 +853,8 @@ def main() -> int:
     qg = qf[: len(grouped_batch)]
     for name, fn in (
         ("encoder_forward_512x64", lambda: encode_pooled(params, t[0], t[1], cfg)),
+        ("encoder_int8_forward_512x64",
+         lambda: encode_pooled(params, t[0], t[1], cfg, qlayers=ql, fused_layers=True)),
         ("scan_rescore_b1024", pipeline(mips_g_scan)),
         (f"filtered_grouped_b{len(grouped_batch)}",
          lambda: engine.search_vectors(qg, k=10, filters=grouped_batch)),
@@ -716,6 +874,10 @@ def main() -> int:
         "mips_topk": ("theoremsearch_tpu_torch/csrc/mips_topk.cu", "theoremsearch_tpu/kernels/mips.py:75"),
         "qknorm_rope_attention": ("theoremsearch_tpu_torch/csrc/attention.cu",
                                   "theoremsearch_tpu/kernels/attention.py:60"),
+        "fused_attn_int8_layer": ("theoremsearch_tpu_torch/csrc/layer_int8.cu",
+                                  "theoremsearch_tpu/kernels/layer_int8.py:274"),
+        "fused_mlp_int8_layer": ("theoremsearch_tpu_torch/csrc/layer_int8.cu",
+                                 "theoremsearch_tpu/kernels/layer_int8.py:151"),
     }
     missing = [n for n, c in main_launches.items() if c < 1]
     if missing:

@@ -12,13 +12,28 @@ import pytest
 import torch
 
 from theoremsearch_tpu_torch.core.config import EncoderConfig, IndexConfig
-from theoremsearch_tpu_torch.encoder.model import encode_pooled, init_params
+from theoremsearch_tpu_torch.encoder.model import (
+    _rope_tables,
+    encode_pooled,
+    init_params,
+    quantize_params_int8,
+)
 from theoremsearch_tpu_torch.index.flat import FlatIndex
 from theoremsearch_tpu_torch.index.quant import quantize_global_int8
 from theoremsearch_tpu_torch.kernels.attention import (
     attention_launches,
     fused_qknorm_rope_attention,
     fused_qknorm_rope_attention_plain,
+)
+from theoremsearch_tpu_torch.kernels.layer_int8 import (
+    attn_int8_launches,
+    fused_attn_int8_layer,
+    fused_attn_int8_layer_plain,
+    fused_mlp_int8_layer,
+    fused_mlp_int8_layer_plain,
+    kernel_layout,
+    mlp_int8_launches,
+    rmsnorm_quant_plain,
 )
 from theoremsearch_tpu_torch.kernels.mips import (
     mips_g_gmask_launches,
@@ -217,3 +232,70 @@ def test_encoder_on_card_kernel_vs_plain(cuda):
     a = encode_pooled(params, ids, mask, cfg, fused="on")
     b = encode_pooled(params, ids, mask, cfg, fused="plain")
     assert float((a.double() * b.double()).sum(1).min()) > 0.9999
+
+
+def _int8_layer(cuda, seed, d=256, i=512):
+    cfg = EncoderConfig(vocab_size=512, hidden_size=d, intermediate_size=i, num_layers=1,
+                        num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=128,
+                        embedding_dim=d)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed), device=cuda)
+    return cfg, params["layers"][0], kernel_layout(quantize_params_int8(params))[0]
+
+
+def _agree(x, out, ref):
+    """Kernel vs plain: the output and the block's own contribution
+    (out - x) each at cosine > 0.9999, max abs <= 2e-2 * max|plain|."""
+    for a, b in ((out, ref), (out.float() - x.float(), ref.float() - x.float())):
+        a, b = a.double().flatten(), b.double().flatten()
+        assert float(a @ b / (a.norm() * b.norm())) > 0.9999
+        assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("t,d,i", [(256, 256, 512), (4096, 256, 768), (70, 1024, 3072)])
+def test_mlp_int8_kernel_matches_plain(cuda, t, d, i):
+    """B4 vs its plain version; T = 70 takes the ragged token tile. The
+    norm + quant codes are bit-equal."""
+    cfg, layer, lq = _int8_layer(cuda, t, d, i)
+    x = torch.randn((t, d), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).to(torch.bfloat16)
+    args = (x, layer["mlp_norm"], lq["w_gate"], lq["w_up"], lq["w_down"])
+    stages, before = {}, mlp_int8_launches.n
+    out = fused_mlp_int8_layer(*args, eps=cfg.rms_norm_eps, stages=stages)
+    assert mlp_int8_launches.n == before + 1
+    ref = fused_mlp_int8_layer_plain(*args, eps=cfg.rms_norm_eps)
+    xq, sx = rmsnorm_quant_plain(x, layer["mlp_norm"], cfg.rms_norm_eps)
+    assert torch.equal(stages["xq"], xq) and torch.equal(stages["sx"], sx[:, 0])
+    _agree(x, out, ref)
+
+
+@pytest.mark.parametrize("b,s", [(8, 32), (4, 128), (6, 17)])
+def test_attn_int8_kernel_matches_plain(cuda, b, s):
+    """B3 (norm + quant, q/k/v products, B2's core, requant, o product)
+    vs its plain version on ragged masks; norm + quant codes bit-equal."""
+    cfg, layer, lq = _int8_layer(cuda, s)
+    g = torch.Generator(device=cuda).manual_seed(b)
+    x = torch.randn((b, s, cfg.hidden_size), generator=g, device=cuda).to(torch.bfloat16)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=cuda)
+    mask = (torch.arange(s, device=cuda)[None] < lens[:, None]).to(torch.int32)
+    rope = _rope_tables(torch.clamp(mask.cumsum(1) - 1, min=0), cfg.head_dim, cfg.rope_theta)
+    stages, before = {}, attn_int8_launches.n
+    out = fused_attn_int8_layer(x, layer, lq, mask, rope, cfg, stages=stages)
+    assert attn_int8_launches.n == before + 1
+    ref = fused_attn_int8_layer_plain(x, layer, lq, mask, rope, cfg)
+    xq, sx = rmsnorm_quant_plain(x.view(b * s, -1), layer["attn_norm"], cfg.rms_norm_eps)
+    assert torch.equal(stages["xq"], xq) and torch.equal(stages["sx"], sx[:, 0])
+    _agree(x, out, ref)
+
+
+def test_int8_encoder_on_card_kernel_vs_plain(cuda):
+    cfg = EncoderConfig(vocab_size=1024, hidden_size=256, intermediate_size=512, num_layers=2,
+                        num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=64, embedding_dim=256)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    ql = kernel_layout(quantize_params_int8(params))
+    ids = torch.randint(3, 1024, (8, 32), device=cuda)
+    mask = (torch.arange(32, device=cuda)[None] < torch.arange(25, 33, device=cuda)[:, None]).int()
+    before = (attn_int8_launches.n, mlp_int8_launches.n)
+    a = encode_pooled(params, ids, mask, cfg, qlayers=ql, fused_layers=True)
+    assert (attn_int8_launches.n, mlp_int8_launches.n) == (before[0] + 2, before[1] + 2)
+    b = encode_pooled(params, ids, mask, cfg, fused="plain", qlayers=ql, fused_layers=True)
+    assert float((a.double() * b.double()).sum(1).min()) > 0.999

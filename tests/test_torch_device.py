@@ -10,6 +10,7 @@ import torch
 
 from theoremsearch_tpu_torch.core.config import EncoderConfig
 from theoremsearch_tpu_torch.encoder.model import init_params, params_from_jax
+from theoremsearch_tpu_torch.index.flat import FlatIndex
 from theoremsearch_tpu_torch.utils.device import require_cuda, resolve_device, tf32_off
 
 
@@ -18,13 +19,15 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["require_cuda", "resolve_device", "init_params", "params_from_jax"])
+@pytest.mark.parametrize("entry", ["require_cuda", "resolve_device", "init_params", "params_from_jax",
+                                   "FlatIndex.build"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     call = {
         "require_cuda": require_cuda,
         "resolve_device": lambda: resolve_device(None),
         "init_params": lambda: init_params(EncoderConfig.tiny(), torch.Generator()),
         "params_from_jax": lambda: params_from_jax({"w": np.zeros((2, 2), np.float32)}),
+        "FlatIndex.build": lambda: FlatIndex.build(np.ones((4, 8), np.float32)),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

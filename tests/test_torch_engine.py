@@ -51,7 +51,7 @@ def engines(data):
         use_pallas=True, pallas_interpret=True, rescore_vectors=emb,
     )
     teng = SearchEngine(
-        FlatIndex.build(emb, config=IndexConfig(**CFG)), meta=CorpusMetadata.from_rows(rows),
+        FlatIndex.build(emb, config=IndexConfig(**CFG), device="cpu"), meta=CorpusMetadata.from_rows(rows),
         rescore_vectors=emb, device="cpu",
     )
     return jeng, teng
@@ -119,7 +119,7 @@ def test_unported_configurations_raise(data):
     """A mesh and live updates still raise; a bf16 index and a global
     int8 index without a rescore copy now build on the exact route."""
     emb, _, _ = data
-    idx = FlatIndex.build(emb[:2048], config=IndexConfig(**CFG))
+    idx = FlatIndex.build(emb[:2048], config=IndexConfig(**CFG), device="cpu")
     with pytest.raises(NotImplementedError):
         SearchEngine(idx, device="cpu", mesh=object())
     eng = SearchEngine(idx, device="cpu")                # no rescore copy
@@ -128,7 +128,7 @@ def test_unported_configurations_raise(data):
         eng.add_documents(emb[:1])
     with pytest.raises(NotImplementedError):
         eng.delete_documents([0])
-    bf = SearchEngine(FlatIndex.build(emb[:2048], config=IndexConfig(dtype="bfloat16")),
+    bf = SearchEngine(FlatIndex.build(emb[:2048], config=IndexConfig(dtype="bfloat16"), device="cpu"),
                       rescore_vectors=emb[:2048], device="cpu")
     assert not bf._speed_ok and bf.search_vectors(emb[:2], k=1)[1][:, 0].tolist() == [0, 1]
 
@@ -139,4 +139,4 @@ def test_engine_without_device_needs_the_card(data, monkeypatch):
     emb, _, _ = data
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        SearchEngine(FlatIndex.build(emb[:2048], config=IndexConfig(**CFG)), rescore_vectors=emb[:2048])
+        SearchEngine(FlatIndex.build(emb[:2048], config=IndexConfig(**CFG), device="cpu"), rescore_vectors=emb[:2048])

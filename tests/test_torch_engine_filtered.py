@@ -83,7 +83,7 @@ def _pair(data, cfg, rescore=True, ids=None):
     jeng = JSearchEngine(JFlatIndex.build(emb, ids=ids, config=JIndexConfig(**cfg)),
                          meta=JCorpusMetadata.from_rows(rows), use_pallas=True,
                          pallas_interpret=True, rescore_vectors=rv)
-    teng = SearchEngine(FlatIndex.build(emb, ids=ids, config=IndexConfig(**cfg)),
+    teng = SearchEngine(FlatIndex.build(emb, ids=ids, config=IndexConfig(**cfg), device="cpu"),
                         meta=CorpusMetadata.from_rows(rows), rescore_vectors=rv, device="cpu")
     assert jeng._speed_ok == teng._speed_ok and jeng.row_block == teng.row_block
     return jeng, teng

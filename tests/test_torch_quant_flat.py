@@ -100,7 +100,8 @@ def test_jax_saved_index_loads_in_port(tmp_path, cfg):
 @pytest.mark.parametrize("cfg", _CONFIGS)
 def test_port_saved_index_loads_in_jax(tmp_path, cfg):
     emb = _emb(seed=4)
-    p = FlatIndex.build(emb, ids=np.arange(700) * 3, config=IndexConfig(pad_multiple=256, **cfg))
+    p = FlatIndex.build(emb, ids=np.arange(700) * 3, config=IndexConfig(pad_multiple=256, **cfg),
+                        device="cpu")
     p.save(tmp_path)
     j = JFlatIndex.load(tmp_path)
     assert j.num_rows == p.num_rows and j.global_scale == p.global_scale
@@ -119,7 +120,7 @@ def test_build_matches_jax_build():
     emb = _emb(n=2000, d=128, seed=5)
     cfg = dict(dtype="int8", int8_scale="global", pad_multiple=1024)
     j = JFlatIndex.build(emb, config=JIndexConfig(**cfg))
-    p = FlatIndex.build(emb, config=IndexConfig(**cfg))
+    p = FlatIndex.build(emb, config=IndexConfig(**cfg), device="cpu")
     assert p.global_scale == j.global_scale
     np.testing.assert_array_equal(p.vectors.numpy(), j.vectors)
     np.testing.assert_array_equal(p.scales.numpy(), j.scales)

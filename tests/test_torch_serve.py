@@ -41,7 +41,8 @@ def stack():
           "link": f"https://arxiv.org/abs/2402.{i:05d}" if i < N - 8 else f"https://stacks.math/{i}",
           "theorem_body": f"$x_{i}$"}
          for i in range(N)])
-    engine = SearchEngine(FlatIndex.build(corpus, config=IndexConfig(dtype="int8", int8_scale="global")),
+    engine = SearchEngine(FlatIndex.build(corpus, config=IndexConfig(dtype="int8", int8_scale="global"),
+                                            device="cpu"),
                           meta=meta, rescore_vectors=corpus, device="cpu")
     sched = BatchScheduler(engine, max_batch=64, max_wait_ms=20, encode_fn=enc.encode_device)
     service = SearchService(engine, enc.encode, scheduler=sched)

@@ -48,6 +48,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
 constexpr int BM = 64;        // queries per block
@@ -57,30 +59,6 @@ constexpr int SSTR = BK + 16; // padded shared row: 20 words, conflict-free
 constexpr int THREADS = 128;  // 4 warps: 2 (queries) x 2 (lanes)
 constexpr int32_t PACK_INVALID = -2147483647;  // kernels/mips.py INT32_MIN
 constexpr int MAX_MASKS = 128;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <bool MASKED>
 __global__ void __launch_bounds__(THREADS) mips_g_scan_kernel(

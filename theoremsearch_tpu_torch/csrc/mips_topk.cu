@@ -38,6 +38,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
 constexpr int BN = 128;         // corpus rows per group
@@ -58,28 +60,9 @@ template <int QT> struct Tile;
 template <> struct Tile<64> { static constexpr int WM = 2, WN = 2, MT = 2, NT = 8, TQ = 8, TN = 8; };
 template <> struct Tile<16> { static constexpr int WM = 1, WN = 4, MT = 1, NT = 4, TQ = 4, TN = 4; };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void mma(int32_t (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  mma_s8(c, a, b0, b1);
 }
 
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,

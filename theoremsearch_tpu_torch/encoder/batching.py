@@ -20,7 +20,8 @@ import torch
 
 from ..core.config import EncoderConfig
 from ..utils.shapes import pow2_bucket
-from .model import Params, encode_pooled
+from ..kernels.layer_int8 import kernel_layout
+from .model import Params, encode_pooled, quantize_params_int8
 from .tokenizer import SimpleTokenizer
 
 DEFAULT_BUCKETS = (64, 128, 256, 512)
@@ -39,17 +40,24 @@ class BatchedEncoder:
         quant: str = "none",
         device=None,
     ):
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant mode {quant!r}")
         if mesh is not None:
             raise NotImplementedError("multi-device encoding is not ported yet")
-        if quant == "int8":
-            raise NotImplementedError("the int8 encoder mode is not ported yet")
-        if quant != "none":
-            raise ValueError(f"unknown quant mode {quant!r}")
         if not isinstance(cfg, EncoderConfig):
             raise NotImplementedError(f"the {type(cfg).__name__} tower is not ported yet")
         self.params = params
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else params["embed"].device
+        # int8 (w8a8) serving mode: weights quantized once here; each
+        # (batch, width) bucket whose shapes qualify runs the whole-layer
+        # kernels B3 and B4 (`model._fused_layer_ok`), the rest the int8
+        # op-chain
+        self.qlayers = None
+        if quant == "int8":
+            self.qlayers = quantize_params_int8(params)
+            if self.device.type == "cuda":
+                self.qlayers = kernel_layout(self.qlayers)
         self.tokenizer = tokenizer or SimpleTokenizer(vocab_size=cfg.vocab_size)
         self.prompts = dict(prompts or {})
         self.batch_size = batch_size
@@ -78,7 +86,8 @@ class BatchedEncoder:
             # a pageable upload waits for all queued device work; a pinned
             # one is enqueued behind it and the host goes on
             t = t.pin_memory().to(self.device, non_blocking=True)
-        return encode_pooled(self.params, t[0], t[1], self.cfg)
+        return encode_pooled(self.params, t[0], t[1], self.cfg, qlayers=self.qlayers,
+                             fused_layers=self.qlayers is not None)
 
     def _prep_batch(self, texts, tokenized, idx):
         """Pad one sub-batch to its (batch-bucket, width-bucket) shape:

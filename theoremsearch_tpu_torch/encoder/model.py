@@ -12,7 +12,14 @@ attention block goes through the fused kernel
 takes its fused Pallas kernel (`_fused_ok`: head_dim 128, S <= 128);
 longer buckets run the plain composition, as in the reference. The
 projections, the MLP and the embedding gather stay torch ops, as the
-reference left them to XLA. The int8 encoder mode is not ported yet.
+reference left them to XLA.
+
+int8 (w8a8) serving mode: `quantize_params_int8` gives per-layer int8
+weights with per-output-column scales; `forward(qlayers=...)` runs every
+projection as an exact int8 product with per-token activation scales.
+With `fused_layers=True` each sub-block whose shapes qualify
+(`_fused_layer_ok`) is one whole-layer call (`kernels/layer_int8.py`,
+kernels B3 and B4 on the card); the rest run the int8 op-chain.
 """
 
 from __future__ import annotations
@@ -27,6 +34,17 @@ from ..core.config import EncoderConfig
 from ..kernels.attention import (
     fused_qknorm_rope_attention,
     fused_qknorm_rope_attention_plain,
+)
+from ..kernels.layer_int8 import (
+    dequant,
+    fused_attn_int8_layer,
+    fused_attn_int8_layer_plain,
+    fused_layer_shapes_ok,
+    fused_mlp_int8_layer,
+    fused_mlp_int8_layer_plain,
+    i8_matmul,
+    quant_rows_plain,
+    rmsnorm_quant_plain,
 )
 from ..utils.device import resolve_device, tf32_off
 
@@ -157,17 +175,21 @@ def _fused_ok(cfg: EncoderConfig, s: int, b: int) -> bool:
     )
 
 
-def _attention_fused(layer, x, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:
-    cos, sin = rope_cs
+def _attention_core(layer, q, k, v, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:
+    """The fused attention core on projected q/k/v: kernel B2, or its
+    plain version for plain=True or CPU tensors. (B, S, H*Dh) pre-wo."""
     kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
               head_dim=cfg.head_dim, eps=cfg.rms_norm_eps, causal=True)
-    args = ((x @ layer["wq"]).contiguous(), (x @ layer["wk"]).contiguous(),
-            (x @ layer["wv"]).contiguous(), layer["q_norm"], layer["k_norm"],
-            cos, sin, attention_mask.to(torch.int32))
+    args = (q.contiguous(), k.contiguous(), v.contiguous(), layer["q_norm"], layer["k_norm"],
+            rope_cs[0], rope_cs[1], attention_mask.to(torch.int32))
     if plain:
-        attn = fused_qknorm_rope_attention_plain(*args, scale=1.0 / np.sqrt(cfg.head_dim), **kw)
-    else:
-        attn = fused_qknorm_rope_attention(*args, **kw)
+        return fused_qknorm_rope_attention_plain(*args, scale=1.0 / np.sqrt(cfg.head_dim), **kw)
+    return fused_qknorm_rope_attention(*args, **kw)
+
+
+def _attention_fused(layer, x, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:
+    attn = _attention_core(layer, x @ layer["wq"], x @ layer["wk"], x @ layer["wv"],
+                           attention_mask, rope_cs, cfg, plain)
     return attn.to(x.dtype) @ layer["wo"]
 
 
@@ -177,9 +199,89 @@ def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
     return (gate * up) @ layer["w_down"]
 
 
+# ---------------------------------------------------------------------------
+# int8 (w8a8) inference quantization
+# ---------------------------------------------------------------------------
+# Static per-output-column weight scales, dynamic per-token activation
+# scales, for the seven projection matrices; norms, RoPE, softmax and
+# the attention core stay bf16/f32.
+
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _quant_weight(w: torch.Tensor) -> dict:
+    """(in, out) -> int8 codes + f32 per-output-column scales, bit-equal
+    to the reference's jitted form (max / 127 as max * f32(1/127))."""
+    wf = w.float()
+    s = torch.clamp(wf.abs().amax(dim=0) * (1.0 / 127.0), min=1e-12)
+    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def quantize_params_int8(params: Params) -> list[dict]:
+    """Per-layer int8 weights for the seven projection matrices, on the
+    params' device. Derived state: the bf16 params stay authoritative
+    (embedding gather, norms and pooling read them)."""
+    return [{k: _quant_weight(layer[k]) for k in _QUANT_KEYS} for layer in params["layers"]]
+
+
+def _quant_act(x: torch.Tensor):
+    """(..., d) -> int8 rows + f32 per-row (per-token) scales."""
+    return quant_rows_plain(x)
+
+
+def _rmsnorm_quant_act(x: torch.Tensor, w: torch.Tensor, eps: float, w_offset: float = 0.0):
+    """Fused RMSNorm -> per-token int8 quant, never forming the normed
+    tensor (`kernels/layer_int8.py:rmsnorm_quant_plain`); `w_offset=1.0`
+    expresses gemma's (1 + w) norm form."""
+    return rmsnorm_quant_plain(x, w.float() + w_offset, eps)
+
+
+def _q_matmul(xq: torch.Tensor, sx: torch.Tensor, w: dict, out_dtype) -> torch.Tensor:
+    """Exact int8 x int8 product, dequantized via the two scales."""
+    return dequant(i8_matmul(xq, w["q"]), sx, w["s"]).to(out_dtype)
+
+
+def _attention_int8(layer, lq, x, attention_mask, rope_cs, cfg: EncoderConfig,
+                    use_fused: bool, plain: bool) -> torch.Tensor:
+    """Attention block with int8 q/k/v/o projections; `x` is PRE-norm
+    (the attn RMSNorm fuses into the shared activation quant). The core
+    is the fused kernel (or its plain version) where `use_fused`, else
+    the reference composition."""
+    xq, sx = _rmsnorm_quant_act(x, layer["attn_norm"], cfg.rms_norm_eps)
+    q, k, v = (_q_matmul(xq, sx, lq[n], x.dtype) for n in ("wq", "wk", "wv"))
+    if use_fused:
+        attn = _attention_core(layer, q, k, v, attention_mask, rope_cs, cfg, plain)
+    else:
+        attn = _attention_math(layer, q, k, v, attention_mask.bool(), rope_cs, cfg)
+    aq, sa = _quant_act(attn.to(x.dtype))
+    return _q_matmul(aq, sa, lq["wo"], x.dtype)
+
+
+def _mlp_int8(layer, lq, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """SwiGLU MLP with int8 products; `x` is PRE-norm."""
+    xq, sx = _rmsnorm_quant_act(x, layer["mlp_norm"], eps)
+    gate = _q_matmul(xq, sx, lq["w_gate"], torch.float32)
+    up = _q_matmul(xq, sx, lq["w_up"], torch.float32)
+    h = (F.silu(gate) * up).to(x.dtype)
+    hq, sh = _quant_act(h)
+    return _q_matmul(hq, sh, lq["w_down"], x.dtype)
+
+
+def _fused_layer_ok(cfg: EncoderConfig, s: int, b: int) -> bool:
+    """The reference's rule for its whole-layer int8 kernels: the fused
+    attention rule (`_fused_ok`) and 128-aligned dims within its weight
+    budget (`kernels/layer_int8.py:fused_layer_shapes_ok`)."""
+    return _fused_ok(cfg, s, b) and fused_layer_shapes_ok(
+        cfg.hidden_size, cfg.intermediate_size,
+        cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim,
+    )
+
+
 def forward(
     params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-    cfg: EncoderConfig, fused: str = "on",
+    cfg: EncoderConfig, fused: str = "on", qlayers: list | None = None,
+    fused_layers: bool = False,
 ) -> torch.Tensor:
     """Hidden states (B, S, H) after the final norm.
 
@@ -187,7 +289,16 @@ def forward(
     CUDA kernel for CUDA tensors); "plain" = the same block through the
     kernel's plain version, with the kernel's casts (the counterpart of
     the reference's fused="interpret"); "off" = the reference's plain
-    composition throughout."""
+    composition throughout.
+
+    qlayers: per-layer int8 weights (`quantize_params_int8`, or the
+    reference's carried over by `params_from_jax`): every projection runs
+    as an exact int8 product (w8a8).
+
+    fused_layers: with qlayers set and fused not "off", each transformer
+    sub-block whose shapes qualify (`_fused_layer_ok`) is one whole-layer
+    call (kernels B3 and B4 on the card, their plain versions for
+    fused="plain" or CPU tensors)."""
     if fused not in ("on", "plain", "off"):
         raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
     x = params["embed"][input_ids.long()].to(_DTYPES[cfg.dtype])
@@ -196,10 +307,24 @@ def forward(
     rope_cs = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     b, s = input_ids.shape
     use_fused = fused != "off" and _fused_ok(cfg, s, b)
-    for layer in params["layers"]:
+    plain = fused == "plain"
+    if fused_layers and qlayers is not None and fused != "off" and _fused_layer_ok(cfg, s, b):
+        attn_layer = fused_attn_int8_layer_plain if plain else fused_attn_int8_layer
+        mlp_layer = fused_mlp_int8_layer_plain if plain else fused_mlp_int8_layer
+        for layer, lq in zip(params["layers"], qlayers):
+            x = attn_layer(x, layer, lq, attention_mask, rope_cs, cfg)
+            x = mlp_layer(x, layer["mlp_norm"], lq["w_gate"], lq["w_up"], lq["w_down"],
+                          eps=cfg.rms_norm_eps)
+        return _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    for li, layer in enumerate(params["layers"]):
+        if qlayers is not None:
+            x = x + _attention_int8(layer, qlayers[li], x, attention_mask, rope_cs, cfg,
+                                    use_fused, plain)
+            x = x + _mlp_int8(layer, qlayers[li], x, cfg.rms_norm_eps)
+            continue
         xa = _rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
         if use_fused:
-            x = x + _attention_fused(layer, xa, attention_mask, rope_cs, cfg, fused == "plain")
+            x = x + _attention_fused(layer, xa, attention_mask, rope_cs, cfg, plain)
         else:
             x = x + _attention(layer, xa, mask, rope_cs, cfg)
         x = x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps))
@@ -208,11 +333,13 @@ def forward(
 
 def encode_pooled(
     params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-    cfg: EncoderConfig, fused: str = "on",
+    cfg: EncoderConfig, fused: str = "on", qlayers: list | None = None,
+    fused_layers: bool = False,
 ) -> torch.Tensor:
     """Pooled, L2-normalized embeddings (B, D) f32: the last non-padding
     (EOS) position for qwen, or the masked mean."""
-    hidden = forward(params, input_ids, attention_mask, cfg, fused=fused)
+    hidden = forward(params, input_ids, attention_mask, cfg, fused=fused, qlayers=qlayers,
+                     fused_layers=fused_layers)
     if cfg.pooling == "last_token":
         idx = torch.clamp(attention_mask.to(torch.int64).sum(dim=1) - 1, min=0)
         pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.config import IndexConfig
+from ..utils.device import resolve_device
 from ..utils.shapes import round_up as _round_up
 
 PAD_ID = -1
@@ -64,12 +65,14 @@ class FlatIndex:
         ids=None,
         config: IndexConfig | None = None,
         normalize: bool = True,
-        device="cpu",
+        device=None,
     ) -> "FlatIndex":
         """Normalize, quantize and pad, computing chunk by chunk on
-        `device`; the result lives on the CPU."""
+        `device` (default: the card; pass "cpu" for a CPU run); the
+        result lives on the CPU."""
         from .quant import quantize_global_int8, quantize_int8
 
+        device = resolve_device(device)
         emb = embeddings
         if isinstance(emb, np.ndarray):
             emb = torch.from_numpy(np.ascontiguousarray(emb, dtype=np.float32))

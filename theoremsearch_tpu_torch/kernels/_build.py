@@ -61,6 +61,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, p,
     ]
     lib.ts_qknorm_rope_attention.restype = i
+    lib.ts_mlp_int8_layer.argtypes = [*[p] * 14, i, i, i, f, p]
+    lib.ts_mlp_int8_layer.restype = i
+    lib.ts_attn_int8_qkv.argtypes = [*[p] * 13, i, i, i, i, f, p]
+    lib.ts_attn_int8_qkv.restype = i
+    lib.ts_attn_int8_out.argtypes = [*[p] * 7, i, i, i, p]
+    lib.ts_attn_int8_out.restype = i
     lib.ts_error_string.argtypes = [i]
     lib.ts_error_string.restype = ctypes.c_char_p
 
