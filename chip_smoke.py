@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main path once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ivf-slab-rows R]
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero (there is no CPU path):
@@ -21,6 +21,11 @@ exits non-zero (there is no CPU path):
              (B, S) = (512, 64) with the slogans' ragged masks, (64, 32),
              (64, 128), and an MLP input of 70 * 128 + 70 rows; the norm +
              quant stage's int8 codes bit-equal.
+ 4c. b6      the IVF probe-major chunk scan kernel vs its plain version,
+             bit-equal raw scores and query scales, at (B, P, R, D) =
+             (8, 526, 256, 1024), (16, 526, 256, 1024), (64, 1500, 256,
+             1024), (13, 5, 128, 1024), (8, 3, 512, 1024), the uids ending
+             in repeats of the empty fill chunk.
  5. encoder  full-width Qwen3-0.6B-class encoder (28 layers, random bf16
              weights from a seeded generator): kernel path vs plain path
              cosine, then 4,096 slogans through BatchedEncoder.
@@ -64,12 +69,33 @@ exits non-zero (there is no CPU path):
              grouped scans carrying more than one signature.
 13. times    kernel / plain / bound times at the main path's shapes (B1
              unmasked, mask and gmask G=32 at B=1024 on 1M; B5 at B=512
-             on 1M int8 per-row and bf16; B2, B3 and B4 at (512, 64)), the
-             bf16 and int8 encoder forwards, and torch.profiler tables of
-             one bf16 and one int8 encoder forward, one scan + rescore
-             batch and one filtered grouped batch.
+             on 1M int8 per-row and bf16; B2, B3 and B4 at (512, 64); B6
+             at the ivf phase's B=8 search and the b6 shapes, as device
+             time from the profiler), the bf16 and int8 encoder
+             forwards, and torch.profiler tables of one bf16 and one int8
+             encoder forward, one scan + rescore batch, one filtered
+             grouped batch and one B=8 IVF search.
+14. ivf_build  a 1,048,576 x 1024 clustered corpus made on the card (4,096
+             unit centres, rows = centre + 1.5/sqrt(D) gaussian noise,
+             renormalized: the reference's "overlap" geometry; rows 0-4095
+             replaced by the slogan embeddings), IVFIndex.build with 4,096
+             lists, int8, the bf16 rescore copy and the build's slab rule
+             (99th-percentile list size rounded up to a power-of-two
+             multiple of 128; --ivf-slab-rows R sets R instead): seconds
+             for k-means, assignment and the rest, spill and relocated
+             rows, bytes.
+15. ivf      calibrate_nprobe(gate=0.99) on the card; recall@10 at B=8,
+             min over 5 draws of 128 centre + noise queries vs the fp32
+             oracle, at nprobe 16, 32, 64 and the calibrated value (which
+             must hold 0.99); the probe-major search with B6 swapped for
+             its plain version gives equal ids; device_searcher latency at
+             B=8 and 16 beside the flat speed path's on the same corpus.
+16. serve_ivf  text -> BatchedEncoder -> BatchScheduler -> SearchEngine(
+             flat, ivf_index=...) -> SearchService -> HTTP, 128 requests
+             from 8 client threads (batches <= 8, the IVF route): all 200
+             with metadata, IVF route taken, overlap@10 vs the direct path.
 
-Each path (phases 5-7, 7b, 9, 11, 12) runs with every launch counter set to
+Each path (phases 5-7, 7b, 9, 11, 12, 15, 16) runs with every launch counter set to
 0 just before it and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
@@ -215,8 +241,16 @@ def unit_rows(n: int, d: int, seed: int, dev):
     return x / x.norm(dim=1, keepdim=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ivf-slab-rows", type=int, default=None,
+                    help="slab rows of the 1M IVF index (default: IVFIndex.build's rule, the "
+                         "99th-percentile list size rounded up to a power-of-two multiple of 128)")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -230,7 +264,9 @@ def main() -> int:
     from theoremsearch_tpu_torch.encoder.tokenizer import SimpleTokenizer
     from theoremsearch_tpu_torch.eval.metrics import recall_vs_exact
     from theoremsearch_tpu_torch.eval.oracle import exact_topk
+    from theoremsearch_tpu_torch.index import ivf as ivf_mod
     from theoremsearch_tpu_torch.index.flat import FlatIndex
+    from theoremsearch_tpu_torch.index.ivf import IVFIndex, calibrate_nprobe
     from theoremsearch_tpu_torch.index.quant import quantize_global_int8
     from theoremsearch_tpu_torch.kernels import _build
     from theoremsearch_tpu_torch.kernels.attention import (
@@ -242,9 +278,10 @@ def main() -> int:
         rmsnorm_quant_plain,
     )
     from theoremsearch_tpu_torch.kernels.mips import (
-        auto_merge_tiles, device_rescore, mips_g_gmask_launches, mips_g_launches,
-        mips_g_mask_launches, mips_g_scan, mips_g_scan_plain, mips_topk, mips_topk_launches,
-        mips_topk_plain, quantize_queries, select_candidates,
+        auto_merge_tiles, device_rescore, ivf_probe_scores, ivf_probe_scores_plain,
+        ivf_scores_launches, mips_g_gmask_launches, mips_g_launches, mips_g_mask_launches,
+        mips_g_scan, mips_g_scan_plain, mips_topk, mips_topk_launches, mips_topk_plain,
+        quantize_queries, select_candidates,
     )
     from theoremsearch_tpu_torch.search.engine import SearchEngine
     from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
@@ -264,6 +301,7 @@ def main() -> int:
         "mips_g_scan_gmask": mips_g_gmask_launches, "mips_topk": mips_topk_launches,
         "qknorm_rope_attention": attention_launches,
         "fused_attn_int8_layer": attn_int8_launches, "fused_mlp_int8_layer": mlp_int8_launches,
+        "ivf_probe_scores": ivf_scores_launches,
     }
     main_launches = dict.fromkeys(counters, 0)
 
@@ -436,6 +474,27 @@ def main() -> int:
                    (torch.arange(S, device=dev)[None] < lens[:, None]).to(torch.int32))
     for shape in ((512, 64), (64, 32), (64, 128), (70 * 128 + 70,)):
         check_b3b4("mlp", rand_x(*shape, cfg.hidden_size))
+
+    # ---- 4c. B6 vs plain: raw scores of a batch against probed chunks ----
+    for bb, p6, r6 in ((8, 526, 256), (16, 526, 256), (64, 1500, 256), (13, 5, 128), (8, 3, 512)):
+        g6 = torch.Generator(device=dev).manual_seed(bb * 10_000 + p6)
+        c6, fills = p6 + 8, max(1, p6 // 10)
+        sl6 = torch.randint(-127, 128, (c6, r6, D), generator=g6, device=dev, dtype=torch.int8)
+        sl6[-1] = 0                                   # the empty fill chunk
+        real6 = torch.randperm(c6 - 1, generator=g6, device=dev)[: p6 - fills]
+        u6 = torch.cat([torch.sort(real6).values,
+                        torch.full((fills,), c6 - 1, device=dev)]).to(torch.int32)
+        q6 = torch.randn((bb, D), generator=g6, device=dev)
+        ck, qk6 = ivf_probe_scores(q6, sl6, u6)
+        cp, qp6 = ivf_probe_scores_plain(q6, sl6, u6)
+        torch.cuda.synchronize()
+        err = int((ck.long() - cp.long()).abs().max())
+        err_of["ivf_probe_scores"] = max(err_of["ivf_probe_scores"], err)
+        ok = torch.equal(ck, cp) and torch.equal(qk6, qp6)
+        emit("b6", shape=[bb, p6, r6, D], fills=fills, bit_equal=ok, max_abs_err=err)
+        if not ok:
+            raise AssertionError(f"B6 kernel disagrees with its plain version at {[bb, p6, r6, D]}")
+    del sl6, ck, cp
 
     # ---- 5. encoder at full width ----
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
@@ -748,6 +807,169 @@ def main() -> int:
             and path4["mips_g_scan_gmask"] >= 1):
         raise AssertionError("serve_filtered phase failed")
 
+    # ---- 14. IVF build on a 1M x 1024 clustered corpus ----
+    NI, NL = 1_048_576, 4096
+    t0 = time.perf_counter()
+    gi = torch.Generator(device=dev).manual_seed(21)
+    centres = torch.randn((NL, D), generator=gi, device=dev)
+    centres /= centres.norm(dim=1, keepdim=True)
+    member = torch.randint(0, NL, (NI,), generator=gi, device=dev)
+    ivf_corpus = np.empty((NI, D), np.float32)
+    for i in range(0, NI, 131_072):
+        xc = centres[member[i : i + 131_072]] + (1.5 / np.sqrt(D)) * torch.randn(
+            (131_072, D), generator=gi, device=dev)
+        ivf_corpus[i : i + 131_072] = (xc / xc.norm(dim=1, keepdim=True)).cpu().numpy()
+    ivf_corpus[:4096] = slogan_emb
+    del member, xc
+    gen_s = time.perf_counter() - t0
+    stage_s = {}
+
+    def stage(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stage_s[name] = time.perf_counter() - t_
+            return out
+        return run
+
+    real_stages = (ivf_mod.train_kmeans, ivf_mod._assign_top2)
+    ivf_mod.train_kmeans = stage("kmeans_s", real_stages[0])
+    ivf_mod._assign_top2 = stage("assign_s", real_stages[1])
+    try:
+        t0 = time.perf_counter()
+        ivf = IVFIndex.build(ivf_corpus, config=IndexConfig(ivf_nlist=NL, dtype="int8"),
+                             slab_rows=args.ivf_slab_rows, device=dev)
+        ivf_build_s = time.perf_counter() - t0
+    finally:
+        ivf_mod.train_kmeans, ivf_mod._assign_top2 = real_stages
+    t0 = time.perf_counter()
+    pa = ivf._device_arrays()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    ids_all = torch.cat([ivf.slab_ids.reshape(-1), ivf.spill_ids])
+    ids_all = ids_all[ids_all >= 0]
+    n_spill = int((ivf.spill_ids >= 0).sum())
+    # where each row landed: its best list (0), another list's slack
+    # (relocated overflow, 1) or the spill (2)
+    R_ivf = int(ivf.slabs.shape[1])
+    home = np.full(NI, 2, np.int8)
+    cents_dev = pa["cents"]
+    with torch.inference_mode():
+        best_list = torch.cat([(torch.from_numpy(ivf_corpus[i : i + 131_072]).to(dev) @ cents_dev.T)
+                               .argmax(1) for i in range(0, NI, 131_072)]).cpu().numpy()
+    sid = ivf.slab_ids.numpy()
+    lists_of = np.repeat(np.arange(NL), R_ivf).reshape(NL, R_ivf)
+    live = sid >= 0
+    home[sid[live]] = (best_list[sid[live]] != lists_of[live]).astype(np.int8)
+    emit("ivf_build", rows=NI, dim=D, nlist=NL, slab_rows=int(ivf.slabs.shape[1]),
+         corpus_gen_s=round(gen_s, 3), build_s=round(ivf_build_s, 3),
+         kmeans_s=round(stage_s["kmeans_s"], 3), assign_s=round(stage_s["assign_s"], 3),
+         pack_quant_normalize_s=round(ivf_build_s - stage_s["kmeans_s"] - stage_s["assign_s"], 3),
+         upload_s=round(upload_s, 3), spill_rows=n_spill, spill_chunks=pa["n_spill_chunks"],
+         relocated_rows=int((home == 1).sum()),
+         memory_bytes=ivf.memory_bytes(), global_scale=ivf.global_scale)
+    if not (ivf.probe_major_ok and ids_all.numel() == NI and int(torch.unique(ids_all).numel()) == NI):
+        raise AssertionError("ivf_build phase failed")
+    del ids_all
+
+    # ---- 15. calibrated nprobe, recall at B=8, latency ----
+    ivf_dev = torch.from_numpy(ivf_corpus).to(dev)
+    ivf_dev /= ivf_dev.norm(dim=1, keepdim=True)        # the rows the index packed
+    draws = []
+    for s_ in range(5):
+        gq_ = torch.Generator(device=dev).manual_seed(500 + s_)
+        qq = centres[torch.randint(0, NL, (128,), generator=gq_, device=dev)] + (
+            1.5 / np.sqrt(D)) * torch.randn((128, D), generator=gq_, device=dev)
+        qq /= qq.norm(dim=1, keepdim=True)
+        draws.append((qq, exact_topk(qq, ivf_dev, k=10, device=dev)[1]))
+
+    def ivf_recall(nprobe_):
+        fn_ = ivf.device_searcher(k=10, nprobe=nprobe_)
+        recs_, ids_ = [], []
+        for qq, orc in draws:
+            got = torch.cat([fn_(qq[j : j + 8])[1] for j in range(0, 128, 8)]).cpu().numpy()
+            ids_.append(got)
+            recs_.append(recall_vs_exact(got, orc, k=10))
+        return recs_, ids_
+
+    path_start()
+    t0 = time.perf_counter()
+    np_cal, rec_cal = calibrate_nprobe(ivf, ivf_dev, gate=0.99)
+    cal_s = time.perf_counter() - t0
+    ivf.config = ivf.config.replace(ivf_nprobe=int(np_cal), ivf_nprobe_calibrated=rec_cal >= 0.99)
+    sweep, cal_ids = {}, None
+    for npb in sorted({16, 32, 64, int(np_cal)}):
+        sweep[npb], ids_k = ivf_recall(npb)
+        if npb == np_cal:
+            cal_ids = ids_k
+    path6 = path_end()
+    # the true neighbours the calibrated search missed, by where they live
+    missed = np.concatenate([orc[~(orc[:, :, None] == got[:, None, :]).any(2)]
+                             for (_, orc), got in zip(draws, cal_ids)])
+    missed_by_home = {h: int((home[missed] == i).sum()) for i, h in enumerate(("best_list", "relocated", "spill"))}
+    ivf_mod.ivf_probe_scores = ivf_probe_scores_plain
+    try:
+        _, plain_ids = ivf_recall(int(np_cal))
+    finally:
+        ivf_mod.ivf_probe_scores = ivf_probe_scores
+    plain_equal = all(np.array_equal(a, b) for a, b in zip(cal_ids, plain_ids))
+    fn_cal = ivf.device_searcher(k=10, nprobe=int(np_cal))
+    q8b, q16b = draws[0][0][:8].contiguous(), draws[0][0][:16].contiguous()
+    flat_ivf = FlatIndex.build(ivf_corpus, config=IndexConfig(dtype="int8", int8_scale="global"),
+                               device=dev)
+    eng_ivf = SearchEngine(flat_ivf, meta=meta, rescore_vectors=ivf_corpus, device=dev, ivf_index=ivf)
+    lat = {"ivf_b8": cuda_ms(lambda: fn_cal(q8b), 30, warmup=3),
+           "ivf_b16": cuda_ms(lambda: fn_cal(q16b), 30, warmup=3),
+           "flat_b8": cuda_ms(lambda: eng_ivf._speed_search(q8b, 10, 10), 30, warmup=3),
+           "flat_b16": cuda_ms(lambda: eng_ivf._speed_search(q16b, 10, 10), 30, warmup=3)}
+    flat_rec = [recall_vs_exact(torch.cat([eng_ivf._speed_search(qq[j : j + 8], 10, 10)[1]
+                                           for j in range(0, 128, 8)]).cpu().numpy(), orc, k=10)
+                for qq, orc in draws]
+    emit("ivf", calibrated_nprobe=int(np_cal), calibration_recall=rec_cal, calibrate_s=round(cal_s, 3),
+         recall_b8_min={str(k_): min(v) for k_, v in sweep.items()},
+         recall_b8_draws={str(k_): v for k_, v in sweep.items()},
+         flat_recall_b8_min=min(flat_rec), plain_b6_ids_equal=plain_equal,
+         missed_neighbours=missed_by_home,
+         latency_ms=lat, gpu=gpu, launches=path6)
+    if not (min(sweep[int(np_cal)]) >= 0.99 and plain_equal and path6["ivf_probe_scores"] >= 1):
+        raise AssertionError("ivf phase failed")
+
+    # ---- 16. IVF serving over HTTP ----
+    isched = BatchScheduler(eng_ivf, max_batch=16, encode_fn=encoder.encode_device)
+    iservice = SearchService(eng_ivf, encoder.encode, scheduler=isched)
+    idirect = SearchService(eng_ivf, encoder.encode)
+    itexts = [texts[(29 * i) % 4096] for i in range(128)]
+    eng_ivf.warm_overfetch(batch_sizes=(1, 8, 16), k=10)
+    r0 = dict(eng_ivf.route_counts)
+    path_start()
+    ianswers, iserve_s, istats, iwarm = serve_round(
+        iservice, [{"query": t_, "top_k": 10} for t_ in itexts], threads=8)
+    path7 = path_end()
+    ivf_batches = eng_ivf.route_counts.get("ivf", 0) - r0.get("ivf", 0)
+    icodes = all(code == 200 for code, _ in ianswers)
+    ijoined = all(
+        len(body["results"]) == 10 and all("theorem_slogan" in r and "paper_url" in r for r in body["results"])
+        for _, body in ianswers)
+    iover, iself = [], 0
+    for text, (_, body) in zip(itexts, ianswers):
+        got = [r["doc_id"] for r in body["results"]]
+        want = [r["doc_id"] for r in idirect.search_and_display(text)]
+        iover.append(len(set(got) & set(want)) / 10)
+        iself += texts.index(text) == got[0]
+    ib = istats["batches"] - iwarm["batches"]
+    emit("serve_ivf", requests=len(ianswers), all_200=icodes, metadata_joined=ijoined,
+         ivf_route_batches=ivf_batches, routes=dict(eng_ivf.route_counts),
+         overlap10_mean=float(np.mean(iover)), overlap10_min=float(np.min(iover)), self_top1=iself,
+         wall_s=round(iserve_s, 3), batches=ib, avg_batch=(istats["queries"] - iwarm["queries"]) / max(ib, 1),
+         latency_ms=istats.get("latency_ms"), stages_ms={
+             k: v for k, v in istats.get("stages_ms", {}).items() if k != "worst_batches"},
+         launches=path7)
+    if not (icodes and ijoined and ivf_batches > 0 and np.mean(iover) >= 0.9 and len(ianswers) == 128
+            and path7["ivf_probe_scores"] >= 1):
+        raise AssertionError("serve_ivf phase failed")
+
     # ---- 13. times at the path's shapes (not counted as main-path
     # launches) ----
     qb = qd[0]
@@ -838,10 +1060,67 @@ def main() -> int:
           lambda: fused_mlp_int8_layer_plain(x512, layer["mlp_norm"], lq["w_gate"], lq["w_up"],
                                              lq["w_down"]),
           2 * T * DM * 2 + 3 * DM * I + 4 * (2 * I + 2 * DM), {"int8": 6 * T * DM * I})
+    # B6 at the ivf phase's B=8 search: the unique chunks read once, the
+    # queries read and the raw scores written once
+    captured = {}
+
+    def capture(q_, s_, u_):
+        captured.update(q=q_, s=s_, u=u_)
+        return ivf_probe_scores(q_, s_, u_)
+
+    ivf_mod.ivf_probe_scores = capture
+    try:
+        fn_cal(q8b)
+    finally:
+        ivf_mod.ivf_probe_scores = ivf_probe_scores
+    cq, cs, cu = captured["q"], captured["s"], captured["u"]
+    P6, R6 = cu.shape[0], cs.shape[1]
+    distinct6 = int(torch.unique(cu).numel())
+    n_spill_ch = pa["n_spill_chunks"]
+
+    def b6_device_ms(q_, s_, u_, n=20):
+        """The kernel's own device time (profiler), per launch: at B=8 the
+        wrapper's query quantization (~9 small torch ops) is host-bound
+        and would hide it from CUDA events around whole calls."""
+        ivf_probe_scores(q_, s_, u_)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof6:
+            for _ in range(n):
+                ivf_probe_scores(q_, s_, u_)
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof6.key_averages() if "ivf_scores_kernel" in e.key)
+        if us <= 0:
+            raise AssertionError("the profiler saw no device time of the B6 kernel")
+        return us / n / 1e3
+
+    def b6_bytes_ops(b_, p_, r_, distinct_):
+        return (distinct_ * r_ * D + b_ * D * 4 + 4 * b_ * p_ * r_ + 4 * b_,
+                {"int8": 2 * b_ * p_ * r_ * D})
+
+    timed("ivf_probe_scores", lambda: ivf_probe_scores(cq, cs, cu),
+          lambda: ivf_probe_scores_plain(cq, cs, cu), *b6_bytes_ops(8, P6, R6, distinct6), plain_iters=10)
+    b6_wrapper_ms = times["ivf_probe_scores"]["ms"]
+    times["ivf_probe_scores"]["ms"] = b6_device_ms(cq, cs, cu)
+    # B6 at the b6 phase's shapes (random slabs, every chunk distinct but
+    # the fills): the kernel's device time against its bound
+    b6_shapes = {}
+    for bb, p6, r6 in ((8, 526, 256), (16, 526, 256), (64, 1500, 256)):
+        g6 = torch.Generator(device=dev).manual_seed(bb * 10_000 + p6)
+        sl6 = torch.randint(-127, 128, (p6 + 8, r6, D), generator=g6, device=dev, dtype=torch.int8)
+        fills = max(1, p6 // 10)
+        u6 = torch.cat([torch.arange(p6 - fills, device=dev),
+                        torch.full((fills,), p6 + 7, device=dev)]).to(torch.int32)
+        q6 = torch.randn((bb, D), generator=g6, device=dev)
+        nb, ops6 = b6_bytes_ops(bb, p6, r6, p6 - fills + 1)
+        b6_shapes[f"{bb}x{p6}x{r6}"] = {"device_ms": b6_device_ms(q6, sl6, u6), **bound(nb, ops6)}
+    del sl6
     emit("times", gpu=gpu, kernels=times,
          shapes={"mips_g_scan*": [1024, NC, D, rb, m], "mips_topk": [512, NC, D, 40],
                  "qknorm_rope_attention": [512, S, H, HK, DH],
-                 "fused_*_int8_layer": [*x512.shape[:2], DM, I, H, HK, DH]},
+                 "fused_*_int8_layer": [*x512.shape[:2], DM, I, H, HK, DH],
+                 "ivf_probe_scores": {"B": 8, "P": P6, "R": R6, "D": D, "distinct_chunks": distinct6,
+                                      "spill_chunks": n_spill_ch, "nprobe": int(np_cal)}},
+         ivf_search_ms=lat, ivf_probe_scores_wrapper_ms=b6_wrapper_ms, b6_shapes=b6_shapes,
          scan_rescore_ms_per_batch={"kernel": pipe_k, "plain": pipe_p, "qps_kernel": 1024 / pipe_k * 1e3},
          encoder_forward_ms={"kernel": enc_k, "plain": enc_p, "shape": [512, S]},
          encoder_int8_forward_ms={"kernel": enc8_k, "plain": enc8_p, "shape": [512, S]},
@@ -858,6 +1137,7 @@ def main() -> int:
         ("scan_rescore_b1024", pipeline(mips_g_scan)),
         (f"filtered_grouped_b{len(grouped_batch)}",
          lambda: engine.search_vectors(qg, k=10, filters=grouped_batch)),
+        (f"ivf_search_b8_nprobe{int(np_cal)}", lambda: fn_cal(q8b)),
     ):
         with torch.inference_mode(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -878,6 +1158,8 @@ def main() -> int:
                                   "theoremsearch_tpu/kernels/layer_int8.py:274"),
         "fused_mlp_int8_layer": ("theoremsearch_tpu_torch/csrc/layer_int8.cu",
                                  "theoremsearch_tpu/kernels/layer_int8.py:151"),
+        "ivf_probe_scores": ("theoremsearch_tpu_torch/csrc/ivf_scores.cu",
+                             "theoremsearch_tpu/kernels/mips.py:789"),
     }
     missing = [n for n, c in main_launches.items() if c < 1]
     if missing:

@@ -299,3 +299,53 @@ def test_int8_encoder_on_card_kernel_vs_plain(cuda):
     assert (attn_int8_launches.n, mlp_int8_launches.n) == (before[0] + 2, before[1] + 2)
     b = encode_pooled(params, ids, mask, cfg, fused="plain", qlayers=ql, fused_layers=True)
     assert float((a.double() * b.double()).sum(1).min()) > 0.999
+
+
+@pytest.mark.parametrize("b,c,r,d,p", [
+    (8, 40, 256, 1024, 30),
+    (13, 9, 128, 1024, 5),
+    (8, 7, 512, 1024, 3),
+    (64, 100, 256, 1024, 90),
+    (100, 20, 128, 96, 12),
+])
+def test_ivf_scores_kernel_bit_equal_plain(cuda, b, c, r, d, p):
+    from theoremsearch_tpu_torch.kernels.mips import (
+        ivf_probe_scores, ivf_probe_scores_plain, ivf_scores_launches)
+
+    g = torch.Generator().manual_seed(b + p)
+    slabs = torch.randint(-127, 128, (c, r, d), generator=g, dtype=torch.int8)
+    slabs[-1] = 0                                      # the empty fill chunk
+    uids = torch.sort(torch.randint(0, c - 1, (p,), generator=g)).values.to(torch.int32)
+    uids[-max(1, p // 4):] = c - 1                     # fills repeat the empty chunk
+    q = torch.randn((b, d), generator=g)
+    slabs, uids, q = slabs.to(cuda), uids.to(cuda), q.to(cuda)
+    before = ivf_scores_launches.n
+    ck, qk = ivf_probe_scores(q, slabs, uids)
+    assert ivf_scores_launches.n == before + 1
+    cp, qp = ivf_probe_scores_plain(q, slabs, uids)
+    torch.testing.assert_close(ck, cp, rtol=0, atol=0)
+    torch.testing.assert_close(qk, qp, rtol=0, atol=0)
+
+
+def test_ivf_searcher_on_card_matches_cpu(cuda):
+    from theoremsearch_tpu_torch.index.ivf import IVFIndex
+    from theoremsearch_tpu_torch.kernels.mips import ivf_scores_launches
+
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((32, 128)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    emb = centers[rng.integers(0, 32, 16384)] + (0.7 / np.sqrt(128)) * rng.standard_normal(
+        (16384, 128)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    q = emb[rng.integers(0, 16384, 16)] + 0.05 * rng.standard_normal((16, 128)).astype(np.float32)
+    idx_c = IVFIndex.build(emb, config=IndexConfig(ivf_nlist=32, dtype="int8", ivf_assign2_margin=0.02),
+                           slab_rows=768, normalize=False, device="cpu")
+    idx_g = IVFIndex(**{f: getattr(idx_c, f) for f in (
+        "centroids", "slabs", "slab_scales", "slab_ids", "spill", "spill_scales", "spill_ids",
+        "num_rows", "config", "raw_flat", "res_flat", "res_scales_flat", "global_scale")}, device=cuda)
+    before = ivf_scores_launches.n
+    s_g, i_g = idx_g.device_searcher(k=10, nprobe=8, rescore_factor=8)(torch.from_numpy(q).to(cuda))
+    assert ivf_scores_launches.n == before + 1
+    s_c, i_c = idx_c.device_searcher(k=10, nprobe=8, rescore_factor=8)(torch.from_numpy(q))
+    np.testing.assert_array_equal(i_g.cpu().numpy(), i_c.numpy())
+    np.testing.assert_allclose(s_g.cpu().numpy(), s_c.numpy(), rtol=0, atol=1e-5)

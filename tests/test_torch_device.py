@@ -10,7 +10,9 @@ import torch
 
 from theoremsearch_tpu_torch.core.config import EncoderConfig
 from theoremsearch_tpu_torch.encoder.model import init_params, params_from_jax
+from theoremsearch_tpu_torch.eval.oracle import exact_topk
 from theoremsearch_tpu_torch.index.flat import FlatIndex
+from theoremsearch_tpu_torch.index.ivf import IVFIndex
 from theoremsearch_tpu_torch.utils.device import require_cuda, resolve_device, tf32_off
 
 
@@ -20,7 +22,7 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["require_cuda", "resolve_device", "init_params", "params_from_jax",
-                                   "FlatIndex.build"])
+                                   "FlatIndex.build", "exact_topk", "IVFIndex.build"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     call = {
         "require_cuda": require_cuda,
@@ -28,6 +30,8 @@ def test_entry_points_default_to_the_card(no_cuda, entry):
         "init_params": lambda: init_params(EncoderConfig.tiny(), torch.Generator()),
         "params_from_jax": lambda: params_from_jax({"w": np.zeros((2, 2), np.float32)}),
         "FlatIndex.build": lambda: FlatIndex.build(np.ones((4, 8), np.float32)),
+        "exact_topk": lambda: exact_topk(np.ones((2, 8), np.float32), np.ones((4, 8), np.float32)),
+        "IVFIndex.build": lambda: IVFIndex.build(np.ones((4, 8), np.float32)),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

@@ -72,7 +72,7 @@ def test_speed_path_recall_gate(data, engines):
     emb, q, _ = data
     _, teng = engines
     _, ids = teng.search_vectors(q, k=10)
-    _, oracle = exact_topk(q, emb, k=10, chunk_rows=3000)
+    _, oracle = exact_topk(q, emb, k=10, chunk_rows=3000, device="cpu")
     assert recall_vs_exact(ids, oracle, k=10) >= 0.99
 
 

@@ -229,7 +229,7 @@ def test_filtered_recall_against_masked_oracle(data, speed):
     _, teng = speed
     for f in _sigs(SearchFilters)[0] + _sigs(SearchFilters)[1][::5]:
         mask = compile_filter_mask(f, teng.meta)
-        _, oracle = exact_topk(q, emb, k=10, chunk_rows=1000, mask=mask)
+        _, oracle = exact_topk(q, emb, k=10, chunk_rows=1000, mask=mask, device="cpu")
         _, ids = teng.search_vectors(q, k=10, filters=f)
         assert recall_vs_exact(ids, oracle, k=10) >= 0.99
         assert mask[ids[ids >= 0]].all()
@@ -239,7 +239,7 @@ def test_masked_oracle_pads_beyond_passing_rows(data):
     emb, q, _ = data
     mask = np.zeros(N, bool)
     mask[[3, 9]] = True
-    s, i = exact_topk(q[:2], emb, k=4, mask=mask)
+    s, i = exact_topk(q[:2], emb, k=4, mask=mask, device="cpu")
     assert (np.sort(i[:, :2], axis=1) == [3, 9]).all() and (i[:, 2:] == -1).all()
     assert np.isneginf(s[:, 2:]).all()
 

@@ -53,10 +53,12 @@ def test_source_names_no_jax_or_reference_package(path):
 def test_module_list_covers_the_slice():
     for want in ("kernels.mips", "kernels.attention", "kernels.layer_int8", "encoder.model",
                  "encoder.batching", "search.engine", "serve.scheduler", "serve.app",
-                 "serve.http_api", "index.flat", "index.quant", "eval.oracle"):
+                 "serve.http_api", "index.flat", "index.quant", "index.ivf", "index.builder",
+                 "eval.oracle"):
         assert f"theoremsearch_tpu_torch.{want}" in MODULES
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
-        "mips_g.cu", "mips_topk.cu", "attention.cu", "layer_int8.cu", "int8_mma.cuh"}
+        "mips_g.cu", "mips_topk.cu", "attention.cu", "layer_int8.cu", "ivf_scores.cu",
+        "int8_mma.cuh"}
     importlib.import_module("theoremsearch_tpu_torch.kernels._build")
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.device import tf32_off
+from ..utils.device import resolve_device, tf32_off
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -30,12 +30,12 @@ def exact_topk(
     queries, corpus, k: int = 10, *, device=None, chunk_rows: int = 32_768, mask=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Exact top-k by inner product: (scores (Q, k) f32, ids (Q, k) int32),
-    computed on `device` (default: the queries' device), corpus chunk by
-    chunk. `mask` (N,) bool, True = row passes, restricts the search to
-    the passing rows (the filtered gate); slots beyond the passing rows
-    are (-inf, -1)."""
+    computed on `device` (default: the card; pass "cpu" for a CPU run),
+    corpus chunk by chunk. `mask` (N,) bool, True = row passes, restricts
+    the search to the passing rows (the filtered gate); slots beyond the
+    passing rows are (-inf, -1)."""
     q = _as_tensor(queries)
-    dev = torch.device(device) if device is not None else q.device
+    dev = resolve_device(device)
     q = q.to(dev).float()
     c = _as_tensor(corpus)
     keep = None if mask is None else _as_tensor(np.asarray(mask, dtype=bool))

@@ -64,3 +64,31 @@ def dequantize_int8(codes: torch.Tensor, scales) -> torch.Tensor:
     if isinstance(scales, torch.Tensor):
         return codes.float() * scales[:, None]
     return codes.float() * np.float32(scales)
+
+
+def quantize_residual_int8(
+    x, codes_g, gscale: float, chunk: int = _CHUNK_ROWS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 codes of the residual x - gscale * codes_g (the
+    two-level capacity mode: the global-scale codes are the coarse level,
+    the residual's per-row codes the fine one, ~15 effective bits at one
+    extra byte a dimension). Returns (res_codes int8 (N, D), res_scales
+    f32 (N,)) on codes_g's device, computed there in row chunks; sized
+    from x, since codes_g may carry padding rows."""
+    xt = _as_tensor(x)
+    cg = _as_tensor(codes_g)
+    dev = cg.device
+    n, d = xt.shape
+    g = torch.tensor(np.float32(gscale), device=dev)
+    out_codes = torch.empty((n, d), dtype=torch.int8, device=dev)
+    out_scales = torch.empty((n,), dtype=torch.float32, device=dev)
+    for s in range(0, n, chunk):
+        r = xt[s : s + chunk].to(dev).float() - g * cg[s : s + chunk].float()
+        out_codes[s : s + chunk], out_scales[s : s + chunk] = quantize_int8(r)
+    return out_codes, out_scales
+
+
+def dequantize_residual_int8(codes_g, gscale: float, res_codes, res_scales) -> torch.Tensor:
+    """gscale * codes_g + res_scales * res_codes, in f32."""
+    return (_as_tensor(codes_g).float() * float(np.float32(gscale))
+            + _as_tensor(res_scales)[:, None] * _as_tensor(res_codes).float())

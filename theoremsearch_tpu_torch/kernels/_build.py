@@ -67,6 +67,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ts_attn_int8_qkv.restype = i
     lib.ts_attn_int8_out.argtypes = [*[p] * 7, i, i, i, p]
     lib.ts_attn_int8_out.restype = i
+    lib.ts_ivf_scores.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.ts_ivf_scores.restype = i
     lib.ts_error_string.argtypes = [i]
     lib.ts_error_string.restype = ctypes.c_char_p
 

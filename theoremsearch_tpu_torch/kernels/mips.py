@@ -1,14 +1,17 @@
 """The scans: the speed path's packed lane maxima over a global-scale int8
 corpus (unmasked, masked and grouped-mask forms), the exact running
-top-k over any corpus, exact selection and the bf16 rescore.
+top-k over any corpus, the IVF probe-major chunk scan, exact selection
+and the bf16 rescore.
 
-Port of theoremsearch_tpu/kernels/mips.py. Two TPU kernels become
+Port of theoremsearch_tpu/kernels/mips.py. Three TPU kernels become
 hand-written CUDA kernels:
 
 - `_mips_g_kernel` -> `csrc/mips_g.cu`, reached through `mips_g_scan`
   (plain version `mips_g_scan_plain`);
 - `_mips_kernel` -> `csrc/mips_topk.cu`, reached through `mips_topk`
-  (plain version `mips_topk_plain`).
+  (plain version `mips_topk_plain`);
+- `_ivf_scores_kernel` -> `csrc/ivf_scores.cu`, reached through
+  `ivf_probe_scores` (plain version `ivf_probe_scores_plain`).
 
 A CPU tensor goes to the plain version, a CUDA tensor to the kernel. The
 selection epilogue, `device_rescore` and `merge_topk` were XLA ops in the
@@ -37,6 +40,7 @@ mips_g_launches = LaunchCounter()        # unmasked form
 mips_g_mask_launches = LaunchCounter()   # one filter mask for the batch
 mips_g_gmask_launches = LaunchCounter()  # one mask row per query
 mips_topk_launches = LaunchCounter()
+ivf_scores_launches = LaunchCounter()
 
 
 def quantize_queries(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -463,6 +467,68 @@ def fused_mips_topk(
     s, i = mips_topk(qk, corpus, scales, n_valid, bias, k)
     # per-query factor at emission only (the reference's `top_s * qscale`)
     return (s if qscales is None else s * qscales), i
+
+
+# ---------------------------------------------------------------------------
+# B6: IVF probe-major chunk scan (global-scale int8 slabs)
+# ---------------------------------------------------------------------------
+
+
+def _check_ivf_args(queries: torch.Tensor, slabs: torch.Tensor, uids: torch.Tensor) -> None:
+    if queries.ndim != 2 or slabs.ndim != 3 or uids.ndim != 1:
+        raise ValueError(f"ivf_probe_scores: queries (B, D), slabs (C, R, D), uids (P,); got "
+                         f"{tuple(queries.shape)}, {tuple(slabs.shape)}, {tuple(uids.shape)}")
+    if queries.shape[1] != slabs.shape[2]:
+        raise ValueError(f"ivf_probe_scores: D={queries.shape[1]} vs slabs {tuple(slabs.shape)}")
+    if slabs.shape[1] % 128:
+        raise ValueError("slab_rows must be a multiple of 128")
+    if slabs.dtype != torch.int8:
+        raise TypeError(f"ivf_probe_scores takes int8 slabs, got {slabs.dtype}")
+
+
+def ivf_probe_scores_plain(
+    queries: torch.Tensor, slabs: torch.Tensor, uids: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the probe-major scan: gather the probed chunks
+    slabs[uids] and take the exact int32 products of the quantized
+    queries with every row, (B, P*R) with column i*R + r = chunk uids[i],
+    row r; plus the per-query scales (B, 1)."""
+    _check_ivf_args(queries, slabs, uids)
+    q8, qscales = quantize_queries(queries)
+    rows = slabs[uids.long()].reshape(-1, slabs.shape[2])
+    with tf32_off():
+        return _int_dot(q8.float(), rows), qscales
+
+
+def ivf_probe_scores(
+    queries: torch.Tensor, slabs: torch.Tensor, uids: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scan the unique probed chunks: (cand (B, P*R) int32 raw scores,
+    qscales (B, 1) f32). queries (B, D) float, quantized per query here;
+    slabs (C, R, D) int8 global-scale codes, R a multiple of 128; uids
+    (P,) int32 chunk indices (duplicates and fills point at an empty
+    chunk). CUDA kernel `csrc/ivf_scores.cu` for CUDA tensors,
+    `ivf_probe_scores_plain` for CPU tensors."""
+    if queries.device.type == "cpu":
+        return ivf_probe_scores_plain(queries, slabs, uids)
+    _check_ivf_args(queries, slabs, uids)
+    q8, qscales = quantize_queries(queries)
+    uids = uids.to(torch.int32).contiguous()
+    _check_cuda_args("ivf_probe_scores", q8, slabs, uids)
+    b, d = q8.shape
+    c, r, _ = slabs.shape
+    p = uids.shape[0]
+    if d % 16 or p * (r // 128) > 65535 or p < 1:
+        raise ValueError(f"ivf_probe_scores: D={d} must be a multiple of 16 and 1 <= P*R/128 <= 65535")
+    cand = torch.empty((b, p * r), dtype=torch.int32, device=q8.device)
+    lib = load()
+    err = lib.ts_ivf_scores(
+        q8.data_ptr(), slabs.data_ptr(), uids.data_ptr(), cand.data_ptr(), b, d, c, r, p,
+        ctypes.c_void_p(torch.cuda.current_stream(q8.device).cuda_stream),
+    )
+    check(lib, err, "ivf_probe_scores")
+    ivf_scores_launches.bump()
+    return cand, qscales
 
 
 # ---------------------------------------------------------------------------

@@ -15,11 +15,16 @@ Two routes, chosen from the index at construction:
   filters as a 0 / -inf row bias and an optional host rescore against the
   rescore copy.
 
-Broad filters (at least half the rows pass) stay on the unfiltered route,
-fetch k + margin and drop failing ids on the host, re-running the batch
-through the masked route when a query's window holds more failures than
-the margin. Then row -> doc-id map, optional citation-weighted rerank,
-metadata join. A mesh, live updates, IVF and the residual rescore mode
+With an IVF index (`ivf_index=`), unfiltered batches of at most
+`ivf_max_batch` real queries take the IVF route instead: the probe-major
+search (`index/ivf.py:IVFIndex.device_searcher`, kernel B6 on the card),
+rescored on the device. Filtered batches never probe.
+
+Broad filters (at least half the rows pass) stay on the unfiltered flat
+route, fetch k + margin and drop failing ids on the host, re-running the
+batch through the masked route when a query's window holds more failures
+than the margin. Then row -> doc-id map, optional citation-weighted
+rerank, metadata join. A mesh, live updates and the residual rescore mode
 raise NotImplementedError; they come with later slices of the port.
 """
 
@@ -74,6 +79,10 @@ class SearchEngine:
     device: where the index lives and the scans run. Default: the card
         (RuntimeError without CUDA); "cpu" runs the kernels' plain
         versions.
+    ivf_index: optional IVFIndex on the same device, the low-latency
+        route for small unfiltered batches (at most `ivf_max_batch` real
+        queries). ivf_nprobe: an explicit value wins; else a calibrated
+        index's nprobe is trusted verbatim; else 16.
     """
 
     # distinct filter signatures one grouped scan carries; beyond it the
@@ -90,6 +99,9 @@ class SearchEngine:
         rescore_factor: int = 4,
         device=None,
         mesh=None,
+        ivf_index=None,
+        ivf_nprobe: int | None = None,
+        ivf_max_batch: int = 16,
     ):
         if mesh is not None:
             raise NotImplementedError("multi-device search is not ported yet")
@@ -167,10 +179,33 @@ class SearchEngine:
         self._pass_fail_cache = None
         self.filter_mask_builds = 0
         self.filter_mask_build_s = 0.0
-        # dispatches per route (speed, exact, masked, exact_masked,
+        # dispatches per route (speed, exact, ivf, masked, exact_masked,
         # overfetch, overfetch_rerun, grouped, empty): which route served
-        # a filtered batch, for traces and the smoke's route checks
+        # a batch, for traces and the smoke's route checks
         self.route_counts: dict[str, int] = {}
+
+        # the IVF route for small unfiltered batches. nprobe: an explicit
+        # value wins; a calibrated one (it cleared the recall gate) is
+        # trusted verbatim; else 16, which holds the 0.99 gate only on
+        # well-separated clusters
+        self.ivf = ivf_index
+        if ivf_index is not None and ivf_index.device != self.device:
+            raise ValueError(f"ivf_index lives on {ivf_index.device}, the engine on {self.device}")
+        if ivf_nprobe:
+            self.ivf_nprobe = int(ivf_nprobe)
+        elif ivf_index is not None and ivf_index.config.ivf_nprobe_calibrated:
+            self.ivf_nprobe = int(ivf_index.config.ivf_nprobe)
+        else:
+            self.ivf_nprobe = 16
+        # IVF wins only at small batches: its selection scales with the
+        # probed width, and batch-deduped probing approaches every list
+        # as B grows; bigger batches take the flat scan
+        self.ivf_max_batch = ivf_max_batch
+        self._ivf_fns: dict = {}
+        if ivf_index is not None:
+            # uploads the index once, like the flat index, and refuses one
+            # the probe-major route cannot search
+            self._ivf_fn(self.config.top_k)
 
     # ------------------------------------------------------------------
     # filters
@@ -270,10 +305,17 @@ class SearchEngine:
         return torch.stack(rows)
 
     def warm_overfetch(self, batch_sizes=(1,), k: int | None = None) -> None:
-        """The reference compiles its over-fetch programs here; the port
-        has nothing to compile, so this loads the kernels' library."""
+        """The reference compiles its over-fetch and IVF programs here; the
+        port has nothing to compile, so this loads the kernels' library and
+        runs the IVF route once per batch size it serves (first-use set-up
+        stays out of a served request)."""
         if self.device.type == "cuda":
             _load_kernels()
+        if self.ivf is not None:
+            for b in batch_sizes:
+                if b <= self.ivf_max_batch:
+                    q, _ = self._pad_queries(np.zeros((b, self.dim), np.float32))
+                    self._ivf_fn(k or self.config.top_k)(q)
 
     def warm_grouped(self, batch_sizes=(8,), g_pads=(8, 16, 32), k: int | None = None) -> None:
         """The reference compiles its grouped programs here; the port
@@ -326,6 +368,13 @@ class SearchEngine:
                                   mask_ids=mask_ids)
         s, li = device_rescore(q, li, self._rescore_device, self.n_valid, k=k_q)
         return s, self._to_doc_ids(li)
+
+    def _ivf_fn(self, k: int):
+        """The IVF route's searcher for k, built once per k."""
+        if k not in self._ivf_fns:
+            self._ivf_fns[k] = self.ivf.device_searcher(
+                k=k, nprobe=self.ivf_nprobe, rescore_factor=self.rescore_factor)
+        return self._ivf_fns[k]
 
     def _exact_search(self, q, k_dev: int, bias=None):
         """The exact route (kernel B5): (scores, doc ids) (B_pad, k_dev)."""
@@ -399,6 +448,10 @@ class SearchEngine:
         s = i = None
         if mask is not None and pass_rate == 0.0:
             route = "empty"     # nothing passes: every slot is empty
+        elif mask is None and drop_mask is None and self.ivf is not None and b <= self.ivf_max_batch:
+            route = "ivf"       # rescored on the device; doc ids already
+            s, i = self._ivf_fn(k_q)(q)
+            on_device = True
         elif mask is None:
             route = ("overfetch" if drop_mask is not None
                      else "speed" if self._speed_ok else "exact")

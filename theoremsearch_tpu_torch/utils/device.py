@@ -24,8 +24,15 @@ def require_cuda() -> torch.device:
 
 
 def resolve_device(device) -> torch.device:
-    """`device` as a torch.device; None means the card (`require_cuda`)."""
-    return require_cuda() if device is None else torch.device(device)
+    """`device` as a torch.device; None means the card (`require_cuda`).
+    A bare "cuda" gets the current card's index, so devices compare
+    equal however the caller named them."""
+    if device is None:
+        return require_cuda()
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def gpu_name_power() -> str:
