@@ -94,12 +94,35 @@ exits non-zero (there is no CPU path):
              flat, ivf_index=...) -> SearchService -> HTTP, 128 requests
              from 8 client threads (batches <= 8, the IVF route): all 200
              with metadata, IVF route taken, overlap@10 vs the direct path.
+17. b7       the fused attention backward kernel vs its plain version,
+             H=16/8, Dh=128, (B, S) = (64, 32), (64, 64), (64, 128) with
+             ragged masks (mask[:, 0] = 1, g zero on padded rows) and the
+             training shape (64, 64) with full masks; a second launch
+             bit-equal to the first. (The 1M engines are freed first.)
+18. train    contrastive fine-tuning at full width (EncoderConfig(
+             max_seq_len=64), 64 pairs x 64 tokens, lr 2e-5, temperature
+             0.05, tools/train_bench.py's synthetic task from numpy seed 0):
+             one batch's gradients "on" vs "plain" (and vs "off") per leaf
+             of layers 0 and 27, embed and final_norm; 20 steps "on"
+             (B2 forward, B7 backward: step_ms, tokens/s, model TFLOP/s,
+             peak memory) and the same 20 steps "off" from the same
+             weights (max |d loss|); 5 LoRA steps (rank 8, wq/wv) with the
+             base bit-unchanged; B2 and B7 launched 56 times a step.
+19. train_cli  `python -m theoremsearch_tpu_torch train` on the card over
+             data/validation_set.csv: 10 steps with --eval and checkpoints
+             every 5, then --steps 20 on the same directory (resumed at
+             step 10). Its hermetic encoder has head_dim 32, so this phase
+             runs the reference's composition and no B7: phase 18 carries
+             the kernel.
+13. times    (emitted last) the kernel / plain / bound times above, B7 and
+             B2 at the training shape (64, 64, 16, 8, 128), the train step
+             "on" and "off", and the script's total seconds.
 
-Each path (phases 5-7, 7b, 9, 11, 12, 15, 16) runs with every launch counter set to
+Each path (phases 5-7, 7b, 9, 11, 12, 15, 16, 18) runs with every launch counter set to
 0 just before it and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
-stack).
+stack, the train step).
 """
 
 from __future__ import annotations
@@ -114,8 +137,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line per phase; `at_s` is the script's elapsed seconds."""
+    print(json.dumps({"phase": phase, **kw, "at_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -270,7 +297,9 @@ def main(argv=None) -> int:
     from theoremsearch_tpu_torch.index.quant import quantize_global_int8
     from theoremsearch_tpu_torch.kernels import _build
     from theoremsearch_tpu_torch.kernels.attention import (
-        attention_launches, fused_qknorm_rope_attention, fused_qknorm_rope_attention_plain,
+        attention_bwd_launches, attention_launches, fused_qknorm_rope_attention,
+        fused_qknorm_rope_attention_bwd, fused_qknorm_rope_attention_bwd_plain,
+        fused_qknorm_rope_attention_plain,
     )
     from theoremsearch_tpu_torch.kernels.layer_int8 import (
         attn_int8_launches, fused_attn_int8_layer, fused_attn_int8_layer_plain,
@@ -300,6 +329,7 @@ def main(argv=None) -> int:
         "mips_g_scan": mips_g_launches, "mips_g_scan_mask": mips_g_mask_launches,
         "mips_g_scan_gmask": mips_g_gmask_launches, "mips_topk": mips_topk_launches,
         "qknorm_rope_attention": attention_launches,
+        "qknorm_rope_attention_bwd": attention_bwd_launches,
         "fused_attn_int8_layer": attn_int8_launches, "fused_mlp_int8_layer": mlp_int8_launches,
         "ivf_probe_scores": ivf_scores_launches,
     }
@@ -1114,7 +1144,7 @@ def main(argv=None) -> int:
         nb, ops6 = b6_bytes_ops(bb, p6, r6, p6 - fills + 1)
         b6_shapes[f"{bb}x{p6}x{r6}"] = {"device_ms": b6_device_ms(q6, sl6, u6), **bound(nb, ops6)}
     del sl6
-    emit("times", gpu=gpu, kernels=times,
+    times_line = dict(gpu=gpu, kernels=times,
          shapes={"mips_g_scan*": [1024, NC, D, rb, m], "mips_topk": [512, NC, D, 40],
                  "qknorm_rope_attention": [512, S, H, HK, DH],
                  "fused_*_int8_layer": [*x512.shape[:2], DM, I, H, HK, DH],
@@ -1124,8 +1154,7 @@ def main(argv=None) -> int:
          scan_rescore_ms_per_batch={"kernel": pipe_k, "plain": pipe_p, "qps_kernel": 1024 / pipe_k * 1e3},
          encoder_forward_ms={"kernel": enc_k, "plain": enc_p, "shape": [512, S]},
          encoder_int8_forward_ms={"kernel": enc8_k, "plain": enc8_p, "shape": [512, S]},
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-         total_s=round(time.perf_counter() - t_start, 1))
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
     # a filtered batch of at most 32 signatures: ONE grouped scan
     grouped_batch = [f36[s_] for s_ in sig_of if s_ < 32]
@@ -1147,6 +1176,231 @@ def main(argv=None) -> int:
         emit("profile", what=name, gpu=gpu, top_device_us=[
             [e.key[:60], round(e.self_device_time_total, 1), e.count] for e in rows])
 
+    # ---- 17. B7 vs plain (the 1M engines and their corpora freed first) ----
+    del (engine, xeng, eng_ivf, ivf, flat_ivf, index, xindex, corpus_dev, ivf_dev, corpus,
+         ivf_corpus, rescore_bf16, pa, cents_dev, bf_corpus, fn_cal, captured, cq, cs, cu,
+         sched, service, direct, sched8, service8, direct8, fsched, fservice, isched, iservice,
+         idirect, encoder, encoder8, params, ql, x512, layer, lq, bias, st36, year_dev)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def attn_bwd_inputs(bb, s_, full, seed):
+        gb = torch.Generator(device=dev).manual_seed(seed)
+        qa_ = (torch.randn((bb, s_, H * DH), generator=gb, device=dev) * 0.5).to(torch.bfloat16)
+        ka_ = (torch.randn((bb, s_, HK * DH), generator=gb, device=dev) * 0.5).to(torch.bfloat16)
+        va_ = (torch.randn((bb, s_, HK * DH), generator=gb, device=dev) * 0.5).to(torch.bfloat16)
+        w_ = 1.0 + 0.1 * torch.randn((2, DH), generator=gb, device=dev)
+        lens_ = torch.full((bb,), s_, device=dev) if full else torch.randint(
+            1, s_ + 1, (bb,), generator=gb, device=dev)
+        m_ = (torch.arange(s_, device=dev)[None, :] < lens_[:, None]).to(torch.int32)
+        m_[:, 0] = 1
+        pos_ = torch.clamp(m_.cumsum(1) - 1, min=0).float()
+        ang_ = pos_[..., None] * (1.0 / (1e6 ** (torch.arange(0, DH, 2, device=dev).float() / DH)))
+        g_ = (torch.randn((bb, s_, H * DH), generator=gb, device=dev) * m_[..., None]).to(torch.bfloat16)
+        return (qa_, ka_, va_, w_[0].contiguous(), w_[1].contiguous(), torch.cos(ang_),
+                torch.sin(ang_), m_, g_)
+
+    bwd_kw = dict(num_heads=H, num_kv_heads=HK, head_dim=DH, eps=1e-6, causal=True)
+    err_of["qknorm_rope_attention_bwd"] = 0.0
+    for bb, s_, full in ((64, 32, False), (64, 64, False), (64, 128, False), (64, 64, True)):
+        args7 = attn_bwd_inputs(bb, s_, full, 700 + s_ + full)
+        outk = fused_qknorm_rope_attention_bwd(*args7, **bwd_kw)
+        outk2 = fused_qknorm_rope_attention_bwd(*args7, **bwd_kw)
+        outp = fused_qknorm_rope_attention_bwd_plain(*args7, scale=1.0 / np.sqrt(DH), **bwd_kw)
+        torch.cuda.synchronize()
+        repeat_equal = all(torch.equal(a_, b_) for a_, b_ in zip(outk, outk2))
+        rows, ok7 = {}, repeat_equal
+        for name, a_, b_, tol in zip(("dq", "dk", "dv", "dqw", "dkw"), outk, outp,
+                                     (2e-2, 2e-2, 2e-2, 1e-3, 1e-3)):
+            cosv, err, ref_max = agreement(a_, b_)
+            rows[name] = {"cosine": cosv, "max_abs_err": err, "max_abs_plain": ref_max}
+            ok7 &= cosv > 0.9999 and err <= tol * ref_max
+            if name in ("dq", "dk", "dv"):
+                err_of["qknorm_rope_attention_bwd"] = max(err_of["qknorm_rope_attention_bwd"], err)
+        emit("b7", B=bb, S=s_, masks="full" if full else "ragged", repeat_bit_equal=repeat_equal,
+             **rows)
+        if not ok7:
+            raise AssertionError(f"B7 kernel disagrees with its plain version at (B, S) = ({bb}, {s_})")
+    del args7, outk, outk2, outp
+
+    # B7 and B2 times at the training shape, full masks
+    qa, ka, va, qw7, kw7, cos7, sin7, m7, g7 = attn_bwd_inputs(64, 64, True, 799)
+    live7 = m7.sum(1).double()
+    pairs7 = float((live7 * (live7 + 1) / 2).sum())
+    in7 = (qa.numel() * 2 + ka.numel() * 2 * 2 + cos7.numel() * 4 * 2 + m7.numel() * 4 + DH * 4 * 2)
+    timed("qknorm_rope_attention_bwd",
+          lambda: fused_qknorm_rope_attention_bwd(qa, ka, va, qw7, kw7, cos7, sin7, m7, g7, **bwd_kw),
+          lambda: fused_qknorm_rope_attention_bwd_plain(
+              qa, ka, va, qw7, kw7, cos7, sin7, m7, g7, scale=1.0 / np.sqrt(DH), **bwd_kw),
+          in7 + g7.numel() * 2 + qa.numel() * 2 + ka.numel() * 2 * 2 + DH * 4 * 2,
+          {"bf16": 5 * 2 * DH * H * pairs7}, plain_iters=5)
+    b2_train = {"ms": cuda_ms(lambda: fused_qknorm_rope_attention(
+        qa, ka, va, qw7, kw7, cos7, sin7, m7, **kwargs), 20),
+        **bound(in7 + qa.numel() * 2, {"bf16": 2 * 2 * DH * H * pairs7})}
+    del qa, ka, va, g7
+
+    # ---- 18. contrastive training at full width ----
+    from theoremsearch_tpu_torch.core.config import TrainConfig
+    from theoremsearch_tpu_torch.train.contrastive import (
+        info_nce_loss, init_lora_train_state, init_train_state, make_lora_train_step,
+        make_train_step, tree_leaves,
+    )
+
+    tcfg_ = TrainConfig(batch_size=64, seq_len=64, learning_rate=2e-5, temperature=0.05,
+                        lora_rank=8)
+    tr_cfg = EncoderConfig(max_seq_len=64)
+    TB, TS, TSTEPS = 64, 64, 20
+    rng_t = np.random.default_rng(0)
+    template = rng_t.integers(3, tr_cfg.vocab_size, TS).astype(np.int32)
+    ident = max(2, TS // 16)
+    tq = np.broadcast_to(template, (TSTEPS, TB, TS)).copy()
+    tp_ = tq.copy()
+    id_toks = rng_t.integers(3, tr_cfg.vocab_size, (TSTEPS, TB, ident))
+    tq[:, :, 1 : 1 + ident] = id_toks
+    tp_[:, :, 2 : 2 + ident] = id_toks
+    tq_dev = torch.from_numpy(tq).to(dev)
+    tp_dev = torch.from_numpy(tp_).to(dev)
+    tmask = torch.ones((TB, TS), dtype=torch.int32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) one batch's gradients through each attention route
+    def batch_grads(fused):
+        st_ = init_train_state(tr_cfg, tcfg_, device=dev)
+        leaves_ = tree_leaves(st_.params)
+        for t_ in leaves_:
+            t_.requires_grad_(True)
+        loss_ = info_nce_loss(st_.params, tq_dev[0], tmask, tp_dev[0], tmask, tr_cfg,
+                              tcfg_.temperature, fused)
+        grads_ = torch.autograd.grad(loss_, leaves_)
+        names_ = ["embed", "final_norm"] + [f"{li}.{k_}" for li in range(tr_cfg.num_layers)
+                                             for k_ in sorted(st_.params["layers"][0])]
+        keep = {n_: g_.float() for n_, g_ in zip(names_, grads_)
+                if n_ in ("embed", "final_norm") or n_.split(".")[0] in ("0", str(tr_cfg.num_layers - 1))}
+        return float(loss_.detach()), keep
+
+    loss_on, g_on = batch_grads("on")
+    loss_plain, g_plain = batch_grads("plain")
+    loss_off, g_off = batch_grads("off")
+    cos_plain = {n_: agreement(g_on[n_], g_plain[n_])[0] for n_ in g_on}
+    cos_off = {n_: agreement(g_on[n_], g_off[n_])[0] for n_ in g_on}
+    del g_on, g_plain, g_off
+    emit("train_grads", loss={"on": loss_on, "plain": loss_plain, "off": loss_off},
+         cos_on_vs_plain_min=min(cos_plain.values()), cos_on_vs_off_min=min(cos_off.values()),
+         cos_on_vs_plain=cos_plain, cos_on_vs_off=cos_off)
+    if not min(cos_plain.values()) >= 0.999:
+        raise AssertionError(f"train gradients: kernel vs plain cosine below 0.999: {cos_plain}")
+
+    # (b), (c) 20 steps "on" (the path) and "off" from the same weights
+    def run_steps(fused):
+        st_ = init_train_state(tr_cfg, tcfg_, device=dev)
+        step_ = make_train_step(tr_cfg, tcfg_, fused=fused)
+        ls_, ev = [], [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for i_ in range(TSTEPS):
+            if i_ == 2:
+                ev[0].record()
+            st_, l_ = step_(st_, tq_dev[i_], tmask, tp_dev[i_], tmask)
+            ls_.append(l_)
+        ev[1].record()
+        ev[1].synchronize()
+        return [float(l_) for l_ in ls_], ev[0].elapsed_time(ev[1]) / (TSTEPS - 2), st_, step_
+
+    n_train_params = sum(t_.numel() for t_ in tree_leaves(init_params(
+        EncoderConfig(num_layers=1, vocab_size=1), torch.Generator(device=dev).manual_seed(0),
+        device=dev)["layers"]))
+    path_start()
+    losses_on, step_on_ms, st_on, step_fn = run_steps("on")
+    path8 = path_end()
+    peak_train_gb = torch.cuda.max_memory_allocated() / 2**30
+    # one more "on" step under the profiler: kernel time by name, and the
+    # device's busy share of the steady step time
+    from torch.autograd import DeviceType
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_t:
+        step_fn(st_on, tq_dev[0], tmask, tp_dev[0], tmask)
+        torch.cuda.synchronize()
+    krows = [e for e in prof_t.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    kernel_us = sum(e.self_device_time_total for e in krows)
+    b7_us = sum(e.self_device_time_total for e in krows if "attention_bwd" in e.key)
+    b2_us = sum(e.self_device_time_total for e in krows if "qknorm_rope_attention_kernel" in e.key)
+    emit("profile", what="train_step_on_64x64", gpu=gpu, kernel_ms=kernel_us / 1e3,
+         device_busy_share_of_step=kernel_us / 1e3 / step_on_ms, b7_ms=b7_us / 1e3, b2_ms=b2_us / 1e3,
+         top_device_us=[[e.key[:60], round(e.self_device_time_total, 1), e.count]
+                        for e in sorted(krows, key=lambda e: -e.self_device_time_total)[:14]])
+    del st_on, step_fn, prof_t
+    losses_off, step_off_ms, _, _ = run_steps("off")
+    drift = max(abs(a_ - b_) for a_, b_ in zip(losses_on, losses_off))
+    tokens = 2 * TB * TS
+    flops_ref = 6 * (28 * 15.7e6 + tr_cfg.vocab_size * tr_cfg.hidden_size) * tokens
+    flops_no_embed = 6 * tr_cfg.num_layers * n_train_params * tokens
+    per_step = {k_: v_ / TSTEPS for k_, v_ in path8.items()}
+    train_ok = (all(np.isfinite(losses_on)) and losses_on[-1] < losses_on[0] and drift <= 2e-2
+                and per_step["qknorm_rope_attention_bwd"] == 2 * tr_cfg.num_layers
+                and per_step["qknorm_rope_attention"] == 2 * tr_cfg.num_layers)
+    emit("train", layers=tr_cfg.num_layers, hidden=tr_cfg.hidden_size, batch_pairs=TB, seq_len=TS,
+         steps=TSTEPS, losses_on=losses_on, losses_off=losses_off, max_abs_dloss_on_vs_off=drift,
+         step_ms={"on": step_on_ms, "off": step_off_ms},
+         tokens_per_s={"on": tokens / step_on_ms * 1e3, "off": tokens / step_off_ms * 1e3},
+         model_tflops_per_s={"on": flops_ref / step_on_ms / 1e9, "off": flops_ref / step_off_ms / 1e9},
+         model_tflops_per_s_without_embedding={"on": flops_no_embed / step_on_ms / 1e9,
+                                                "off": flops_no_embed / step_off_ms / 1e9},
+         peak_mem_gb=peak_train_gb, launches=path8, launches_per_step=per_step, gpu=gpu)
+    if not train_ok:
+        raise AssertionError("train phase failed")
+
+    # (d) LoRA, rank 8 on wq / wv, 5 steps over frozen base weights
+    base = init_train_state(tr_cfg, tcfg_, device=dev).params
+    base_copy = [t_.clone() for t_ in tree_leaves(base)]
+    lstate = init_lora_train_state(base, tcfg_)
+    lstep = make_lora_train_step(tr_cfg, tcfg_)
+    lora_losses = []
+    for i_ in range(5):
+        lstate, l_ = lstep(lstate, base, tq_dev[i_], tmask, tp_dev[i_], tmask)
+        lora_losses.append(float(l_))
+    base_same = all(torch.equal(a_, b_) for a_, b_ in zip(tree_leaves(base), base_copy))
+    emit("train_lora", rank=8, targets=["wq", "wv"], losses=lora_losses,
+         base_bit_unchanged=base_same)
+    if not (base_same and all(np.isfinite(lora_losses))):
+        raise AssertionError("LoRA train phase failed")
+    del base, base_copy, lstate
+
+    # ---- 19. the train entry point, with a checkpoint and a resume ----
+    import shutil
+    import subprocess
+    import tempfile
+
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    cli_runs = []
+    try:
+        for steps_ in (10, 20):
+            t0 = time.perf_counter()
+            r_ = subprocess.run(
+                [sys.executable, "-m", "theoremsearch_tpu_torch", "train", "--steps", str(steps_),
+                 "--checkpoint-dir", ck_dir, "--checkpoint-every", "5", "--eval", "--log-every", "5",
+                 "--validation", os.path.join(root, "data", "validation_set.csv")],
+                cwd=root, env=env, capture_output=True, text=True, timeout=300)
+            cli_runs.append((r_, time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    (r1, s1), (r2, s2) = cli_runs
+    final_loss = (float(r2.stdout.split("final loss ")[1].split()[0])
+                  if "final loss " in r2.stdout else float("nan"))
+    after = [ln for ln in r2.stdout.splitlines() if ln.startswith("[train] after:")]
+    emit("train_cli", rcs=[r1.returncode, r2.returncode], seconds=[round(s1, 3), round(s2, 3)],
+         resumed="resumed at step 10" in r2.stdout, after=after[0][len("[train] after: "):] if after else None,
+         final_loss=final_loss, stdout_tail=r2.stdout[-600:], stderr_tail=(r1.stderr + r2.stderr)[-600:])
+    if not (r1.returncode == 0 and r2.returncode == 0 and "resumed at step 10" in r2.stdout
+            and after and np.isfinite(final_loss)):
+        raise AssertionError("train_cli phase failed")
+
+    # ---- 13. the times line ----
+    emit("times", **times_line, b2_at_train_shape=b2_train, train_step_ms={
+         "on": step_on_ms, "off": step_off_ms, "shape": [TB, TS, tr_cfg.num_layers]},
+         shapes_train={"qknorm_rope_attention_bwd": [64, 64, H, HK, DH]},
+         total_s=round(time.perf_counter() - t_start, 1))
+
     sources = {
         "mips_g_scan": ("theoremsearch_tpu_torch/csrc/mips_g.cu", "theoremsearch_tpu/kernels/mips.py:300"),
         "mips_g_scan_mask": ("theoremsearch_tpu_torch/csrc/mips_g.cu", "theoremsearch_tpu/kernels/mips.py:300"),
@@ -1154,6 +1408,8 @@ def main(argv=None) -> int:
         "mips_topk": ("theoremsearch_tpu_torch/csrc/mips_topk.cu", "theoremsearch_tpu/kernels/mips.py:75"),
         "qknorm_rope_attention": ("theoremsearch_tpu_torch/csrc/attention.cu",
                                   "theoremsearch_tpu/kernels/attention.py:60"),
+        "qknorm_rope_attention_bwd": ("theoremsearch_tpu_torch/csrc/attention_bwd.cu",
+                                      "theoremsearch_tpu/kernels/attention.py:225"),
         "fused_attn_int8_layer": ("theoremsearch_tpu_torch/csrc/layer_int8.cu",
                                   "theoremsearch_tpu/kernels/layer_int8.py:274"),
         "fused_mlp_int8_layer": ("theoremsearch_tpu_torch/csrc/layer_int8.cu",

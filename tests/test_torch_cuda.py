@@ -349,3 +349,110 @@ def test_ivf_searcher_on_card_matches_cpu(cuda):
     s_c, i_c = idx_c.device_searcher(k=10, nprobe=8, rescore_factor=8)(torch.from_numpy(q))
     np.testing.assert_array_equal(i_g.cpu().numpy(), i_c.numpy())
     np.testing.assert_allclose(s_g.cpu().numpy(), s_c.numpy(), rtol=0, atol=1e-5)
+
+
+def test_attention_bwd_kernel_matches_plain_and_repeats_bit_equal(cuda):
+    """B7 vs its plain version at one ragged shape (mask[:, 0] = 1, g zero
+    on padded rows); a second launch is bit-equal to the first."""
+    from theoremsearch_tpu_torch.kernels.attention import (
+        attention_bwd_launches, fused_qknorm_rope_attention_bwd,
+        fused_qknorm_rope_attention_bwd_plain)
+
+    g_ = torch.Generator(device=cuda).manual_seed(7)
+    b, s, h, hk, dh = 6, 48, 4, 2, 128
+    q = (torch.randn((b, s, h * dh), generator=g_, device=cuda) * 0.5).to(torch.bfloat16)
+    k = (torch.randn((b, s, hk * dh), generator=g_, device=cuda) * 0.5).to(torch.bfloat16)
+    v = (torch.randn((b, s, hk * dh), generator=g_, device=cuda) * 0.5).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn((2, dh), generator=g_, device=cuda)
+    lens = torch.randint(1, s + 1, (b,), generator=g_, device=cuda)
+    mask = (torch.arange(s, device=cuda)[None] < lens[:, None]).to(torch.int32)
+    ang = torch.clamp(mask.cumsum(1) - 1, min=0)[..., None].float() * torch.rand((dh // 2,), device=cuda)
+    gr = (torch.randn((b, s, h * dh), generator=g_, device=cuda) * mask[..., None]).to(torch.bfloat16)
+    args = (q, k, v, w[0], w[1], ang.cos(), ang.sin(), mask, gr)
+    kw = dict(num_heads=h, num_kv_heads=hk, head_dim=dh, eps=1e-6, causal=True)
+    before = attention_bwd_launches.n
+    out = fused_qknorm_rope_attention_bwd(*args, **kw)
+    again = fused_qknorm_rope_attention_bwd(*args, **kw)
+    assert attention_bwd_launches.n == before + 2
+    ref = fused_qknorm_rope_attention_bwd_plain(*args, scale=dh ** -0.5, **kw)
+    for i, (o, o2, r) in enumerate(zip(out, again, ref)):
+        assert torch.equal(o, o2) and o.dtype == r.dtype and o.shape == r.shape
+        a, c = o.double().flatten(), r.double().flatten()
+        tol = 2e-2 if i < 3 else 1e-3
+        assert float(a @ c / (a.norm() * c.norm())) > 0.9999, i
+        assert float((a - c).abs().max()) <= tol * float(c.abs().max()), i
+
+
+def test_encoder_grads_on_card_reach_every_attention_weight(cuda):
+    """encode_pooled(fused="on") on the card trains through B2 and B7:
+    every layer's wq, wk, wv, q_norm and k_norm gets a nonzero, finite
+    gradient, close to the plain path's."""
+    from theoremsearch_tpu_torch.kernels.attention import attention_bwd_launches
+
+    cfg = EncoderConfig(vocab_size=1024, hidden_size=256, intermediate_size=512, num_layers=2,
+                        num_heads=2, num_kv_heads=1, head_dim=128, max_seq_len=64, embedding_dim=256)
+    ids = torch.randint(3, 1024, (8, 32), generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+    mask = (torch.arange(32, device=cuda)[None] < torch.arange(25, 33, device=cuda)[:, None]).int()
+    grads = {}
+    for fused in ("on", "plain"):
+        params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        for layer in params["layers"]:
+            for t in layer.values():
+                t.requires_grad_()
+        before = attention_bwd_launches.n
+        encode_pooled(params, ids, mask, cfg, fused=fused).sum().backward()
+        assert attention_bwd_launches.n == before + (cfg.num_layers if fused == "on" else 0)
+        grads[fused] = [{n: layer[n].grad for n in ("wq", "wk", "wv", "q_norm", "k_norm")}
+                        for layer in params["layers"]]
+    for lk, lp in zip(grads["on"], grads["plain"]):
+        for name, gk in lk.items():
+            assert gk is not None, name
+            assert bool(torch.isfinite(gk.float()).all()) and float(gk.float().abs().max()) > 0, name
+            a, c = gk.double().flatten(), lp[name].double().flatten()
+            assert float(a @ c / (a.norm() * c.norm())) > 0.999, name
+
+
+def test_int8_layers_refuse_grad(cuda):
+    cfg, layer, lq = _int8_layer(cuda, 3)
+    x = torch.randn((2, 16, cfg.hidden_size), device=cuda).to(torch.bfloat16).requires_grad_()
+    mask = torch.ones((2, 16), dtype=torch.int32, device=cuda)
+    rope = _rope_tables(torch.clamp(mask.cumsum(1) - 1, min=0), cfg.head_dim, cfg.rope_theta)
+    with pytest.raises(ValueError, match="inference-only"):
+        fused_mlp_int8_layer(x, layer["mlp_norm"], lq["w_gate"], lq["w_up"], lq["w_down"])
+    with pytest.raises(ValueError, match="inference-only"):
+        fused_attn_int8_layer(x, layer, lq, mask, rope, cfg)
+    with torch.no_grad():
+        fused_mlp_int8_layer(x, layer["mlp_norm"], lq["w_gate"], lq["w_up"], lq["w_down"])
+
+
+def test_train_steps_on_card_kernel_vs_plain(cuda):
+    """Three train steps of the head_dim-128 encoder on the card, through
+    B2 and B7 ("on") and through their plain versions: the losses within
+    5e-3, the state on the card, B7 launched twice a step (two towers)."""
+    from theoremsearch_tpu_torch.core.config import TrainConfig
+    from theoremsearch_tpu_torch.kernels.attention import attention_bwd_launches
+    from theoremsearch_tpu_torch.train.contrastive import init_train_state, make_train_step
+
+    cfg = EncoderConfig(vocab_size=1024, hidden_size=256, intermediate_size=512, num_layers=2,
+                        num_heads=2, num_kv_heads=1, head_dim=128, max_seq_len=64, embedding_dim=256)
+    tcfg = TrainConfig(batch_size=8, seq_len=32, learning_rate=1e-3, temperature=1.0)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, 1024, (3, 2, 8, 32)).astype(np.int32)
+    mask = (np.arange(32)[None] < rng.integers(8, 33, 8)[:, None]).astype(np.int32)
+    mask[:, 0] = 1
+    losses = {}
+    for fused in ("on", "plain"):
+        state = init_train_state(cfg, tcfg)
+        assert state.params["embed"].device.type == "cuda"
+        step = make_train_step(cfg, tcfg, fused=fused)
+        before = attention_bwd_launches.n
+        out = []
+        for i in range(3):
+            state, loss = step(state, ids[i, 0], mask, ids[i, 1], mask)
+            assert loss.device.type == "cuda" and loss.dim() == 0
+            out.append(float(loss))
+        assert attention_bwd_launches.n - before == (3 * 2 * cfg.num_layers if fused == "on" else 0)
+        losses[fused] = out
+    assert all(np.isfinite(losses["on"]))
+    np.testing.assert_allclose(losses["on"], losses["plain"], rtol=0, atol=5e-3)

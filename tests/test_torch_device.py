@@ -8,11 +8,17 @@ import numpy as np
 import pytest
 import torch
 
-from theoremsearch_tpu_torch.core.config import EncoderConfig
+from theoremsearch_tpu_torch.cli import main as cli_main
+from theoremsearch_tpu_torch.core.config import EncoderConfig, TrainConfig
 from theoremsearch_tpu_torch.encoder.model import init_params, params_from_jax
 from theoremsearch_tpu_torch.eval.oracle import exact_topk
 from theoremsearch_tpu_torch.index.flat import FlatIndex
 from theoremsearch_tpu_torch.index.ivf import IVFIndex
+from theoremsearch_tpu_torch.train.contrastive import (
+    init_train_state,
+    make_train_step,
+    train_state_from_jax,
+)
 from theoremsearch_tpu_torch.utils.device import require_cuda, resolve_device, tf32_off
 
 
@@ -22,7 +28,8 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["require_cuda", "resolve_device", "init_params", "params_from_jax",
-                                   "FlatIndex.build", "exact_topk", "IVFIndex.build"])
+                                   "FlatIndex.build", "exact_topk", "IVFIndex.build",
+                                   "init_train_state", "train_state_from_jax", "train --device"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     call = {
         "require_cuda": require_cuda,
@@ -32,9 +39,24 @@ def test_entry_points_default_to_the_card(no_cuda, entry):
         "FlatIndex.build": lambda: FlatIndex.build(np.ones((4, 8), np.float32)),
         "exact_topk": lambda: exact_topk(np.ones((2, 8), np.float32), np.ones((4, 8), np.float32)),
         "IVFIndex.build": lambda: IVFIndex.build(np.ones((4, 8), np.float32)),
+        "init_train_state": lambda: init_train_state(EncoderConfig.tiny(), TrainConfig()),
+        "train_state_from_jax": lambda: train_state_from_jax(None),
+        "train --device": lambda: cli_main(["train", "--steps", "1"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+
+
+def test_train_step_runs_where_its_state_lives():
+    """make_train_step follows its state's device: a CPU state trains on
+    the CPU when asked for, and the loss stays a 0-d tensor there."""
+    cfg = EncoderConfig.tiny()
+    state = init_train_state(cfg, TrainConfig(), device="cpu")
+    ids = np.random.default_rng(0).integers(3, 1024, (2, 4, 8)).astype(np.int32)
+    mask = np.ones((4, 8), np.int32)
+    state, loss = make_train_step(cfg, TrainConfig())(state, ids[0], mask, ids[1], mask)
+    assert loss.device.type == "cpu" and loss.dim() == 0 and state.step == 1
+    assert state.params["embed"].device.type == "cpu" and not state.params["embed"].requires_grad
 
 
 def test_cpu_on_request():

@@ -54,11 +54,12 @@ def test_module_list_covers_the_slice():
     for want in ("kernels.mips", "kernels.attention", "kernels.layer_int8", "encoder.model",
                  "encoder.batching", "search.engine", "serve.scheduler", "serve.app",
                  "serve.http_api", "index.flat", "index.quant", "index.ivf", "index.builder",
-                 "eval.oracle"):
+                 "eval.oracle", "train.contrastive", "train.lora", "train.checkpoint", "train.data",
+                 "eval.harness", "cli"):
         assert f"theoremsearch_tpu_torch.{want}" in MODULES
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
-        "mips_g.cu", "mips_topk.cu", "attention.cu", "layer_int8.cu", "ivf_scores.cu",
-        "int8_mma.cuh"}
+        "mips_g.cu", "mips_topk.cu", "attention.cu", "attention_bwd.cu", "layer_int8.cu",
+        "ivf_scores.cu", "int8_mma.cuh"}
     importlib.import_module("theoremsearch_tpu_torch.kernels._build")
 
 
@@ -66,7 +67,7 @@ def test_module_list_covers_the_slice():
 # their packages' __init__s import jax
 VERBATIM = ["core/config.py", "utils/shapes.py", "utils/gc_tuning.py", "search/metadata.py",
             "search/filters.py", "encoder/tokenizer.py", "serve/latex_display.py",
-            "eval/metrics.py"]
+            "eval/metrics.py", "train/data.py", "eval/harness.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

@@ -31,10 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import EncoderConfig
-from ..kernels.attention import (
-    fused_qknorm_rope_attention,
-    fused_qknorm_rope_attention_plain,
-)
+from ..kernels.attention import QKNormRopeAttention
 from ..kernels.layer_int8 import (
     dequant,
     fused_attn_int8_layer,
@@ -176,15 +173,15 @@ def _fused_ok(cfg: EncoderConfig, s: int, b: int) -> bool:
 
 
 def _attention_core(layer, q, k, v, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:
-    """The fused attention core on projected q/k/v: kernel B2, or its
-    plain version for plain=True or CPU tensors. (B, S, H*Dh) pre-wo."""
-    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-              head_dim=cfg.head_dim, eps=cfg.rms_norm_eps, causal=True)
-    args = (q.contiguous(), k.contiguous(), v.contiguous(), layer["q_norm"], layer["k_norm"],
-            rope_cs[0], rope_cs[1], attention_mask.to(torch.int32))
-    if plain:
-        return fused_qknorm_rope_attention_plain(*args, scale=1.0 / np.sqrt(cfg.head_dim), **kw)
-    return fused_qknorm_rope_attention(*args, **kw)
+    """The fused attention core on projected q/k/v, through the autograd
+    Function: kernel B2 forward and kernel B7 backward, or their plain
+    versions for plain=True or CPU tensors. (B, S, H*Dh) pre-wo. Under
+    inference mode it is the forward alone."""
+    return QKNormRopeAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), layer["q_norm"], layer["k_norm"],
+        rope_cs[0], rope_cs[1], attention_mask.to(torch.int32),
+        cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rms_norm_eps, True,
+        1.0 / np.sqrt(cfg.head_dim), plain)
 
 
 def _attention_fused(layer, x, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:

@@ -61,6 +61,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, p,
     ]
     lib.ts_qknorm_rope_attention.restype = i
+    lib.ts_qknorm_rope_attention_bwd.argtypes = [*[p] * 15, i, i, i, i, i, f, f, i, p]
+    lib.ts_qknorm_rope_attention_bwd.restype = i
     lib.ts_mlp_int8_layer.argtypes = [*[p] * 14, i, i, i, f, p]
     lib.ts_mlp_int8_layer.restype = i
     lib.ts_attn_int8_qkv.argtypes = [*[p] * 13, i, i, i, i, f, p]

@@ -172,6 +172,14 @@ def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _inference_only(what: str, *tensors) -> None:
+    """B3 and B4 have no backward: under grad, an input that requires
+    grad would get none from the kernel, silently. Raise instead, on any
+    device, so a CPU run fails where the card would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{what}: int8 serving mode is inference-only (an input requires grad)")
+
+
 def _check_x(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
@@ -193,6 +201,7 @@ def fused_mlp_int8_layer(
     call runs four kernels: norm + quant, gate/up products with the GLU
     epilogue, requant, down product with the residual add. `stages`, if
     given, receives the intermediates ("xq", "sx", "h", "hq", "sh")."""
+    _inference_only("fused_mlp_int8_layer", x, norm_w)
     if x.device.type == "cpu":
         return fused_mlp_int8_layer_plain(x, norm_w, wg, wu, wd, eps=eps)
     _check_x(x, "fused_mlp_int8_layer")
@@ -244,6 +253,7 @@ def fused_attn_int8_layer(
     requant and the o product with the residual add. `stages`, if given,
     receives the intermediates ("xq", "sx", "q", "k", "v", "ao", "aq",
     "sa")."""
+    _inference_only("fused_attn_int8_layer", x, layer["attn_norm"], layer["q_norm"], layer["k_norm"])
     if x.device.type == "cpu":
         return fused_attn_int8_layer_plain(x, layer, lq, attention_mask, rope_cs, cfg)
     _check_x(x, "fused_attn_int8_layer")

@@ -1,0 +1,345 @@
+"""Contrastive fine-tuning of the embedding encoder (InfoNCE), port of
+theoremsearch_tpu/train/contrastive.py.
+
+- in-batch-negatives InfoNCE: queries x positives similarity matrix,
+  symmetric cross-entropy at temperature tau, optional explicit hard
+  negatives;
+- the encoder forward and backward through autograd; with fused="on" the
+  attention core is kernel B2 forward and kernel B7 backward on the card
+  (`kernels/attention.py:QKNormRopeAttention`);
+- optax's `chain(clip_by_global_norm(1.0), adamw(lr, weight_decay=wd))`,
+  written out in optax's order and dtypes (`AdamW`): bf16 parameters keep
+  bf16 moments, and every constant is rounded to the leaf's dtype as JAX
+  rounds a Python scalar, so one update agrees with optax's on the CPU.
+
+Parameters and moments are updated in place: the port's counterpart of
+the reference's donated train state (`jax.jit(step, donate_argnums=(0,))`).
+Trees (params, LoRA adapters, moments) are nested dicts and lists of
+tensors, flattened in JAX's order (dict keys sorted, lists in order), so
+checkpoints and `train_state_from_jax` line up leaf for leaf with the
+reference's pytrees.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.config import EncoderConfig, TrainConfig
+from ..encoder.model import Params, encode_pooled, init_params, params_from_jax
+from ..utils.device import resolve_device, tf32_off
+
+_MULTI_GPU = "multi-GPU training (dp + tp over a mesh) is not ported yet: ROADMAP A.10"
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in JAX's flatten order: dict keys sorted, sequences in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """`template`'s structure filled with `leaves` (in tree_leaves order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: None for k in t}
+            for k in sorted(t):
+                out[k] = build(t[k])
+            return out
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+class AdamWState(NamedTuple):
+    """The state of optax's adamw (its ScaleByAdamState): the step count
+    and the two moments, shaped and typed as the parameters."""
+
+    count: int
+    mu: Any
+    nu: Any
+
+
+class TrainState(NamedTuple):
+    params: Params
+    opt_state: AdamWState
+    step: int
+
+
+def _round_to(x: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX applies it to an array of `dtype`: rounded
+    to that dtype first (a weakly typed scalar takes the array's type)."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
+class AdamW:
+    """optax.chain(clip_by_global_norm(max_norm), adamw(lr, b1, b2, eps,
+    weight_decay)) in optax 0.2.6's arithmetic, leaf by leaf in each
+    leaf's dtype:
+
+        norm = sqrt(sum over leaves of sum(g * g))    (each leaf's sum in its
+                                                       dtype, then f32)
+        g    = g if norm < max_norm else (g / norm) * max_norm
+        mu   = (1 - b1) g + b1 mu;   nu = (1 - b2) g^2 + b2 nu
+        u    = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+        u    = -lr (u + wd p);       p  = p + u
+
+    with t the incremented count and each bias correction 1 - b^t computed
+    in f32 and cast to the leaf's dtype (optax's tree_bias_correction).
+    Every operation rounds to the leaf's dtype, as optax run op by op
+    does: one update agrees with it within one ulp, f32 and bf16. Under
+    jit, XLA fuses the chain (one rounding for bf16, fused multiply-adds
+    in f32), which moves a moment that nearly cancels by more than an ulp
+    of its own small value. torch.optim.AdamW with clip_grad_norm_ is
+    another function (another clip rule, lerp moments, f32 constants).
+
+    `update` changes the params and the moments in place; the multi-tensor
+    `torch._foreach_*` ops keep it to a few launches per dtype."""
+
+    def __init__(self, learning_rate: float, weight_decay: float, max_norm: float = 1.0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.wd, self.max_norm = learning_rate, weight_decay, max_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params) -> AdamWState:
+        zeros = lambda t: torch.zeros_like(t)  # noqa: E731
+        return AdamWState(0, tree_unflatten(params, [zeros(t) for t in tree_leaves(params)]),
+                          tree_unflatten(params, [zeros(t) for t in tree_leaves(params)]))
+
+    def _bias_correction(self, decay: float, count: int) -> float:
+        """1 - decay^count in f32, from the f32 decay (optax computes
+        decay**count in f32; this agrees bit for bit on all but a few
+        counts in thousands, by one f32 ulp)."""
+        d = float(np.float32(decay))
+        return float(np.float32(1.0) - np.float32(d ** count))
+
+    def global_norm(self, grads: list) -> torch.Tensor:
+        """optax.global_norm: each leaf's sum of squares in its own dtype,
+        added in leaf order (the first leaf's bf16 sum promoted to f32 at
+        the first f32 leaf, as Python's `sum` over JAX arrays does), sqrt."""
+        sums = [(g * g).sum().float() for g in grads]
+        return torch.stack(sums).cumsum(0)[-1].sqrt()
+
+    @torch.no_grad()
+    def update(self, grads: list, state: AdamWState, params: list) -> AdamWState:
+        """One step on matching leaf lists (tree_leaves order); params and
+        the moments change in place. Returns the new state."""
+        count = state.count + 1
+        mus, nus = tree_leaves(state.mu), tree_leaves(state.nu)
+        norm = self.global_norm(grads)
+        clip = ~(norm < self.max_norm)   # optax: select(norm < max_norm, g, clipped)
+        bc1 = self._bias_correction(self.b1, count)
+        bc2 = self._bias_correction(self.b2, count)
+        groups: dict[torch.dtype, list[int]] = {}
+        for i, p in enumerate(params):
+            groups.setdefault(p.dtype, []).append(i)
+        for dtype, idx in groups.items():
+            r = lambda x: _round_to(x, dtype)  # noqa: E731
+            g = [grads[i].to(dtype) for i in idx]
+            p = [params[i] for i in idx]
+            mu = [mus[i] for i in idx]
+            nu = [nus[i] for i in idx]
+            # clip: t / norm.astype(t.dtype) * max_norm where norm >= max_norm
+            div = torch.where(clip, norm, torch.ones_like(norm)).to(dtype)
+            mul = torch.where(clip, torch.full_like(norm, self.max_norm), torch.ones_like(norm)).to(dtype)
+            g = torch._foreach_mul(torch._foreach_div(g, div), mul)
+            # moments: (1 - b) * g^k + b * m, each product rounded
+            torch._foreach_mul_(mu, r(self.b1))
+            torch._foreach_add_(mu, torch._foreach_mul(g, r(1.0 - self.b1)))
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_mul_(nu, r(self.b2))
+            torch._foreach_add_(nu, torch._foreach_mul(g2, r(1.0 - self.b2)))
+            # u = mu_hat / (sqrt(nu_hat + eps_root) + eps), eps_root = 0
+            den = torch._foreach_sqrt(torch._foreach_div(nu, r(bc2)))
+            torch._foreach_add_(den, r(self.eps))
+            u = torch._foreach_div(torch._foreach_div(mu, r(bc1)), den)
+            # decoupled decay, then -lr, then p + u
+            torch._foreach_add_(u, torch._foreach_mul(p, r(self.wd)))
+            torch._foreach_mul_(u, r(-self.lr))
+            torch._foreach_add_(p, u)
+        return AdamWState(count, state.mu, state.nu)
+
+
+def make_optimizer(cfg: TrainConfig) -> AdamW:
+    """The reference's optax.chain(clip_by_global_norm(1.0),
+    adamw(cfg.learning_rate, weight_decay=cfg.weight_decay))."""
+    return AdamW(cfg.learning_rate, cfg.weight_decay, max_norm=1.0)
+
+
+def init_train_state(enc_cfg: EncoderConfig, train_cfg: TrainConfig,
+                     generator: torch.Generator | None = None, device=None) -> TrainState:
+    """Random params (`init_params`, seeded by train_cfg.seed unless a
+    generator is given) and zero moments on `device` (default: the card;
+    pass "cpu" for a CPU run)."""
+    if not isinstance(enc_cfg, EncoderConfig):
+        raise NotImplementedError(f"training the {type(enc_cfg).__name__} tower is not ported "
+                                  "yet: ROADMAP A.8")
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
+    params = init_params(enc_cfg, generator, device=device)
+    return TrainState(params, make_optimizer(train_cfg).init(params), 0)
+
+
+def init_sharded_train_state(enc_cfg, train_cfg, mesh, key=None) -> TrainState:
+    raise NotImplementedError(_MULTI_GPU)
+
+
+def train_state_from_jax(np_state, device=None) -> TrainState:
+    """A JAX TrainState as numpy leaves (`jax.device_get(state)`, full or
+    LoRA) -> the port's TrainState on `device` (default: the card): the
+    params, adamw's count and moments with their dtypes, and the step.
+    Mid-training JAX state resumes here."""
+    device = resolve_device(device)
+    adam = np_state.opt_state[1][0]     # chain(clip, adamw=(scale_by_adam, decay, lr))
+    return TrainState(
+        params_from_jax(np_state.params, device),
+        AdamWState(int(adam.count), params_from_jax(adam.mu, device), params_from_jax(adam.nu, device)),
+        int(np_state.step),
+    )
+
+
+def info_nce_loss(
+    params: Params,
+    q_ids: torch.Tensor,
+    q_mask: torch.Tensor,
+    p_ids: torch.Tensor,
+    p_mask: torch.Tensor,
+    enc_cfg: EncoderConfig,
+    temperature: float,
+    fused: str = "on",
+    n_ids: torch.Tensor | None = None,
+    n_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """In-batch-negatives InfoNCE, symmetric; optional explicit hard
+    negatives (n_ids/n_mask, (M, S)) are appended as extra columns of the
+    query -> positive direction, shared by every query. The f32 logits
+    product runs with TF32 off."""
+    q = encode_pooled(params, q_ids, q_mask, enc_cfg, fused=fused)   # (B, D) f32, normalized
+    p = encode_pooled(params, p_ids, p_mask, enc_cfg, fused=fused)
+    labels = torch.arange(q.shape[0], device=q.device)
+    with tf32_off():
+        logits = (q @ p.T) / temperature
+        logits_qp = logits
+        if n_ids is not None:
+            neg = encode_pooled(params, n_ids, n_mask, enc_cfg, fused=fused)
+            logits_qp = torch.cat([logits, (q @ neg.T) / temperature], dim=1)
+    return 0.5 * (F.cross_entropy(logits_qp, labels) + F.cross_entropy(logits.T, labels))
+
+
+def _on(x, device) -> torch.Tensor | None:
+    """A token array (numpy or tensor) on `device`."""
+    if x is None:
+        return None
+    return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).to(device)
+
+
+def _check_step_args(enc_cfg, mesh, fused) -> None:
+    if mesh is not None:
+        raise NotImplementedError(_MULTI_GPU)
+    if fused not in ("on", "plain", "off"):
+        raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
+    if not isinstance(enc_cfg, EncoderConfig):
+        raise NotImplementedError(f"training the {type(enc_cfg).__name__} tower is not ported "
+                                  "yet: ROADMAP A.8")
+
+
+def _grad_step(opt: AdamW, state: TrainState, loss_fn) -> tuple[TrainState, torch.Tensor]:
+    """loss and gradients of state.params, then the in-place update."""
+    leaves = tree_leaves(state.params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss = loss_fn(state.params)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    opt_state = opt.update(list(grads), state.opt_state, leaves)
+    return TrainState(state.params, opt_state, state.step + 1), loss.detach()
+
+
+def make_train_step(
+    enc_cfg: EncoderConfig,
+    train_cfg: TrainConfig,
+    mesh=None,
+    fused: str = "on",
+):
+    """(state, q_ids, q_mask, p_ids, p_mask[, n_ids, n_mask]) -> (state,
+    loss). The params and moments of `state` are updated in place (the
+    counterpart of the reference's donated state); the loss comes back as
+    a 0-d tensor on the params' device with no host sync (`float(loss)`
+    syncs). Token arrays may be numpy or tensors on any device.
+
+    fused: "on" = the attention core through kernel B2 forward and kernel
+    B7 backward on the card (their plain versions for CPU tensors);
+    "plain" = the plain versions on any device; "off" = the reference's
+    composition, through autograd. The port's default is "on"; the
+    reference's is "off", chosen for its TPU. A mesh raises: multi-GPU
+    training is ROADMAP A.10."""
+    _check_step_args(enc_cfg, mesh, fused)
+    opt = make_optimizer(train_cfg)
+
+    def step(state: TrainState, q_ids, q_mask, p_ids, p_mask, n_ids=None, n_mask=None):
+        dev = state.params["embed"].device
+        batch = [_on(x, dev) for x in (q_ids, q_mask, p_ids, p_mask, n_ids, n_mask)]
+        return _grad_step(opt, state, lambda params: info_nce_loss(
+            params, *batch[:4], enc_cfg, train_cfg.temperature, fused, *batch[4:]))
+
+    return step
+
+
+def make_lora_train_step(
+    enc_cfg: EncoderConfig,
+    train_cfg: TrainConfig,
+    mesh=None,
+    fused: str = "on",
+):
+    """(state, base_params, q_ids, q_mask, p_ids, p_mask[, n_ids, n_mask])
+    -> (state, loss), where state.params is the LoRA adapter tree
+    (train/lora.py) and base_params stay frozen: gradients flow only to
+    the adapters, through the merged encoder built inside the step. The
+    adapters and their moments are updated in place."""
+    from .lora import lora_merge
+
+    _check_step_args(enc_cfg, mesh, fused)
+    opt = make_optimizer(train_cfg)
+    alpha = train_cfg.lora_alpha
+
+    def step(state: TrainState, base_params, q_ids, q_mask, p_ids, p_mask,
+             n_ids=None, n_mask=None):
+        dev = base_params["embed"].device
+        batch = [_on(x, dev) for x in (q_ids, q_mask, p_ids, p_mask, n_ids, n_mask)]
+        return _grad_step(opt, state, lambda lora: info_nce_loss(
+            lora_merge(base_params, lora, alpha), *batch[:4], enc_cfg, train_cfg.temperature,
+            fused, *batch[4:]))
+
+    return step
+
+
+def init_lora_train_state(
+    params: Params, train_cfg: TrainConfig, generator: torch.Generator | None = None,
+) -> TrainState:
+    """Adapter-only TrainState over frozen base params, on their device:
+    moments exist only for the LoRA leaves."""
+    from .lora import DEFAULT_TARGETS, lora_init
+
+    dev = params["embed"].device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+    targets = train_cfg.lora_targets or DEFAULT_TARGETS
+    lora = lora_init(params, generator, train_cfg.lora_rank, tuple(targets))
+    return TrainState(lora, make_optimizer(train_cfg).init(lora), 0)
