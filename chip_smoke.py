@@ -15,12 +15,18 @@ exits non-zero (there is no CPU path):
  4. b2       fused attention kernel vs its plain version, H=16/8,
              Dh=128, S in {32, 64, 128} at B=64 and the encoder's
              (B, S) = (512, 64), ragged masks.
+ 4g. b2g     B2's gemma form vs plain: H=3/1, Dh=256, bidirectional, scale
+             256^-1/2, S in {32, 64, 128} at B=64 and (512, 64), ragged masks.
  4b. b3b4    the whole-layer int8 kernels B4 (MLP block) and B3
              (attention block) vs their plain versions on one full-width
              layer of random weights quantized by quantize_params_int8:
              (B, S) = (512, 64) with the slogans' ragged masks, (64, 32),
              (64, 128), and an MLP input of 70 * 128 + 70 rows; the norm +
              quant stage's int8 codes bit-equal.
+ 4h. b3b4g   B3 and B4's gemma forms (post-norms with (1 + w) weights, GeGLU,
+             the bidirectional head_dim-256 core) vs plain on one full-width
+             GemmaEncoderConfig() layer (norm weights off zero), at the
+             phase-4b shapes; the norm + quant codes bit-equal.
  4c. b6      the IVF probe-major chunk scan kernel vs its plain version,
              bit-equal raw scores and query scales, at (B, P, R, D) =
              (8, 526, 256, 1024), (16, 526, 256, 1024), (64, 1500, 256,
@@ -71,7 +77,8 @@ exits non-zero (there is no CPU path):
              unmasked, mask and gmask G=32 at B=1024 on 1M; B5 at B=512
              on 1M int8 per-row and bf16; B2, B3 and B4 at (512, 64); B6
              at the ivf phase's B=8 search and the b6 shapes, as device
-             time from the profiler), the bf16 and int8 encoder
+             time: its launches queued behind a sleep kernel, between
+             CUDA events), the bf16 and int8 encoder
              forwards, and torch.profiler tables of one bf16 and one int8
              encoder forward, one scan + rescore batch, one filtered
              grouped batch and one B=8 IVF search.
@@ -94,6 +101,21 @@ exits non-zero (there is no CPU path):
              flat, ivf_index=...) -> SearchService -> HTTP, 128 requests
              from 8 client threads (batches <= 8, the IVF route): all 200
              with metadata, IVF route taken, overlap@10 vs the direct path.
+20. encoder_gemma / encoder_gemma_int8  the embeddinggemma-300m-class
+             tower at full width (GemmaEncoderConfig(): 24 layers, d 768,
+             3/1 heads of 256, vocab 262,144, the 768 -> 3072 -> 768 head;
+             random bf16 weights from a seeded generator, norm weights off
+             zero): kernel vs plain pooled cosine (> 0.9999 bf16, > 0.999
+             int8 on B3/B4's gemma forms), int8 vs bf16, 4,096 slogans
+             through BatchedEncoder in each mode.
+21. serve_gemma  a 1,048,576 x 768 int8-global FlatIndex with its bf16
+             copy (random unit rows, the first 4,096 the gemma slogan
+             embeddings); B1 at D = 768 bit-equal to plain once; then
+             SearchService + scheduler + HTTP with the gemma encoder, 128
+             POST /search, overlap@10 vs the direct path, in bf16 and int8.
+22. bert     BertEncoderConfig() (12 x 768, no kernel): 4,096 slogans
+             through BatchedEncoder, forward ms at (512, 64), pooled cosine
+             of the card vs a CPU run of the same weights on 8 items.
 17. b7       the fused attention backward kernel vs its plain version,
              H=16/8, Dh=128, (B, S) = (64, 32), (64, 64), (64, 128) with
              ragged masks (mask[:, 0] = 1, g zero on padded rows) and the
@@ -108,6 +130,12 @@ exits non-zero (there is no CPU path):
              peak memory) and the same 20 steps "off" from the same
              weights (max |d loss|); 5 LoRA steps (rank 8, wq/wv) with the
              base bit-unchanged; B2 and B7 launched 56 times a step.
+18g. train_gemma  GemmaEncoderConfig(max_seq_len=64) at full width, 64
+             pairs x 64 tokens of the same task: one batch's gradients "on"
+             vs "plain" per leaf of layers 0 and 23, embed and final_norm
+             (cosine >= 0.999, a nonzero gradient on wq through the fused
+             core), 8 steps "on" (loss finite and falling, step ms, peak
+             memory, B2's gemma form 48 launches a step).
 19. train_cli  `python -m theoremsearch_tpu_torch train` on the card over
              data/validation_set.csv: 10 steps with --eval and checkpoints
              every 5, then --steps 20 on the same directory (resumed at
@@ -118,7 +146,7 @@ exits non-zero (there is no CPU path):
              B2 at the training shape (64, 64, 16, 8, 128), the train step
              "on" and "off", and the script's total seconds.
 
-Each path (phases 5-7, 7b, 9, 11, 12, 15, 16, 18) runs with every launch counter set to
+Each path (phases 5-7, 7b, 9, 11, 12, 15, 16, 18, 18g, 20, 21) runs with every launch counter set to
 0 just before it and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
@@ -283,7 +311,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from theoremsearch_tpu_torch.core.config import EncoderConfig, IndexConfig
+    from theoremsearch_tpu_torch.core.config import (
+        BertEncoderConfig, EncoderConfig, GemmaEncoderConfig, IndexConfig,
+    )
+    from theoremsearch_tpu_torch.encoder import bert as bert_mod
+    from theoremsearch_tpu_torch.encoder import gemma as gemma_mod
     from theoremsearch_tpu_torch.encoder.batching import BatchedEncoder
     from theoremsearch_tpu_torch.encoder.model import (
         _rope_tables, encode_pooled, init_params, quantize_params_int8,
@@ -297,14 +329,15 @@ def main(argv=None) -> int:
     from theoremsearch_tpu_torch.index.quant import quantize_global_int8
     from theoremsearch_tpu_torch.kernels import _build
     from theoremsearch_tpu_torch.kernels.attention import (
-        attention_bwd_launches, attention_launches, fused_qknorm_rope_attention,
-        fused_qknorm_rope_attention_bwd, fused_qknorm_rope_attention_bwd_plain,
-        fused_qknorm_rope_attention_plain,
+        attention_bwd_launches, attention_gemma_launches, attention_launches,
+        fused_qknorm_rope_attention, fused_qknorm_rope_attention_bwd,
+        fused_qknorm_rope_attention_bwd_plain, fused_qknorm_rope_attention_plain,
     )
     from theoremsearch_tpu_torch.kernels.layer_int8 import (
-        attn_int8_launches, fused_attn_int8_layer, fused_attn_int8_layer_plain,
-        fused_mlp_int8_layer, fused_mlp_int8_layer_plain, kernel_layout, mlp_int8_launches,
-        rmsnorm_quant_plain,
+        attn_int8_gemma_launches, attn_int8_launches, fused_attn_int8_layer,
+        fused_attn_int8_layer_gemma, fused_attn_int8_layer_gemma_plain,
+        fused_attn_int8_layer_plain, fused_mlp_int8_layer, fused_mlp_int8_layer_plain,
+        kernel_layout, mlp_int8_gemma_launches, mlp_int8_launches, rmsnorm_quant_plain,
     )
     from theoremsearch_tpu_torch.kernels.mips import (
         auto_merge_tiles, device_rescore, ivf_probe_scores, ivf_probe_scores_plain,
@@ -332,6 +365,9 @@ def main(argv=None) -> int:
         "qknorm_rope_attention_bwd": attention_bwd_launches,
         "fused_attn_int8_layer": attn_int8_launches, "fused_mlp_int8_layer": mlp_int8_launches,
         "ivf_probe_scores": ivf_scores_launches,
+        "qknorm_rope_attention_gemma": attention_gemma_launches,
+        "fused_attn_int8_layer_gemma": attn_int8_gemma_launches,
+        "fused_mlp_int8_layer_gemma": mlp_int8_gemma_launches,
     }
     main_launches = dict.fromkeys(counters, 0)
 
@@ -454,6 +490,31 @@ def main(argv=None) -> int:
         if not (cosv > 0.9999 and err <= 2e-2 * ref):
             raise AssertionError(f"B2 kernel disagrees with its plain version at S={S}")
 
+    # ---- 4g. B2's gemma form vs plain: head_dim 256, bidirectional ----
+    GH, GHK, GDH = 3, 1, 256
+    g_scale = 256.0 ** -0.5           # GemmaEncoderConfig's query_pre_attn_scalar^-1/2
+    for BB, S in ((64, 32), (64, 64), (64, 128), (512, 64)):
+        qa = (torch.randn((BB, S, GH * GDH), generator=g, device=dev) * 2).to(torch.bfloat16)
+        ka = (torch.randn((BB, S, GHK * GDH), generator=g, device=dev) * 2).to(torch.bfloat16)
+        va = torch.randn((BB, S, GHK * GDH), generator=g, device=dev).to(torch.bfloat16)
+        qw = 1.0 + 0.1 * torch.randn((GDH,), generator=g, device=dev)
+        kw = 1.0 + 0.1 * torch.randn((GDH,), generator=g, device=dev)
+        lens = torch.randint(1, S + 1, (BB,), generator=g, device=dev)
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+        pos = torch.clamp(mask.cumsum(1) - 1, min=0).float()
+        ang = pos[..., None] * (1.0 / (1e4 ** (torch.arange(0, GDH, 2, device=dev).float() / GDH)))
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        kwargs = dict(num_heads=GH, num_kv_heads=GHK, head_dim=GDH, eps=1e-6, causal=False,
+                      scale=g_scale)
+        ok_ = fused_qknorm_rope_attention(qa, ka, va, qw, kw, cos, sin, mask, **kwargs)
+        op = fused_qknorm_rope_attention_plain(qa, ka, va, qw, kw, cos, sin, mask, **kwargs)
+        torch.cuda.synchronize()
+        cosv, err, ref = agreement(ok_.float(), op.float())
+        err_of["qknorm_rope_attention_gemma"] = max(err_of["qknorm_rope_attention_gemma"], err)
+        emit("b2g", S=S, B=BB, heads=[GH, GHK, GDH], cosine=cosv, max_abs_err=err, max_abs_plain=ref)
+        if not (cosv > 0.9999 and err <= 2e-2 * ref):
+            raise AssertionError(f"B2's gemma form disagrees with its plain version at S={S}")
+
     # ---- 4b. B3 and B4 vs plain on one full-width int8 layer ----
     cfg = EncoderConfig()
     lcfg = EncoderConfig(num_layers=1)
@@ -504,6 +565,54 @@ def main(argv=None) -> int:
                    (torch.arange(S, device=dev)[None] < lens[:, None]).to(torch.int32))
     for shape in ((512, 64), (64, 32), (64, 128), (70 * 128 + 70,)):
         check_b3b4("mlp", rand_x(*shape, cfg.hidden_size))
+
+    # ---- 4h. B3 and B4's gemma forms vs plain on one full-width gemma layer ----
+    gcfg = GemmaEncoderConfig()
+    glcfg = GemmaEncoderConfig(num_layers=1)
+    gg = torch.Generator(device=dev).manual_seed(3)
+    glayer = gemma_mod.init_params(glcfg, gg, device=dev)["layers"][0]
+    for t_ in glayer.values():        # the (1 + w) norm weights off zero
+        if t_.ndim == 1:
+            t_ += 0.1 * torch.randn(t_.shape, generator=gg, device=dev)
+    glq = kernel_layout(gemma_mod.quantize_params_int8({"layers": [glayer]}))[0]
+
+    def check_b3b4g(kind, x, mask=None):
+        """A gemma form vs its plain version: as check_b3b4, on the (1 + w)
+        pre-adjusted norm weights."""
+        stages = {}
+        if kind == "attn":
+            rope = gemma_mod._rope_tables(torch.clamp(mask.cumsum(1) - 1, min=0), GDH,
+                                          glcfg.rope_local_theta)
+            out = fused_attn_int8_layer_gemma(x, glayer, glq, mask, rope, glcfg, stages=stages)
+            ref = fused_attn_int8_layer_gemma_plain(x, glayer, glq, mask, rope, glcfg)
+            norm_w, name = 1.0 + glayer["attn_norm"], "fused_attn_int8_layer_gemma"
+        else:
+            norm_w, name = 1.0 + glayer["pre_mlp_norm"], "fused_mlp_int8_layer_gemma"
+            args = (x, norm_w, glq["w_gate"], glq["w_up"], glq["w_down"], 1.0 + glayer["post_mlp_norm"])
+            out = fused_mlp_int8_layer(*args, eps=glcfg.rms_norm_eps, act="gelu_tanh", stages=stages)
+            ref = fused_mlp_int8_layer_plain(*args, eps=glcfg.rms_norm_eps, act="gelu_tanh")
+        xq, sx = rmsnorm_quant_plain(x.reshape(-1, x.shape[-1]), norm_w, glcfg.rms_norm_eps)
+        torch.cuda.synchronize()
+        codes_equal = torch.equal(stages["xq"], xq) and torch.equal(stages["sx"], sx[:, 0])
+        cosv, err, ref_max = agreement(out, ref)
+        dcos, derr, dmax = agreement(out.float() - x.float(), ref.float() - x.float())
+        err_of[name] = max(err_of[name], err)
+        shape = list(x.shape)
+        emit("b3b4g", kernel=name, shape=shape, cosine=cosv, max_abs_err=err, max_abs_plain=ref_max,
+             block_cosine=dcos, block_max_abs_err=derr, block_max_abs_plain=dmax,
+             codes_bit_equal=codes_equal)
+        if not (cosv > 0.9999 and err <= 2e-2 * ref_max and dcos > 0.9999
+                and derr <= 2e-2 * dmax and codes_equal):
+            raise AssertionError(f"{name} disagrees with its plain version at {shape}")
+
+    gx512 = rand_x(512, 64, gcfg.hidden_size)
+    check_b3b4g("attn", gx512, mask512)
+    for S in (32, 128):
+        lens = torch.randint(1, S + 1, (64,), generator=g, device=dev)
+        check_b3b4g("attn", rand_x(64, S, gcfg.hidden_size),
+                    (torch.arange(S, device=dev)[None] < lens[:, None]).to(torch.int32))
+    for shape in ((512, 64), (64, 32), (64, 128), (70 * 128 + 70,)):
+        check_b3b4g("mlp", rand_x(*shape, gcfg.hidden_size))
 
     # ---- 4c. B6 vs plain: raw scores of a batch against probed chunks ----
     for bb, p6, r6 in ((8, 526, 256), (16, 526, 256), (64, 1500, 256), (13, 5, 128), (8, 3, 512)):
@@ -1000,6 +1109,138 @@ def main(argv=None) -> int:
             and path7["ivf_probe_scores"] >= 1):
         raise AssertionError("serve_ivf phase failed")
 
+    # ---- 20. the gemma tower at full width (embeddinggemma-300m class) ----
+    gparams = gemma_mod.init_params(gcfg, torch.Generator(device=dev).manual_seed(31), device=dev)
+    gnorm = torch.Generator(device=dev).manual_seed(32)
+    for layer_ in gparams["layers"]:   # the (1 + w) norm weights off zero
+        for t_ in layer_.values():
+            if t_.ndim == 1:
+                t_ += 0.1 * torch.randn(t_.shape, generator=gnorm, device=dev)
+    g_n_params = sum(t_.numel() for t_ in gparams.values() if isinstance(t_, torch.Tensor)) + sum(
+        t_.numel() for layer_ in gparams["layers"] for t_ in layer_.values())
+    genc = BatchedEncoder(gparams, gcfg, batch_size=512, device=dev)
+    genc8 = BatchedEncoder(gparams, gcfg, batch_size=512, device=dev, quant="int8")
+    gql = genc8.qlayers
+    gim, _ = genc._prep_batch(texts[:512], [genc.tokenizer.tokenize(t_) for t_ in texts[:512]],
+                              list(range(512)))
+    gt = torch.from_numpy(gim).to(dev)
+    with torch.inference_mode():
+        gk = gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg, fused="on")
+        gp = gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg, fused="plain")
+        go = gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg, fused="off")
+        g8k = gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg, qlayers=gql, fused_layers=True)
+        g8p = gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg, fused="plain", qlayers=gql,
+                                      fused_layers=True)
+    path_start()
+    t0 = time.perf_counter()
+    g_emb = genc.encode(texts)
+    genc_s = time.perf_counter() - t0
+    path_g = path_end()
+    gcos = float((gk.double() * gp.double()).sum(1).min())
+    emit("encoder_gemma", params=g_n_params, layers=gcfg.num_layers, hidden=gcfg.hidden_size,
+         heads=[gcfg.num_heads, gcfg.num_kv_heads, gcfg.head_dim], width=int(gt.shape[2]),
+         encode_4096_s=round(genc_s, 3), cos_kernel_vs_plain_min=gcos,
+         cos_kernel_vs_reference_composition_min=float((gk.double() * go.double()).sum(1).min()),
+         slogan_emb_mean_pairwise_cos=float(np.mean(g_emb[:256] @ g_emb[:256].T)),
+         finite=bool(np.isfinite(g_emb).all()), launches=path_g)
+    if not (gcos > 0.9999 and path_g["qknorm_rope_attention_gemma"] >= gcfg.num_layers
+            and np.isfinite(g_emb).all() and g_emb.shape == (4096, gcfg.embedding_dim)):
+        raise AssertionError("encoder_gemma phase failed")
+    path_start()
+    t0 = time.perf_counter()
+    g_emb8 = genc8.encode(texts)
+    genc8_s = time.perf_counter() - t0
+    path_g8 = path_end()
+    gcos8 = float((g8k.double() * g8p.double()).sum(1).min())
+    g8_vs_bf16 = float((g8k.double() * gk.double()).sum(1).min())
+    emit("encoder_gemma_int8", encode_4096_s=round(genc8_s, 3), cos_kernel_vs_plain_min=gcos8,
+         cos_int8_vs_bf16_kernel_min=g8_vs_bf16,
+         cos_slogans_int8_vs_bf16_min=float(np.min(np.sum(g_emb8 * g_emb, axis=1))),
+         finite=bool(np.isfinite(g_emb8).all()), launches=path_g8)
+    if not (gcos8 > 0.999 and g8_vs_bf16 > 0.98 and np.isfinite(g_emb8).all()
+            and min(path_g8["fused_attn_int8_layer_gemma"], path_g8["fused_mlp_int8_layer_gemma"])
+            >= gcfg.num_layers):
+        raise AssertionError("encoder_gemma_int8 phase failed")
+
+    # ---- 21. gemma serving: 1M x 768 int8-global index, scheduler, HTTP ----
+    NG, DG = NC, gcfg.embedding_dim
+    t0 = time.perf_counter()
+    gcorpus = np.empty((NG, DG), np.float32)
+    for i in range(0, NG, 131_072):
+        gcorpus[i : i + 131_072] = unit_rows(131_072, DG, 60 + i // 131_072, dev).cpu().numpy()
+    gcorpus[:4096] = g_emb
+    gindex = FlatIndex.build(gcorpus, config=IndexConfig(dtype="int8", int8_scale="global"), device=dev)
+    geng = SearchEngine(gindex, meta=meta, rescore_vectors=gcorpus, device=dev)
+    gbuild_s = time.perf_counter() - t0
+    g_rb = geng.row_block
+    g_m = auto_merge_tiles(DG, g_rb // 128, geng.padded_rows // g_rb)
+    gq8, gqs = quantize_queries(unit_rows(1024, DG, 4000, dev))
+    ok, err, shape = check_b1("mips_g_scan", geng.n_valid, g_m, gq8, gqs, geng._global_scale,
+                              geng.vectors, g_rb)
+    emit("b1", index="1M x 768", n_valid=geng.n_valid, merge_tiles=g_m, shape=shape, bit_equal=ok,
+         max_abs_err=err, build_s=round(gbuild_s, 3), speed_ok=geng._speed_ok)
+    if not (ok and geng._speed_ok):
+        raise AssertionError("B1 at D = 768 disagrees with its plain version (or no speed path)")
+    gtexts = [texts[(41 * i) % 4096] for i in range(128)]
+    for mode, enc_ in (("bf16", genc), ("int8", genc8)):
+        gsched = BatchScheduler(geng, max_batch=256, encode_fn=enc_.encode_device)
+        gservice = SearchService(geng, enc_.encode, scheduler=gsched)
+        gdirect = SearchService(geng, enc_.encode)
+        path_start()
+        ganswers, gserve_s, gstats, gwarm = serve_round(gservice, [{"query": t_, "top_k": 10}
+                                                                   for t_ in gtexts])
+        path_gs = path_end()
+        gcodes = all(code == 200 for code, _ in ganswers)
+        gover, gself = [], 0
+        for text, (_, body) in zip(gtexts, ganswers):
+            got = [r["doc_id"] for r in body["results"]]
+            want = [r["doc_id"] for r in gdirect.search_and_display(text)]
+            gover.append(len(set(got) & set(want)) / 10)
+            gself += texts.index(text) == got[0]
+        gb = gstats["batches"] - gwarm["batches"]
+        emit("serve_gemma", mode=mode, requests=len(ganswers), all_200=gcodes,
+             overlap10_mean=float(np.mean(gover)), overlap10_min=float(np.min(gover)),
+             self_top1=gself, wall_s=round(gserve_s, 3), batches=gb,
+             avg_batch=(gstats["queries"] - gwarm["queries"]) / max(gb, 1),
+             latency_ms=gstats.get("latency_ms"), stages_ms={
+                 k: v for k, v in gstats.get("stages_ms", {}).items() if k != "worst_batches"},
+             launches=path_gs)
+        need = (["qknorm_rope_attention_gemma"] if mode == "bf16"
+                else ["fused_attn_int8_layer_gemma", "fused_mlp_int8_layer_gemma"])
+        if not (gcodes and np.mean(gover) >= 0.9 and len(ganswers) == 128
+                and path_gs["mips_g_scan"] >= 1 and min(path_gs[n_] for n_ in need) >= 1):
+            raise AssertionError(f"serve_gemma ({mode}) phase failed")
+
+    # ---- 22. the BERT tower at full width (no kernel) ----
+    bcfg = BertEncoderConfig()
+    bparams = bert_mod.init_params(bcfg, torch.Generator(device=dev).manual_seed(41), device=dev)
+    benc = BatchedEncoder(bparams, bcfg, batch_size=512, device=dev)
+    t0 = time.perf_counter()
+    b_emb = benc.encode(texts)
+    benc_s = time.perf_counter() - t0
+    bim, _ = benc._prep_batch(texts[:512], [benc.tokenizer.tokenize(t_) for t_ in texts[:512]],
+                              list(range(512)))
+    bt = torch.from_numpy(bim).to(dev)
+    with torch.inference_mode():
+        bert_ms = cuda_ms(lambda: bert_mod.encode_pooled(bparams, bt[0], bt[1], bcfg), 5)
+        bcard = bert_mod.encode_pooled(bparams, bt[0][:8], bt[1][:8], bcfg).double().cpu()
+        bparams_cpu = {k_: ([{n_: t_.cpu() for n_, t_ in l_.items()} for l_ in v_]
+                            if k_ == "layers" else v_.cpu()) for k_, v_ in bparams.items()}
+        bcpu = bert_mod.encode_pooled(bparams_cpu, bt[0][:8].cpu(), bt[1][:8].cpu(), bcfg).double()
+    b_cos = float((bcard * bcpu).sum(1).min())
+    emit("bert", layers=bcfg.num_layers, hidden=bcfg.hidden_size, width=int(bt.shape[2]),
+         encode_4096_s=round(benc_s, 3), forward_ms_512x64=bert_ms, cos_card_vs_cpu_min=b_cos,
+         finite=bool(np.isfinite(b_emb).all()))
+    if not (b_cos > 0.999 and np.isfinite(b_emb).all() and b_emb.shape == (4096, bcfg.embedding_dim)):
+        raise AssertionError("bert phase failed")
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_b:
+        bert_mod.encode_pooled(bparams, bt[0], bt[1], bcfg)
+        torch.cuda.synchronize()
+    emit("profile", what="bert_forward_512x64", gpu=gpu, top_device_us=[
+        [e.key[:60], round(e.self_device_time_total, 1), e.count]
+        for e in sorted(prof_b.key_averages(), key=lambda e: -e.self_device_time_total)[:10]])
+    del bparams, bparams_cpu, benc, prof_b
+
     # ---- 13. times at the path's shapes (not counted as main-path
     # launches) ----
     qb = qd[0]
@@ -1090,6 +1331,49 @@ def main(argv=None) -> int:
           lambda: fused_mlp_int8_layer_plain(x512, layer["mlp_norm"], lq["w_gate"], lq["w_up"],
                                              lq["w_down"]),
           2 * T * DM * 2 + 3 * DM * I + 4 * (2 * I + 2 * DM), {"int8": 6 * T * DM * I})
+    # the gemma forms at (512, 64) on the slogans' masks: B2 bidirectional
+    # (every pair of live tokens), B3 and B4 on the phase-4h layer
+    GS = int(gt.shape[2])
+    gmsk = gt[1].to(torch.int32).contiguous()
+    gqa = torch.randn((512, GS, GH * GDH), generator=g, device=dev).to(torch.bfloat16)
+    gka = torch.randn((512, GS, GHK * GDH), generator=g, device=dev).to(torch.bfloat16)
+    gva = torch.randn((512, GS, GHK * GDH), generator=g, device=dev).to(torch.bfloat16)
+    gcs = torch.randn((512, GS, GDH // 2), generator=g, device=dev)
+    gsn = torch.randn((512, GS, GDH // 2), generator=g, device=dev)
+    gw1 = torch.ones(GDH, device=dev)
+    gkw = dict(num_heads=GH, num_kv_heads=GHK, head_dim=GDH, eps=1e-6, causal=False, scale=g_scale)
+    glive = gmsk.sum(1).double()
+    timed("qknorm_rope_attention_gemma",
+          lambda: fused_qknorm_rope_attention(gqa, gka, gva, gw1, gw1, gcs, gsn, gmsk, **gkw),
+          lambda: fused_qknorm_rope_attention_plain(gqa, gka, gva, gw1, gw1, gcs, gsn, gmsk, **gkw),
+          gqa.numel() * 2 * 2 + gka.numel() * 2 * 2 + gcs.numel() * 4 * 2 + gmsk.numel() * 4
+          + GDH * 4 * 2, {"bf16": float(4 * GH * GDH * (glive * glive).sum())}, plain_iters=5)
+    GT, GD, GI = gx512.shape[0] * gx512.shape[1], gcfg.hidden_size, gcfg.intermediate_size
+    GHQ, GHKD = GH * GDH, GHK * GDH
+    grope512 = gemma_mod._rope_tables(torch.clamp(mask512.cumsum(1) - 1, min=0), GDH,
+                                      glcfg.rope_local_theta)
+    timed("fused_attn_int8_layer_gemma",
+          lambda: fused_attn_int8_layer_gemma(gx512, glayer, glq, mask512, grope512, glcfg),
+          lambda: fused_attn_int8_layer_gemma_plain(gx512, glayer, glq, mask512, grope512, glcfg),
+          2 * GT * GD * 2 + 2 * GD * (GHQ + GHKD) + 4 * (GHQ + 2 * GHKD + 2 * GD)
+          + GT * (GDH * 4 + 4), {"int8": 2 * GT * GD * (2 * GHQ + 2 * GHKD),
+                                 "bf16": float(4 * GH * GDH * (live512 * live512).sum())})
+    gmlp = (gx512, 1.0 + glayer["pre_mlp_norm"], glq["w_gate"], glq["w_up"], glq["w_down"],
+            1.0 + glayer["post_mlp_norm"])
+    timed("fused_mlp_int8_layer_gemma",
+          lambda: fused_mlp_int8_layer(*gmlp, act="gelu_tanh"),
+          lambda: fused_mlp_int8_layer_plain(*gmlp, act="gelu_tanh"),
+          2 * GT * GD * 2 + 3 * GD * GI + 4 * (2 * GI + 3 * GD), {"int8": 6 * GT * GD * GI})
+    with torch.inference_mode():
+        genc_ms = {
+            "kernel": cuda_ms(lambda: gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg), 5),
+            "plain": cuda_ms(lambda: gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg,
+                                                             fused="plain"), 3),
+            "int8_kernel": cuda_ms(lambda: gemma_mod.encode_pooled(
+                gparams, gt[0], gt[1], gcfg, qlayers=gql, fused_layers=True), 5),
+            "int8_plain": cuda_ms(lambda: gemma_mod.encode_pooled(
+                gparams, gt[0], gt[1], gcfg, fused="plain", qlayers=gql, fused_layers=True), 2),
+            "shape": [512, GS]}
     # B6 at the ivf phase's B=8 search: the unique chunks read once, the
     # queries read and the raw scores written once
     captured = {}
@@ -1108,20 +1392,39 @@ def main(argv=None) -> int:
     distinct6 = int(torch.unique(cu).numel())
     n_spill_ch = pa["n_spill_chunks"]
 
-    def b6_device_ms(q_, s_, u_, n=20):
-        """The kernel's own device time (profiler), per launch: at B=8 the
-        wrapper's query quantization (~9 small torch ops) is host-bound
-        and would hide it from CUDA events around whole calls."""
-        ivf_probe_scores(q_, s_, u_)
+    def b6_device_ms(q_, s_, u_, n=50):
+        """The kernel's own device time per launch: at B=8 the wrapper's
+        query quantization (~9 small torch ops) is host-bound and would
+        hide the kernel from CUDA events around whole calls. So the
+        kernel's entry point is launched n times on queries quantized
+        once, all queued behind a sleep kernel, between two events; its
+        output is first held bit-equal to the wrapper's."""
+        import ctypes
+
+        lib = _build.load()
+        q8_, _ = quantize_queries(q_)
+        u32 = u_.to(torch.int32).contiguous()
+        (b_, d_), (c_, r_, _), p_ = q8_.shape, s_.shape, u32.shape[0]
+        out_ = torch.empty((b_, p_ * r_), dtype=torch.int32, device=dev)
+        stream_ = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+        def launch():
+            _build.check(lib, lib.ts_ivf_scores(q8_.data_ptr(), s_.data_ptr(), u32.data_ptr(),
+                                                out_.data_ptr(), b_, d_, c_, r_, p_, stream_),
+                         "ivf_probe_scores")
+
+        launch()
+        if not torch.equal(out_, ivf_probe_scores(q_, s_, u_)[0]):
+            raise AssertionError("B6's direct launch disagrees with its wrapper")
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof6:
-            for _ in range(n):
-                ivf_probe_scores(q_, s_, u_)
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof6.key_averages() if "ivf_scores_kernel" in e.key)
-        if us <= 0:
-            raise AssertionError("the profiler saw no device time of the B6 kernel")
-        return us / n / 1e3
+        ev6 = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(20_000_000)   # ~10 ms: the host queues all n launches meanwhile
+        ev6[0].record()
+        for _ in range(n):
+            launch()
+        ev6[1].record()
+        ev6[1].synchronize()
+        return ev6[0].elapsed_time(ev6[1]) / n
 
     def b6_bytes_ops(b_, p_, r_, distinct_):
         return (distinct_ * r_ * D + b_ * D * 4 + 4 * b_ * p_ * r_ + 4 * b_,
@@ -1148,12 +1451,15 @@ def main(argv=None) -> int:
          shapes={"mips_g_scan*": [1024, NC, D, rb, m], "mips_topk": [512, NC, D, 40],
                  "qknorm_rope_attention": [512, S, H, HK, DH],
                  "fused_*_int8_layer": [*x512.shape[:2], DM, I, H, HK, DH],
+                 "qknorm_rope_attention_gemma": [512, GS, GH, GHK, GDH],
+                 "fused_*_int8_layer_gemma": [*gx512.shape[:2], GD, GI, GH, GHK, GDH],
                  "ivf_probe_scores": {"B": 8, "P": P6, "R": R6, "D": D, "distinct_chunks": distinct6,
                                       "spill_chunks": n_spill_ch, "nprobe": int(np_cal)}},
          ivf_search_ms=lat, ivf_probe_scores_wrapper_ms=b6_wrapper_ms, b6_shapes=b6_shapes,
          scan_rescore_ms_per_batch={"kernel": pipe_k, "plain": pipe_p, "qps_kernel": 1024 / pipe_k * 1e3},
          encoder_forward_ms={"kernel": enc_k, "plain": enc_p, "shape": [512, S]},
          encoder_int8_forward_ms={"kernel": enc8_k, "plain": enc8_p, "shape": [512, S]},
+         gemma_encoder_forward_ms=genc_ms, bert_forward_ms={"ms": bert_ms, "shape": list(bt.shape[1:])},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
     # a filtered batch of at most 32 signatures: ONE grouped scan
@@ -1163,6 +1469,9 @@ def main(argv=None) -> int:
         ("encoder_forward_512x64", lambda: encode_pooled(params, t[0], t[1], cfg)),
         ("encoder_int8_forward_512x64",
          lambda: encode_pooled(params, t[0], t[1], cfg, qlayers=ql, fused_layers=True)),
+        ("gemma_encoder_forward_512x64", lambda: gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg)),
+        ("gemma_encoder_int8_forward_512x64",
+         lambda: gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg, qlayers=gql, fused_layers=True)),
         ("scan_rescore_b1024", pipeline(mips_g_scan)),
         (f"filtered_grouped_b{len(grouped_batch)}",
          lambda: engine.search_vectors(qg, k=10, filters=grouped_batch)),
@@ -1180,7 +1489,9 @@ def main(argv=None) -> int:
     del (engine, xeng, eng_ivf, ivf, flat_ivf, index, xindex, corpus_dev, ivf_dev, corpus,
          ivf_corpus, rescore_bf16, pa, cents_dev, bf_corpus, fn_cal, captured, cq, cs, cu,
          sched, service, direct, sched8, service8, direct8, fsched, fservice, isched, iservice,
-         idirect, encoder, encoder8, params, ql, x512, layer, lq, bias, st36, year_dev)
+         idirect, encoder, encoder8, params, ql, x512, layer, lq, bias, st36, year_dev,
+         geng, gindex, gcorpus, gsched, gservice, gdirect, genc, genc8, gql, gx512, glayer, glq,
+         gqa, gka, gva, gcs, gsn, gmlp, gparams, gk, gp, go, g8k, g8p)
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -1364,6 +1675,77 @@ def main(argv=None) -> int:
         raise AssertionError("LoRA train phase failed")
     del base, base_copy, lstate
 
+    # ---- 18g. the gemma tower trains at full width through its fused core ----
+    gtr_cfg = GemmaEncoderConfig(max_seq_len=64)
+    GSTEPS = 8
+    gtq = np.broadcast_to(rng_t.integers(3, gtr_cfg.vocab_size, TS).astype(np.int32),
+                          (GSTEPS, TB, TS)).copy()
+    gtp = gtq.copy()
+    gid = rng_t.integers(3, gtr_cfg.vocab_size, (GSTEPS, TB, ident))
+    gtq[:, :, 1 : 1 + ident] = gid
+    gtp[:, :, 2 : 2 + ident] = gid
+    gtq_dev, gtp_dev = torch.from_numpy(gtq).to(dev), torch.from_numpy(gtp).to(dev)
+
+    def gemma_grads(fused):
+        st_ = init_train_state(gtr_cfg, tcfg_, device=dev)
+        leaves_ = tree_leaves(st_.params)
+        for t_ in leaves_:
+            t_.requires_grad_(True)
+        loss_ = info_nce_loss(st_.params, gtq_dev[0], tmask, gtp_dev[0], tmask, gtr_cfg,
+                              tcfg_.temperature, fused)
+        grads_ = torch.autograd.grad(loss_, leaves_)
+        # tree_leaves order: embed, final_norm, head_b1, head_b2, head_w1,
+        # head_w2, then each layer's leaves by sorted key
+        names_ = ["embed", "final_norm", "head_b1", "head_b2", "head_w1", "head_w2"] + [
+            f"{li}.{k_}" for li in range(gtr_cfg.num_layers) for k_ in sorted(st_.params["layers"][0])]
+        last = str(gtr_cfg.num_layers - 1)
+        return float(loss_.detach()), {n_: g_.float() for n_, g_ in zip(names_, grads_)
+                                       if n_ in ("embed", "final_norm") or n_.split(".")[0] in ("0", last)}
+
+    torch.cuda.reset_peak_memory_stats()
+    gl_on, gg_on = gemma_grads("on")
+    gl_plain, gg_plain = gemma_grads("plain")
+    gcos_grad = {n_: agreement(gg_on[n_], gg_plain[n_])[0] for n_ in gg_on}
+    wq_grad_max = float(gg_on["0.wq"].abs().max())
+    del gg_on, gg_plain
+    gst = init_train_state(gtr_cfg, tcfg_, device=dev)
+    gstep = make_train_step(gtr_cfg, tcfg_, fused="on")
+    gls, gev = [], [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    path_start()
+    for i_ in range(GSTEPS):
+        if i_ == 2:
+            gev[0].record()
+        gst, l_ = gstep(gst, gtq_dev[i_], tmask, gtp_dev[i_], tmask)
+        gls.append(l_)
+    gev[1].record()
+    gev[1].synchronize()
+    path_gt = path_end()
+    gstep_ms = gev[0].elapsed_time(gev[1]) / (GSTEPS - 2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_g:
+        gstep(gst, gtq_dev[0], tmask, gtp_dev[0], tmask)
+        torch.cuda.synchronize()
+    gkrows = [e for e in prof_g.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    gkernel_us = sum(e.self_device_time_total for e in gkrows)
+    emit("profile", what="gemma_train_step_on_64x64", gpu=gpu, kernel_ms=gkernel_us / 1e3,
+         device_busy_share_of_step=gkernel_us / 1e3 / gstep_ms,
+         top_device_us=[[e.key[:60], round(e.self_device_time_total, 1), e.count]
+                        for e in sorted(gkrows, key=lambda e: -e.self_device_time_total)[:14]])
+    del prof_g
+    gls = [float(l_) for l_ in gls]
+    g_peak = torch.cuda.max_memory_allocated() / 2**30
+    emit("train_gemma", layers=gtr_cfg.num_layers, hidden=gtr_cfg.hidden_size,
+         heads=[gtr_cfg.num_heads, gtr_cfg.num_kv_heads, gtr_cfg.head_dim], batch_pairs=TB,
+         seq_len=TS, steps=GSTEPS, losses=gls, loss_one_batch={"on": gl_on, "plain": gl_plain},
+         grad_cos_on_vs_plain_min=min(gcos_grad.values()), grad_cos_on_vs_plain=gcos_grad,
+         wq_grad_max_abs=wq_grad_max, step_ms=gstep_ms, tokens_per_s=2 * TB * TS / gstep_ms * 1e3,
+         peak_mem_gb=g_peak, launches=path_gt,
+         launches_per_step={k_: v_ / GSTEPS for k_, v_ in path_gt.items()}, gpu=gpu)
+    if not (all(np.isfinite(gls)) and gls[-1] < gls[0] and min(gcos_grad.values()) >= 0.999
+            and wq_grad_max > 0 and path_gt["qknorm_rope_attention_gemma"]
+            == GSTEPS * 2 * gtr_cfg.num_layers):
+        raise AssertionError("train_gemma phase failed")
+    del gst, gstep, gtq_dev, gtp_dev
+
     # ---- 19. the train entry point, with a checkpoint and a resume ----
     import shutil
     import subprocess
@@ -1398,6 +1780,7 @@ def main(argv=None) -> int:
     # ---- 13. the times line ----
     emit("times", **times_line, b2_at_train_shape=b2_train, train_step_ms={
          "on": step_on_ms, "off": step_off_ms, "shape": [TB, TS, tr_cfg.num_layers]},
+         gemma_train_step_ms={"on": gstep_ms, "shape": [TB, TS, gtr_cfg.num_layers]},
          shapes_train={"qknorm_rope_attention_bwd": [64, 64, H, HK, DH]},
          total_s=round(time.perf_counter() - t_start, 1))
 
@@ -1416,6 +1799,12 @@ def main(argv=None) -> int:
                                  "theoremsearch_tpu/kernels/layer_int8.py:151"),
         "ivf_probe_scores": ("theoremsearch_tpu_torch/csrc/ivf_scores.cu",
                              "theoremsearch_tpu/kernels/mips.py:789"),
+        "qknorm_rope_attention_gemma": ("theoremsearch_tpu_torch/csrc/attention.cu",
+                                        "theoremsearch_tpu/kernels/attention.py:60"),
+        "fused_attn_int8_layer_gemma": ("theoremsearch_tpu_torch/csrc/layer_int8.cu",
+                                        "theoremsearch_tpu/kernels/layer_int8.py:274"),
+        "fused_mlp_int8_layer_gemma": ("theoremsearch_tpu_torch/csrc/layer_int8.cu",
+                                       "theoremsearch_tpu/kernels/layer_int8.py:151"),
     }
     missing = [n for n, c in main_launches.items() if c < 1]
     if missing:

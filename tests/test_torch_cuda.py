@@ -456,3 +456,224 @@ def test_train_steps_on_card_kernel_vs_plain(cuda):
         losses[fused] = out
     assert all(np.isfinite(losses["on"]))
     np.testing.assert_allclose(losses["on"], losses["plain"], rtol=0, atol=5e-3)
+
+
+# ---------------------------------------------------------------- gemma forms
+
+
+GEMMA_SMALL = dict(vocab_size=1024, hidden_size=256, intermediate_size=384, num_layers=2,
+                   num_heads=2, num_kv_heads=1, head_dim=256, global_every=2, max_seq_len=64,
+                   head_hidden=256, embedding_dim=256, query_pre_attn_scalar=256.0)
+
+
+def _gemma_params(cfg, device, seed=0):
+    """Random gemma params with the (1 + w) norm weights off zero."""
+    from theoremsearch_tpu_torch.encoder import gemma
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = gemma.init_params(cfg, g, device=device)
+    for layer in params["layers"]:
+        for name, t in layer.items():
+            if t.ndim == 1:
+                t += 0.1 * torch.randn(t.shape, generator=g, device=device)
+    return params
+
+
+@pytest.mark.parametrize("s", [1, 17, 64, 128])
+def test_attention_kernel_gemma_form_matches_plain(cuda, s):
+    """B2 at head_dim 256, bidirectional, 3/1 heads, scale 256^-1/2, vs
+    its plain version: cosine > 0.9999, max abs <= 2e-2 * max|plain|;
+    the launch counts as the gemma form's."""
+    from theoremsearch_tpu_torch.kernels.attention import attention_gemma_launches
+
+    g = torch.Generator(device=cuda).manual_seed(s)
+    b, h, hk, dh = 6, 3, 1, 256
+    q = (torch.randn((b, s, h * dh), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    k = (torch.randn((b, s, hk * dh), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    v = torch.randn((b, s, hk * dh), generator=g, device=cuda).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn((2, dh), generator=g, device=cuda)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=cuda)
+    mask = (torch.arange(s, device=cuda)[None] < lens[:, None]).to(torch.int32)
+    ang = torch.clamp(mask.cumsum(1) - 1, min=0)[..., None].float() * torch.rand((dh // 2,), device=cuda)
+    kw = dict(num_heads=h, num_kv_heads=hk, head_dim=dh, eps=1e-6, causal=False, scale=256 ** -0.5)
+    before = (attention_launches.n, attention_gemma_launches.n)
+    out = fused_qknorm_rope_attention(q, k, v, w[0], w[1], ang.cos(), ang.sin(), mask, **kw).float()
+    assert (attention_launches.n, attention_gemma_launches.n) == (before[0], before[1] + 1)
+    ref = fused_qknorm_rope_attention_plain(q, k, v, w[0], w[1], ang.cos(), ang.sin(), mask, **kw).float()
+    o, r = out.double().flatten(), ref.double().flatten()
+    assert float(o @ r / (o.norm() * r.norm())) > 0.9999
+    assert float((out - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+
+
+def _gemma_layer(cuda, seed, d=768, i=1152):
+    from theoremsearch_tpu_torch.core.config import GemmaEncoderConfig
+    from theoremsearch_tpu_torch.encoder import gemma
+
+    cfg = GemmaEncoderConfig(vocab_size=512, hidden_size=d, intermediate_size=i, num_layers=1,
+                             max_seq_len=128)
+    params = _gemma_params(cfg, cuda, seed)
+    return cfg, params["layers"][0], kernel_layout(gemma.quantize_params_int8(params))[0]
+
+
+@pytest.mark.parametrize("t,d,i", [(256, 768, 1152), (70, 768, 1152), (4096, 256, 384)])
+def test_mlp_int8_kernel_gemma_form_matches_plain(cuda, t, d, i):
+    """B4's gemma form (GeGLU, post-norm) vs its plain version; the norm +
+    quant codes bit-equal; counted as the gemma form."""
+    from theoremsearch_tpu_torch.kernels.layer_int8 import mlp_int8_gemma_launches
+
+    cfg, layer, lq = _gemma_layer(cuda, t, d, i)
+    x = torch.randn((t, d), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).to(torch.bfloat16)
+    nw, pw = 1.0 + layer["pre_mlp_norm"], 1.0 + layer["post_mlp_norm"]
+    args = (x, nw, lq["w_gate"], lq["w_up"], lq["w_down"], pw)
+    stages, before = {}, (mlp_int8_launches.n, mlp_int8_gemma_launches.n)
+    out = fused_mlp_int8_layer(*args, eps=cfg.rms_norm_eps, act="gelu_tanh", stages=stages)
+    assert (mlp_int8_launches.n, mlp_int8_gemma_launches.n) == (before[0], before[1] + 1)
+    ref = fused_mlp_int8_layer_plain(*args, eps=cfg.rms_norm_eps, act="gelu_tanh")
+    xq, sx = rmsnorm_quant_plain(x, nw, cfg.rms_norm_eps)
+    assert torch.equal(stages["xq"], xq) and torch.equal(stages["sx"], sx[:, 0])
+    _agree(x, out, ref)
+
+
+@pytest.mark.parametrize("b,s", [(8, 32), (4, 128), (6, 17)])
+def test_attn_int8_kernel_gemma_form_matches_plain(cuda, b, s):
+    """B3's gemma form (bidirectional head_dim-256 core, post-norm) vs its
+    plain version on ragged masks; norm + quant codes bit-equal."""
+    from theoremsearch_tpu_torch.encoder.gemma import _rope_tables as gemma_rope
+    from theoremsearch_tpu_torch.kernels.layer_int8 import (
+        attn_int8_gemma_launches,
+        fused_attn_int8_layer_gemma,
+        fused_attn_int8_layer_gemma_plain,
+    )
+
+    cfg, layer, lq = _gemma_layer(cuda, s)
+    g = torch.Generator(device=cuda).manual_seed(b)
+    x = torch.randn((b, s, cfg.hidden_size), generator=g, device=cuda).to(torch.bfloat16)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=cuda)
+    mask = (torch.arange(s, device=cuda)[None] < lens[:, None]).to(torch.int32)
+    rope = gemma_rope(torch.clamp(mask.cumsum(1) - 1, min=0), cfg.head_dim, cfg.rope_local_theta)
+    stages, before = {}, (attn_int8_launches.n, attn_int8_gemma_launches.n)
+    out = fused_attn_int8_layer_gemma(x, layer, lq, mask, rope, cfg, stages=stages)
+    assert (attn_int8_launches.n, attn_int8_gemma_launches.n) == (before[0], before[1] + 1)
+    ref = fused_attn_int8_layer_gemma_plain(x, layer, lq, mask, rope, cfg)
+    xq, sx = rmsnorm_quant_plain(x.view(b * s, -1), 1.0 + layer["attn_norm"], cfg.rms_norm_eps)
+    assert torch.equal(stages["xq"], xq) and torch.equal(stages["sx"], sx[:, 0])
+    _agree(x, out, ref)
+
+
+def test_gemma_encoder_on_card_kernel_vs_plain(cuda):
+    """The head_dim-256 gemma tower, bf16 and int8 whole layers, kernel
+    path vs plain path: pooled cosine > 0.9999 (bf16), > 0.999 (int8)."""
+    from theoremsearch_tpu_torch.core.config import GemmaEncoderConfig
+    from theoremsearch_tpu_torch.encoder import gemma
+    from theoremsearch_tpu_torch.kernels.attention import attention_gemma_launches
+
+    cfg = GemmaEncoderConfig(**GEMMA_SMALL)
+    params = _gemma_params(cfg, cuda)
+    ids = torch.randint(3, 1024, (8, 32), device=cuda)
+    mask = (torch.arange(32, device=cuda)[None] < torch.arange(25, 33, device=cuda)[:, None]).int()
+    before = attention_gemma_launches.n
+    a = gemma.encode_pooled(params, ids, mask, cfg, fused="on")
+    assert attention_gemma_launches.n == before + cfg.num_layers
+    b = gemma.encode_pooled(params, ids, mask, cfg, fused="plain")
+    assert float((a.double() * b.double()).sum(1).min()) > 0.9999
+    ql = kernel_layout(gemma.quantize_params_int8(params))
+    a8 = gemma.encode_pooled(params, ids, mask, cfg, qlayers=ql, fused_layers=True)
+    b8 = gemma.encode_pooled(params, ids, mask, cfg, fused="plain", qlayers=ql, fused_layers=True)
+    assert float((a8.double() * b8.double()).sum(1).min()) > 0.999
+
+
+def test_gemma_core_grad_fn_on_card(cuda):
+    """The gemma core's ctypes output gets its grad_fn from
+    GemmaAttentionCore: through fused="on" every layer's wq, wk, wv,
+    q_norm and k_norm get a nonzero finite gradient close to the plain
+    path's."""
+    from theoremsearch_tpu_torch.core.config import GemmaEncoderConfig
+    from theoremsearch_tpu_torch.encoder import gemma
+
+    cfg = GemmaEncoderConfig(**GEMMA_SMALL)
+    ids = torch.randint(3, 1024, (8, 32), generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+    mask = (torch.arange(32, device=cuda)[None] < torch.arange(25, 33, device=cuda)[:, None]).int()
+    grads = {}
+    for fused in ("on", "plain"):
+        params = _gemma_params(cfg, cuda)
+        for layer in params["layers"]:
+            for t in layer.values():
+                t.requires_grad_()
+        out = gemma.encode_pooled(params, ids, mask, cfg, fused=fused)
+        assert out.grad_fn is not None
+        out.sum().backward()
+        grads[fused] = [{n: layer[n].grad for n in ("wq", "wk", "wv", "q_norm", "k_norm")}
+                        for layer in params["layers"]]
+    for lk, lp in zip(grads["on"], grads["plain"]):
+        for name, gk in lk.items():
+            assert gk is not None, name
+            assert bool(torch.isfinite(gk.float()).all()) and float(gk.float().abs().max()) > 0, name
+            a, c = gk.double().flatten(), lp[name].double().flatten()
+            assert float(a @ c / (a.norm() * c.norm())) > 0.999, name
+
+
+# ---------------------------------------------------------------- serving uploads, recall gate
+
+
+def test_serving_uploads_do_not_wait_for_queued_device_work(cuda):
+    """The grouped dispatch (36 signatures: split 32 + 4, each with its
+    row index and query -> mask-id uploads) and a mixed text + vector
+    group (its row index and host vectors) return to the host while a
+    long kernel is still queued: pinned, non-blocking uploads, where a
+    pageable copy would wait for the queued work to finish."""
+    import time
+
+    from theoremsearch_tpu_torch.search.filters import SearchFilters
+    from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
+    from theoremsearch_tpu_torch.serve.scheduler import BatchScheduler
+
+    rng = np.random.default_rng(2)
+    emb = rng.standard_normal((16384, 128)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    meta = CorpusMetadata.from_rows([{"year": 1980 + i % 40, "link": "https://arxiv.org/abs/1"}
+                                     for i in range(16384)])
+    engine = SearchEngine(FlatIndex.build(emb, config=IndexConfig(dtype="int8", int8_scale="global")),
+                          meta=meta, rescore_vectors=emb, device=cuda)
+    flist = [SearchFilters(year_range=(1980 + j, 1981 + j)) for j in range(36)] * 2
+    q = torch.from_numpy(rng.standard_normal((72, 128)).astype(np.float32)).to(cuda)
+    want = engine._dispatch_grouped(q, 10, flist)()            # warms the per-signature masks
+    enc = torch.randn((8, 128), device=cuda)
+    vecs = rng.standard_normal((3, 128)).astype(np.float32)
+    BatchScheduler._group_queries(enc, [0, 2, 5], 8, vecs)
+    torch.cuda.synchronize()
+
+    def host_seconds(fn):
+        torch.cuda._sleep(1_000_000_000)                        # ~0.5 s of queued device work
+        t0 = time.perf_counter()
+        out = fn()
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t_host, time.perf_counter() - t0, out
+
+    t_host, t_all, fin = host_seconds(lambda: engine._dispatch_grouped(q, 10, flist))
+    assert t_all > 0.2 and t_host < 0.5 * t_all, (t_host, t_all)
+    s, ids = fin()
+    np.testing.assert_array_equal(ids, want[1])
+    t_host, t_all, grouped = host_seconds(lambda: BatchScheduler._group_queries(enc, [0, 2, 5], 8, vecs))
+    assert t_all > 0.2 and t_host < 0.5 * t_all, (t_host, t_all)
+    torch.testing.assert_close(grouped[:3], enc[[0, 2, 5]])
+    torch.testing.assert_close(grouped[3:6].cpu(), torch.from_numpy(vecs))
+
+
+def test_recall_gate_on_the_card(cuda):
+    """The verbatim harness's recall_gate runs its exact oracle on the
+    card (the port's exact_topk default; the reference's runs on any
+    backend): an exact answer scores 1.0, a shifted one less."""
+    from theoremsearch_tpu_torch.eval.harness import recall_gate
+    from theoremsearch_tpu_torch.eval.oracle import exact_topk
+
+    rng = np.random.default_rng(3)
+    corpus = rng.standard_normal((5000, 64)).astype(np.float32)
+    q = rng.standard_normal((32, 64)).astype(np.float32)
+    _, ids = exact_topk(q, corpus, k=10, device="cpu")
+    assert recall_gate(q, corpus, ids, k=10) == 1.0
+    off = ids.copy()
+    off[:, -1] = (off[:, -1] + 1) % 5000
+    assert recall_gate(q, corpus, off, k=10) < 1.0

@@ -9,8 +9,15 @@ import pytest
 import torch
 
 from theoremsearch_tpu_torch.cli import main as cli_main
-from theoremsearch_tpu_torch.core.config import EncoderConfig, TrainConfig
+from theoremsearch_tpu_torch.core.config import (
+    BertEncoderConfig,
+    EncoderConfig,
+    GemmaEncoderConfig,
+    TrainConfig,
+)
+from theoremsearch_tpu_torch.encoder import bert, gemma, loader
 from theoremsearch_tpu_torch.encoder.model import init_params, params_from_jax
+from theoremsearch_tpu_torch.eval.harness import recall_gate
 from theoremsearch_tpu_torch.eval.oracle import exact_topk
 from theoremsearch_tpu_torch.index.flat import FlatIndex
 from theoremsearch_tpu_torch.index.ivf import IVFIndex
@@ -29,7 +36,11 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["require_cuda", "resolve_device", "init_params", "params_from_jax",
                                    "FlatIndex.build", "exact_topk", "IVFIndex.build",
-                                   "init_train_state", "train_state_from_jax", "train --device"])
+                                   "init_train_state", "train_state_from_jax", "train --device",
+                                   "gemma.init_params", "bert.init_params",
+                                   "load_hf_gemma_checkpoint", "load_hf_bert_checkpoint",
+                                   "init_train_state gemma", "train --embedder bert",
+                                   "recall_gate"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     call = {
         "require_cuda": require_cuda,
@@ -42,6 +53,17 @@ def test_entry_points_default_to_the_card(no_cuda, entry):
         "init_train_state": lambda: init_train_state(EncoderConfig.tiny(), TrainConfig()),
         "train_state_from_jax": lambda: train_state_from_jax(None),
         "train --device": lambda: cli_main(["train", "--steps", "1"]),
+        "gemma.init_params": lambda: gemma.init_params(GemmaEncoderConfig.tiny(), torch.Generator()),
+        "bert.init_params": lambda: bert.init_params(BertEncoderConfig.tiny(), torch.Generator()),
+        "load_hf_gemma_checkpoint": lambda: loader.load_hf_gemma_checkpoint("no_such_dir"),
+        "load_hf_bert_checkpoint": lambda: loader.load_hf_bert_checkpoint("no_such_dir"),
+        "init_train_state gemma": lambda: init_train_state(GemmaEncoderConfig.tiny(), TrainConfig()),
+        "train --embedder bert": lambda: cli_main(["train", "--steps", "1", "--embedder", "bert"]),
+        # a kept difference: the verbatim harness calls exact_topk with no
+        # device, which is the card in the port (any backend in the
+        # reference); tests/test_torch_cuda.py runs it there
+        "recall_gate": lambda: recall_gate(np.ones((2, 8), np.float32), np.ones((4, 8), np.float32),
+                                           np.zeros((2, 10), np.int64)),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

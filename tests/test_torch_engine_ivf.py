@@ -132,11 +132,13 @@ def test_async_equals_sync_and_metadata_join(corpus, engines):
 
 def test_nprobe_rule(corpus, tmp_path):
     """An explicit nprobe wins; a calibrated index's nprobe is trusted
-    verbatim; else 16."""
+    verbatim; an uncalibrated index without one leaves the IVF route off
+    (the reference probes 16 lists there; the port does not copy that)."""
     emb, _, _, tidx = corpus
     flat = FlatIndex.build(emb, config=IndexConfig(pad_multiple=1024, dtype="float32"), normalize=False,
                            device=CPU)
-    assert SearchEngine(flat, ivf_index=tidx, device=CPU).ivf_nprobe == 16
+    assert not tidx.config.ivf_nprobe_calibrated
+    assert SearchEngine(flat, ivf_index=tidx, device=CPU).ivf_nprobe is None
     assert SearchEngine(flat, ivf_index=tidx, ivf_nprobe=3, device=CPU).ivf_nprobe == 3
     b = IndexBuilder(tmp_path / "sp", IndexConfig(ivf_nlist=32, dtype="int8", int8_scale="global",
                                                    ivf_assign2_margin=0.02))
@@ -148,3 +150,20 @@ def test_nprobe_rule(corpus, tmp_path):
     _, ids = eng.search_vectors(emb[:4], k=1)
     assert eng.route_counts == {"ivf": 1}
     np.testing.assert_array_equal(ids[:, 0], np.arange(4))
+
+
+def test_uncalibrated_index_without_nprobe_routes_flat(corpus):
+    """A small unfiltered batch takes the flat scan, not IVF at a guessed
+    nprobe, when the index is uncalibrated and no nprobe is given."""
+    emb, q, _, tidx = corpus
+    flat = FlatIndex.build(emb, config=IndexConfig(pad_multiple=1024, dtype="float32"), normalize=False,
+                           device=CPU)
+    eng = SearchEngine(flat, ivf_index=tidx, device=CPU)
+    eng.warm_overfetch(batch_sizes=(1, 8), k=10)
+    _, ids = eng.search_vectors(q[:8], k=10)
+    assert "ivf" not in eng.route_counts and sum(eng.route_counts.values()) == 1
+    _, want = SearchEngine(flat, device=CPU).search_vectors(q[:8], k=10)
+    np.testing.assert_array_equal(ids, want)
+    explicit = SearchEngine(flat, ivf_index=tidx, ivf_nprobe=8, device=CPU)
+    explicit.search_vectors(q[:8], k=10)
+    assert explicit.route_counts == {"ivf": 1}

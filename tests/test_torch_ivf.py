@@ -430,3 +430,27 @@ def test_finalize_ivf_uncleared_gate_not_stamped_calibrated(clustered_corpus, tm
     assert any("did not clear" in str(x.message) for x in w)
     with pytest.raises(ValueError, match="different IndexConfig"):
         IndexBuilder(tmp_path / "spool", IndexConfig(ivf_nlist=8))
+
+
+def test_finalize_ivf_calibrates_at_the_serving_batch(clustered_corpus, tmp_path, monkeypatch):
+    """Calibration measures recall at the batch the engine sends the IVF
+    route (16), not at the reference's chunk of 64: the probe-major
+    search's recall depends on its batch."""
+    emb, _ = clustered_corpus
+    chunks = []
+    real = IVFIndex.search
+
+    def spy(self, queries, *a, query_chunk=64, **kw):
+        chunks.append(query_chunk)
+        return real(self, queries, *a, query_chunk=query_chunk, **kw)
+
+    monkeypatch.setattr(IVFIndex, "search", spy)
+    b = IndexBuilder(tmp_path / "spool", IndexConfig(ivf_nlist=32, dtype="int8", int8_scale="global",
+                                                      ivf_assign2_margin=0.02))
+    b.add(np.arange(emb.shape[0], dtype=np.int64), emb)
+    b.finalize_ivf(calibrate_gate=0.9, device=CPU)
+    assert chunks and set(chunks) == {16}
+    chunks.clear()
+    calibrate_nprobe(IVFIndex.build(emb, config=IndexConfig(ivf_nlist=32, dtype="float32"),
+                                    device=CPU), emb, gate=0.5, n_queries=32, n_draws=1)
+    assert chunks and set(chunks) == {64}

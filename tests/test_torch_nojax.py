@@ -55,7 +55,8 @@ def test_module_list_covers_the_slice():
                  "encoder.batching", "search.engine", "serve.scheduler", "serve.app",
                  "serve.http_api", "index.flat", "index.quant", "index.ivf", "index.builder",
                  "eval.oracle", "train.contrastive", "train.lora", "train.checkpoint", "train.data",
-                 "eval.harness", "cli"):
+                 "eval.harness", "cli", "encoder.gemma", "encoder.bert", "encoder.families",
+                 "encoder.loader"):
         assert f"theoremsearch_tpu_torch.{want}" in MODULES
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
         "mips_g.cu", "mips_topk.cu", "attention.cu", "attention_bwd.cu", "layer_int8.cu",
@@ -67,7 +68,7 @@ def test_module_list_covers_the_slice():
 # their packages' __init__s import jax
 VERBATIM = ["core/config.py", "utils/shapes.py", "utils/gc_tuning.py", "search/metadata.py",
             "search/filters.py", "encoder/tokenizer.py", "serve/latex_display.py",
-            "eval/metrics.py", "train/data.py", "eval/harness.py"]
+            "eval/metrics.py", "train/data.py", "eval/harness.py", "encoder/families.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

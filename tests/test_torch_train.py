@@ -119,6 +119,54 @@ def test_twenty_step_loss_trajectory_matches_jax(fused):
     np.testing.assert_allclose(tl, jl, rtol=0, atol=5e-3)
 
 
+GEMMA = dict(vocab_size=1024, hidden_size=256, intermediate_size=384, num_layers=2, num_heads=2,
+             num_kv_heads=1, head_dim=256, global_every=2, max_seq_len=64, head_hidden=256,
+             embedding_dim=256, query_pre_attn_scalar=256.0)
+
+
+@pytest.mark.parametrize("family,fused", [("gemma", "on"), ("gemma", "off"), ("bert", "off")])
+def test_other_towers_loss_trajectory_matches_jax(family, fused):
+    """10 full steps of the gemma tower (head_dim 256: "on" runs the fused
+    core, B2's plain version forward and autograd through the reference
+    composition backward; the reference's Pallas forward in interpret mode
+    and jax.vjp of its composition) and of the tiny BERT tower, from the
+    same weights on one batch of the template task: every loss within
+    5e-3 of JAX's. BERT runs in f32: its f32 biases get their gradients
+    through bf16 casts and bf16 sums over every token, some of them
+    (bk, whose true gradient is 0) pure rounding noise, which AdamW
+    scales to full lr-sized steps; in bf16 the two trajectories part by
+    ~1e-2 within six steps."""
+    from theoremsearch_tpu.core.config import BertEncoderConfig as JBertConfig
+    from theoremsearch_tpu.core.config import GemmaEncoderConfig as JGemmaConfig
+    from theoremsearch_tpu.encoder.families import family_module as j_family
+    from theoremsearch_tpu_torch.core.config import BertEncoderConfig, GemmaEncoderConfig
+
+    if family == "gemma":
+        jcfg, cfg = JGemmaConfig(**GEMMA), GemmaEncoderConfig(**GEMMA)
+    else:
+        f32 = dict(dtype="float32", param_dtype="float32")
+        jcfg = JBertConfig(**{**JBertConfig.tiny().__dict__, **f32})
+        cfg = BertEncoderConfig(**{**BertEncoderConfig.tiny().__dict__, **f32})
+    steps = 10
+    q_ids, p_ids, mask = _template_task(1, vocab=cfg.vocab_size)
+    jtcfg = JTrainConfig(batch_size=B, seq_len=S, learning_rate=1e-3, temperature=1.0)
+    tcfg = TrainConfig(batch_size=B, seq_len=S, learning_rate=1e-3, temperature=1.0)
+    jp = j_family(jcfg).init_params(jcfg, jax.random.PRNGKey(6))
+    state = PC.train_state_from_jax(jax.device_get(
+        JC.TrainState(jp, JC.make_optimizer(jtcfg).init(jp), jnp.zeros((), jnp.int32))), device="cpu")
+    jstate = JC.TrainState(jp, JC.make_optimizer(jtcfg).init(jp), jnp.zeros((), jnp.int32))
+    jstep = JC.make_train_step(jcfg, jtcfg, fused=JFUSED[fused])
+    step = make_train_step(cfg, tcfg, fused=fused)
+    jl, tl = [], []
+    for _ in range(steps):
+        jstate, loss = jstep(jstate, q_ids[0], mask, p_ids[0], mask)
+        jl.append(float(loss))
+        state, loss = step(state, q_ids[0], mask, p_ids[0], mask)
+        tl.append(float(loss))
+    assert jl[-1] < jl[0] and state.step == steps
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=5e-3)
+
+
 def test_lora_step_matches_jax_and_keeps_base():
     steps = 4
     q_ids, p_ids, mask = _template_task(steps, seed=1)

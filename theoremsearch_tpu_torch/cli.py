@@ -2,12 +2,13 @@
 
     python -m theoremsearch_tpu_torch train --steps 100 --checkpoint-dir ckpt --eval
     python -m theoremsearch_tpu_torch train --device cpu --steps 4   # a CPU run
+    python -m theoremsearch_tpu_torch train --embedder gemma --steps 4
 
 Only the `train` subcommand is ported; the others come with ROADMAP A.1.
 Its flags are the reference's, plus `--device` (default: the card). The
-encoder is the hermetic one: `EncoderConfig.tiny()` with seeded random
-weights. `--catalog`, `--model-dir` and `--embedder gemma|bert` exit
-non-zero, naming the ROADMAP item they wait for.
+encoder is the hermetic one of `--embedder` (qwen, gemma or bert): the
+family's `tiny()` config with seeded random weights. `--catalog` and
+`--model-dir` exit non-zero, naming the ROADMAP item they wait for.
 """
 
 from __future__ import annotations
@@ -27,24 +28,25 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--model-dir checkpoints are not ported yet (ROADMAP A.1)")
     if getattr(args, "catalog", None):
         raise SystemExit("--catalog pairs are not ported yet (ROADMAP A.1)")
-    if getattr(args, "embedder", "qwen") != "qwen":
-        raise SystemExit(f"the {args.embedder} tower is not ported yet (ROADMAP A.8)")
 
 
 def _batched_encoder(args):
-    """The hermetic qwen-form encoder (EncoderConfig.tiny(), weights from
-    a generator seeded 0) on --device."""
+    """The hermetic encoder of --embedder (its family's tiny() config,
+    weights from a generator seeded 0) on --device."""
     import torch
 
-    from .core.config import EncoderConfig
+    from .core.config import BertEncoderConfig, EncoderConfig, GemmaEncoderConfig
     from .encoder.batching import BatchedEncoder
-    from .encoder.model import init_params
+    from .encoder.families import family_module
     from .encoder.tokenizer import get_tokenizer
     from .utils.device import resolve_device
 
     device = resolve_device(getattr(args, "device", None))
-    cfg = EncoderConfig.tiny()
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    cls = {"gemma": GemmaEncoderConfig, "bert": BertEncoderConfig}.get(
+        getattr(args, "embedder", "qwen"), EncoderConfig)
+    cfg = cls.tiny()
+    params = family_module(cfg).init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                            device=device)
     tok = get_tokenizer(None, cfg.vocab_size)
     return BatchedEncoder(params, cfg, tokenizer=tok, prompts={}, device=device)
 
@@ -200,7 +202,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--max-negatives", type=int, default=32)
     s.add_argument("--model-dir", help="not ported yet (ROADMAP A.1)")
     s.add_argument("--embedder", default="qwen", choices=["qwen", "gemma", "bert"],
-                   help="gemma and bert are not ported yet (ROADMAP A.8)")
+                   help="hermetic model family (its tiny() config, seeded random weights)")
     s.add_argument("--steps", type=int, default=100)
     s.add_argument("--batch-size", type=int, default=32)
     s.add_argument("--seq-len", type=int, default=64)

@@ -1,20 +1,22 @@
-// Whole-layer int8 (w8a8) encoder blocks of the Qwen3-class tower: the
-// MLP sub-block (B4) and the two int8 halves of the attention sub-block
-// (B3) around the fused attention core of attention.cu (B2).
+// Whole-layer int8 (w8a8) encoder blocks: the MLP sub-block (B4) and the
+// two int8 halves of the attention sub-block (B3) around the fused
+// attention core of attention.cu (B2).
 //
 // Replaces the TPU kernels theoremsearch_tpu/kernels/layer_int8.py:
 // _mlp_kernel (driven by fused_mlp_int8_layer) and _attn_layer_kernel
-// (driven by fused_attn_int8_layer), qwen form: pre-norm only, SwiGLU,
-// causal attention.
+// (driven by fused_attn_int8_layer and fused_attn_int8_layer_gemma), in
+// both of their forms: the qwen form (pre-norm only, SwiGLU, causal
+// attention) and the gemma form (sandwich post-norms with (1 + w) weights,
+// GeGLU with the tanh GELU, bidirectional attention at head_dim 256).
 //
 //   ts_mlp_int8_layer   x -> RMSNorm + per-token quant -> gate/up int8
-//                       products, dequant, SiLU(g) * u -> bf16 h -> per-row
-//                       requant -> down int8 product, dequant -> bf16
-//                       residual add
+//                       products, dequant, act(g) * u -> bf16 h -> per-row
+//                       requant -> down int8 product, dequant -> [post-norm]
+//                       -> bf16 residual add
 //   ts_attn_int8_qkv    x -> RMSNorm + per-token quant -> q/k/v int8
 //                       products dequantized to bf16
 //   ts_attn_int8_out    attention output (bf16) -> per-row requant -> o int8
-//                       product, dequant -> bf16 residual add
+//                       product, dequant -> [post-norm] -> bf16 residual add
 //
 // Numerics are the plain version's (kernels/layer_int8.py), operation by
 // operation:
@@ -28,9 +30,14 @@
 //     (__int2float_rn(acc) * row scale) * column scale in f32 (|acc| can
 //     pass 2^24 at K = 3072, so the conversion rounds, as float() of the
 //     plain version's exact f64 sum does);
-//   - SiLU as torch computes it on the card, g / (1 + expf(-g)); h and the
-//     block outputs rounded to bf16; the residual add bf16 + bf16 in f32,
-//     rounded to bf16.
+//   - SiLU as torch computes it on the card, g / (1 + expf(-g)); the tanh
+//     GELU in the plain version's operation order (`gelu_tanh`, the
+//     reference's jax.nn.gelu order): x * (0.5 * (1 + tanhf(c * (x +
+//     0.044715 * ((x * x) * x))))), c = f32(sqrt(2 / pi)); h and the block
+//     outputs rounded to bf16; the residual add bf16 + bf16 in f32, rounded
+//     to bf16;
+//   - the gemma post-norm on the bf16 block output y: the sum of squares
+//     in f64 as above, r = rsqrtf(ss * (1/D) + eps), bf16((y * r) * pw).
 // Built with -fmad=false, so no multiply-add is contracted.
 //
 // What bounds it on an H100: at the serving shapes (T = B * S = 32,768
@@ -54,8 +61,13 @@
 // The per-token requant needs a whole row's absmax first (I = 3072 of h,
 // 2048 of the attention output), so the norm + quant and the requant are
 // passes of their own (one warp a row) and the intermediates h, their
-// codes and the q/k/v projections go through device memory. Fusing them
-// away, and wgmma/TMA for the products, are later work.
+// codes and the q/k/v projections go through device memory. The gemma
+// post-norm needs a whole row of the product too (it normalizes over D),
+// so it cannot be a tile epilogue either: with a post-norm the down/o
+// product writes its bf16 output and a one-warp-a-row pass applies the
+// norm and the residual add (the gemma shapes, D = 768 and I = 1152 at
+// T = 32,768 tokens, are 1.7e11 int8 operations for the MLP). Fusing
+// these passes away, and wgmma/TMA for the products, are later work.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -74,7 +86,13 @@ constexpr int ROWS_PER_BLOCK = THREADS / 32;   // row passes: one warp a row
 constexpr float INV127 = 1.0f / 127.0f;        // what XLA makes of m / 127
 constexpr float MIN_SCALE = 1e-12f;
 
-enum { EPI_BF16 = 0, EPI_GLU = 1, EPI_RESIDUAL = 2 };
+enum { EPI_BF16 = 0, EPI_GLU = 1, EPI_RESIDUAL = 2, EPI_GEGLU = 3 };
+constexpr float SQRT_2_OVER_PI = 0.7978845608028654f;
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float x3 = (x * x) * x;
+  return x * (0.5f * (1.0f + tanhf(SQRT_2_OVER_PI * (x + 0.044715f * x3))));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -167,14 +185,50 @@ __global__ void __launch_bounds__(THREADS) row_quant_kernel(
   if (lane == 0) scale[row] = s;
 }
 
+// The gemma post-norm and residual add: out = bf16(x + bf16((y * r) * pw))
+// with r the RMSNorm of the bf16 block output y. One warp a row; D % 128 == 0.
+__global__ void __launch_bounds__(THREADS) post_norm_residual_kernel(
+    const __nv_bfloat16* __restrict__ y, const float* __restrict__ pw,
+    const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out, int T, int D,
+    float eps) {
+  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= T) return;
+  const __nv_bfloat16* yr = y + (size_t)row * D;
+  const __nv_bfloat16* xr = x + (size_t)row * D;
+  double ss = 0.0;
+  for (int c = 4 * lane; c < D; c += 128) {
+    float v[4];
+    load4(yr + c, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ss += (double)(v[e] * v[e]);
+  }
+  ss = warp_sum(ss);
+  const float r = rsqrtf((float)ss * (1.0f / (float)D) + eps);
+  for (int c = 4 * lane; c < D; c += 128) {
+    float v[4], xv[4];
+    load4(yr + c, v);
+    load4(xr + c, xv);
+    __nv_bfloat162 o[2];
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const float a = __bfloat162float(__float2bfloat16((v[e] * r) * pw[c + e]));
+      const float b = __bfloat162float(__float2bfloat16((v[e + 1] * r) * pw[c + e + 1]));
+      o[e / 2] = __floats2bfloat162_rn(xv[e] + a, xv[e + 1] + b);
+    }
+    *reinterpret_cast<uint2*>(out + (size_t)row * D + c) = *reinterpret_cast<const uint2*>(o);
+  }
+}
+
 // out (T, N) bf16 from a (T, K) int8 x (N, K) int8 product with per-token
 // scales sa and per-column scales s0, through one of three epilogues:
 //   EPI_BF16      out = bf16((acc * sa) * s0)
 //   EPI_GLU       out = bf16(silu(g) * u), g from (w0, s0), u from (w1, s1);
 //                 a block covers 64 output columns (64 gate + 64 up rows)
+//   EPI_GEGLU     out = bf16(gelu_tanh(g) * u), as EPI_GLU
 //   EPI_RESIDUAL  out = bf16(res + bf16((acc * sa) * s0))
 // Grid: (column tiles, token tiles); tokens past T are zero-filled and
-// not stored. N % 128 == 0 (64 for EPI_GLU), K % 64 == 0.
+// not stored. N % 128 == 0 (64 for EPI_GLU and EPI_GEGLU), K % 64 == 0.
 template <int EPI>
 __global__ void __launch_bounds__(THREADS) i8_gemm_kernel(
     const int8_t* __restrict__ a, const float* __restrict__ sa,
@@ -184,11 +238,12 @@ __global__ void __launch_bounds__(THREADS) i8_gemm_kernel(
     int K) {
   __shared__ __align__(16) int8_t As[2][BM * SSTR];
   __shared__ __align__(16) int8_t Bs[2][BN * SSTR];
+  constexpr bool GLU = EPI == EPI_GLU || EPI == EPI_GEGLU;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = warp & 3, wn = warp >> 2;
   const int gq = lane >> 2, tig = lane & 3;
-  constexpr int CT = EPI == EPI_GLU ? BN / 2 : BN;   // output columns per block
+  constexpr int CT = GLU ? BN / 2 : BN;   // output columns per block
   const int c0 = blockIdx.x * CT;
   const int m0 = blockIdx.y * BM;
   const int nk = K / BK;
@@ -204,7 +259,7 @@ __global__ void __launch_bounds__(THREADS) i8_gemm_kernel(
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const int idx = tid + s * THREADS, r = idx >> 2, kb = (idx & 3) * 16;
-      const int8_t* src = EPI == EPI_GLU
+      const int8_t* src = GLU
           ? (r < CT ? w0 + (size_t)(c0 + r) * K : w1 + (size_t)(c0 + r - CT) * K)
           : w0 + (size_t)(c0 + r) * K;
       cp_async16(&Bs[st][r * SSTR + kb], src + k0 + kb, 16);
@@ -215,7 +270,7 @@ __global__ void __launch_bounds__(THREADS) i8_gemm_kernel(
   // weight row (within the block's 128) of this warp's n8 tile nt: gate
   // tiles 0-3 and up tiles 4-7 of the same columns for the GLU
   auto brow = [&](int nt) {
-    return EPI == EPI_GLU ? (nt >> 2) * CT + wn * 32 + (nt & 3) * 8 : wn * 64 + nt * 8;
+    return GLU ? (nt >> 2) * CT + wn * 32 + (nt & 3) * 8 : wn * 64 + nt * 8;
   };
 
   int32_t acc[2][8][4];
@@ -267,15 +322,15 @@ __global__ void __launch_bounds__(THREADS) i8_gemm_kernel(
       if (row >= T) continue;
       const float rs = sa[row];
 #pragma unroll
-      for (int nt = 0; nt < (EPI == EPI_GLU ? 4 : 8); ++nt) {
+      for (int nt = 0; nt < (GLU ? 4 : 8); ++nt) {
         const int col = c0 + brow(nt) + tig * 2;   // brow(nt) < CT for the stored tiles
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float d = ((float)__int2float_rn(acc[mt][nt][2 * h + e]) * rs) * s0[col + e];
-          if (EPI == EPI_GLU) {
+          if (GLU) {
             const float u = ((float)__int2float_rn(acc[mt][nt + 4][2 * h + e]) * rs) * s1[col + e];
-            v[e] = (d / (1.0f + expf(-d))) * u;
+            v[e] = (EPI == EPI_GLU ? d / (1.0f + expf(-d)) : gelu_tanh(d)) * u;
           } else {
             v[e] = d;
           }
@@ -299,7 +354,7 @@ template <int EPI>
 int gemm(const void* a, const void* sa, const void* w0, const void* s0, const void* w1,
          const void* s1, const void* res, void* out, int T, int N, int K,
          cudaStream_t stream) {
-  const int ct = EPI == EPI_GLU ? BN / 2 : BN;
+  const int ct = (EPI == EPI_GLU || EPI == EPI_GEGLU) ? BN / 2 : BN;
   if (N % ct || K % BK || (T + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(N / ct, (T + BM - 1) / BM);
   i8_gemm_kernel<EPI><<<grid, THREADS, 0, stream>>>(
@@ -322,24 +377,47 @@ int row_quant(const void* x, void* q, void* s, int T, int W, cudaStream_t stream
   return (int)cudaGetLastError();
 }
 
+int post_norm_residual(const void* y, const void* pw, const void* x, void* out, int T, int D,
+                       float eps, cudaStream_t stream) {
+  post_norm_residual_kernel<<<row_blocks(T), THREADS, 0, stream>>>(
+      (const __nv_bfloat16*)y, (const float*)pw, (const __nv_bfloat16*)x, (__nv_bfloat16*)out,
+      T, D, eps);
+  return (int)cudaGetLastError();
+}
+
+// the down / o product and the residual add: straight after the product
+// (pw == nullptr), or through bf16 y and the post-norm pass
+int product_residual(const void* a, const void* sa, const void* w, const void* sw,
+                     const void* x, const void* pw, void* y, void* out, int T, int N, int K,
+                     float eps, cudaStream_t st) {
+  if (!pw) return gemm<EPI_RESIDUAL>(a, sa, w, sw, nullptr, nullptr, x, out, T, N, K, st);
+  int err = gemm<EPI_BF16>(a, sa, w, sw, nullptr, nullptr, nullptr, y, T, N, K, st);
+  if (!err) err = post_norm_residual(y, pw, x, out, T, N, eps, st);
+  return err;
+}
+
 bool dims_ok(int T, int a, int b) { return T >= 1 && a % 128 == 0 && b % 128 == 0; }
 
 }  // namespace
 
-// x (T, D) bf16 -> out (T, D) bf16 = x + MLP_int8(RMSNorm(x)). wg, wu (I, D)
-// and wd (D, I) int8, K-contiguous; sg, su (I,), sd (D,) f32 column scales;
-// xq (T, D), sx (T,), h (T, I) bf16, hq (T, I), sh (T,) are scratch.
+// x (T, D) bf16 -> out (T, D) bf16 = x + [post_norm](MLP_int8(RMSNorm(x))).
+// wg, wu (I, D) and wd (D, I) int8, K-contiguous; sg, su (I,), sd (D,) f32
+// column scales; act 0 = SiLU, 1 = tanh GELU; pw (D,) f32 the post-norm
+// weight or null; xq (T, D), sx (T,), h (T, I) bf16, hq (T, I), sh (T,) and
+// y (T, D) bf16 (used with pw only) are scratch.
 extern "C" int ts_mlp_int8_layer(const void* x, const void* nw, const void* wg, const void* wu,
                                  const void* wd, const void* sg, const void* su,
-                                 const void* sd, void* out, void* xq, void* sx, void* h,
-                                 void* hq, void* sh, int T, int D, int I, float eps,
-                                 void* stream) {
-  if (!dims_ok(T, D, I)) return (int)cudaErrorInvalidValue;
+                                 const void* sd, const void* pw, void* out, void* xq, void* sx,
+                                 void* h, void* hq, void* sh, void* y, int T, int D, int I,
+                                 int act, float eps, void* stream) {
+  if (!dims_ok(T, D, I) || act < 0 || act > 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   int err = rmsnorm_quant(x, nw, xq, sx, T, D, eps, st);
-  if (!err) err = gemm<EPI_GLU>(xq, sx, wg, sg, wu, su, nullptr, h, T, I, D, st);
+  if (!err)
+    err = act ? gemm<EPI_GEGLU>(xq, sx, wg, sg, wu, su, nullptr, h, T, I, D, st)
+              : gemm<EPI_GLU>(xq, sx, wg, sg, wu, su, nullptr, h, T, I, D, st);
   if (!err) err = row_quant(h, hq, sh, T, I, st);
-  if (!err) err = gemm<EPI_RESIDUAL>(hq, sh, wd, sd, nullptr, nullptr, x, out, T, D, I, st);
+  if (!err) err = product_residual(hq, sh, wd, sd, x, pw, y, out, T, D, I, eps, st);
   return err;
 }
 
@@ -359,14 +437,16 @@ extern "C" int ts_attn_int8_qkv(const void* x, const void* nw, const void* wq, c
   return err;
 }
 
-// ao (T, HQ) bf16 attention output -> out (T, D) bf16 = x + o_proj(ao),
-// through codes aq (T, HQ) and scales sa (T,). wo (D, HQ) int8, K-contiguous.
+// ao (T, HQ) bf16 attention output -> out (T, D) bf16 = x +
+// [post_norm](o_proj(ao)), through codes aq (T, HQ) and scales sa (T,). wo
+// (D, HQ) int8, K-contiguous; pw (D,) f32 the post-norm weight or null; y
+// (T, D) bf16 scratch (used with pw only).
 extern "C" int ts_attn_int8_out(const void* ao, const void* wo, const void* so, const void* x,
-                                void* out, void* aq, void* sa, int T, int HQ, int D,
-                                void* stream) {
+                                const void* pw, void* out, void* aq, void* sa, void* y, int T,
+                                int HQ, int D, float eps, void* stream) {
   if (!dims_ok(T, D, HQ)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   int err = row_quant(ao, aq, sa, T, HQ, st);
-  if (!err) err = gemm<EPI_RESIDUAL>(aq, sa, wo, so, nullptr, nullptr, x, out, T, D, HQ, st);
+  if (!err) err = product_residual(aq, sa, wo, so, x, pw, y, out, T, D, HQ, eps, st);
   return err;
 }

@@ -1,5 +1,7 @@
 """Batched, padding-bucketed encoder inference on one device (port of
-theoremsearch_tpu/encoder/batching.py).
+theoremsearch_tpu/encoder/batching.py), for the three towers: the config's
+type picks the model module (`families.family_module`: qwen, gemma or
+BERT).
 
 Texts are bucketed by token length into a few padded widths and batches
 pad to power-of-two sizes, so the forward sees a bounded set of shapes;
@@ -18,10 +20,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..core.config import EncoderConfig
+from ..utils.device import upload
 from ..utils.shapes import pow2_bucket
 from ..kernels.layer_int8 import kernel_layout
-from .model import Params, encode_pooled, quantize_params_int8
+from .families import family_module
+from .model import Params
 from .tokenizer import SimpleTokenizer
 
 DEFAULT_BUCKETS = (64, 128, 256, 512)
@@ -31,7 +34,7 @@ class BatchedEncoder:
     def __init__(
         self,
         params: Params,
-        cfg: EncoderConfig,
+        cfg,
         tokenizer=None,
         mesh=None,
         batch_size: int = 64,
@@ -44,18 +47,20 @@ class BatchedEncoder:
             raise ValueError(f"unknown quant mode {quant!r}")
         if mesh is not None:
             raise NotImplementedError("multi-device encoding is not ported yet")
-        if not isinstance(cfg, EncoderConfig):
-            raise NotImplementedError(f"the {type(cfg).__name__} tower is not ported yet")
         self.params = params
         self.cfg = cfg
+        self._mod = family_module(cfg)
         self.device = torch.device(device) if device is not None else params["embed"].device
-        # int8 (w8a8) serving mode: weights quantized once here; each
-        # (batch, width) bucket whose shapes qualify runs the whole-layer
-        # kernels B3 and B4 (`model._fused_layer_ok`), the rest the int8
-        # op-chain
+        # int8 (w8a8) serving mode, qwen and gemma towers: weights quantized
+        # once here; each (batch, width) bucket whose shapes qualify runs
+        # the whole-layer kernels B3 and B4 (the tower's `_fused_layer_ok`),
+        # the rest the int8 op-chain. The BERT tower (biased projections)
+        # has no int8 form.
         self.qlayers = None
         if quant == "int8":
-            self.qlayers = quantize_params_int8(params)
+            if not hasattr(self._mod, "quantize_params_int8"):
+                raise ValueError(f"quant='int8' is not supported for the {type(cfg).__name__} family")
+            self.qlayers = self._mod.quantize_params_int8(params)
             if self.device.type == "cuda":
                 self.qlayers = kernel_layout(self.qlayers)
         self.tokenizer = tokenizer or SimpleTokenizer(vocab_size=cfg.vocab_size)
@@ -81,13 +86,9 @@ class BatchedEncoder:
 
     @torch.inference_mode()
     def _forward(self, ids_mask: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(ids_mask)
-        if self.device.type == "cuda":
-            # a pageable upload waits for all queued device work; a pinned
-            # one is enqueued behind it and the host goes on
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return encode_pooled(self.params, t[0], t[1], self.cfg, qlayers=self.qlayers,
-                             fused_layers=self.qlayers is not None)
+        t = upload(ids_mask, self.device)
+        kw = {} if self.qlayers is None else {"qlayers": self.qlayers, "fused_layers": True}
+        return self._mod.encode_pooled(self.params, t[0], t[1], self.cfg, **kw)
 
     def _prep_batch(self, texts, tokenized, idx):
         """Pad one sub-batch to its (batch-bucket, width-bucket) shape:
@@ -135,7 +136,7 @@ class BatchedEncoder:
             return pieces[0][1].float()
         out = torch.zeros((n_pad, self.cfg.embedding_dim), device=self.device)
         for idx, emb in pieces:
-            out[torch.as_tensor(idx, device=self.device)] = emb.float()
+            out[upload(np.asarray(idx, np.int64), self.device)] = emb.float()
         return out
 
     def encode(self, texts: Sequence[str], role: str | None = None) -> np.ndarray:

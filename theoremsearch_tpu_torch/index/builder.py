@@ -118,7 +118,10 @@ class IndexBuilder:
         Returns (IVFIndex, calibration): calibration is (nprobe,
         min_recall) when calibrate_gate is set, else None. The picked
         nprobe goes into the index config, marked calibrated only if it
-        cleared the gate."""
+        cleared the gate. Calibration searches in batches of 16, the
+        largest batch the engine sends the IVF route
+        (`SearchEngine(ivf_max_batch=16)`): recall is measured at the
+        batch that is served, not at the reference's 64."""
         from .ivf import IVFIndex, calibrate_nprobe
 
         ids, emb = self._load_deduped()
@@ -126,7 +129,8 @@ class IndexBuilder:
                                normalize=normalize, checkpoint_dir=self.dir, device=device)
         calib = None
         if calibrate_gate is not None:
-            calib = calibrate_nprobe(index, emb, gate=calibrate_gate, ids=ids, normalize=normalize)
+            calib = calibrate_nprobe(index, emb, gate=calibrate_gate, ids=ids, normalize=normalize,
+                                     query_batch=16)
             # calibrate_nprobe returns its best candidate even when none
             # clears the gate; the engine trusts a calibrated nprobe
             # verbatim, so a below-gate pick must not be stamped as one

@@ -642,10 +642,17 @@ def calibrate_nprobe(
     seed: int = 0,
     ids: np.ndarray | None = None,
     normalize: bool = True,
+    query_batch: int = 64,
 ) -> tuple[int, float]:
     """Smallest nprobe whose MIN recall@k over `n_draws` query draws
     clears `gate` against the exact fp32 oracle (`eval/oracle.py:
     exact_topk`, TF32 off) on the index's device.
+
+    The draws are searched in batches of `query_batch` queries. The
+    probe-major search's recall depends on its batch (each query sees the
+    lists any query of its batch probed), so calibrate at the batch the
+    caller serves: `IndexBuilder.finalize_ivf` passes the engine's IVF
+    batch (16). The default, 64, is the reference's chunk.
 
     Queries are corpus rows plus gaussian noise of relative scale
     `perturb`, re-normalized (numpy, from `seed`: the reference's draws).
@@ -685,7 +692,7 @@ def calibrate_nprobe(
     for nprobe in cand_list:
         recs = []
         for q, ref in draws:
-            _, got = index.search(q, k=k, nprobe=nprobe)
+            _, got = index.search(q, k=k, nprobe=nprobe, query_chunk=query_batch)
             recs.append(recall_vs_exact(np.asarray(got), ref, k=k))
         rec_min = min(recs)
         if rec_min > best[1]:

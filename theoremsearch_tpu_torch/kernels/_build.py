@@ -63,11 +63,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ts_qknorm_rope_attention.restype = i
     lib.ts_qknorm_rope_attention_bwd.argtypes = [*[p] * 15, i, i, i, i, i, f, f, i, p]
     lib.ts_qknorm_rope_attention_bwd.restype = i
-    lib.ts_mlp_int8_layer.argtypes = [*[p] * 14, i, i, i, f, p]
+    lib.ts_mlp_int8_layer.argtypes = [*[p] * 16, i, i, i, i, f, p]
     lib.ts_mlp_int8_layer.restype = i
     lib.ts_attn_int8_qkv.argtypes = [*[p] * 13, i, i, i, i, f, p]
     lib.ts_attn_int8_qkv.restype = i
-    lib.ts_attn_int8_out.argtypes = [*[p] * 7, i, i, i, p]
+    lib.ts_attn_int8_out.argtypes = [*[p] * 9, i, i, i, f, p]
     lib.ts_attn_int8_out.restype = i
     lib.ts_ivf_scores.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.ts_ivf_scores.restype = i
@@ -91,10 +91,13 @@ def _compile(srcs: list[Path], so: Path) -> None:
         out, _ = pr.communicate(timeout=900)
         logs.append(f"== {s.name}\n{out}")
         if pr.returncode != 0:
-            failed.append(s.name)
+            failed.append(logs[-1])
     ptxas_log = "".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{ptxas_log[-6000:]}")
+        # the failing sources' own output, their errors first
+        errs = "".join(ln for log in failed for ln in log.splitlines(keepends=True)
+                       if "error" in ln)
+        raise RuntimeError(f"nvcc failed:\n{errs[:4000]}\n{''.join(failed)[-4000:]}")
     tmp = so.with_suffix(f".{tag}")
     res = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
                          capture_output=True, text=True, timeout=300)

@@ -23,7 +23,8 @@ import torch
 from ..utils.device import tf32_off
 from ._build import LaunchCounter, check, load
 
-attention_launches = LaunchCounter()
+attention_launches = LaunchCounter()          # the qwen form, head_dim 128
+attention_gemma_launches = LaunchCounter()    # the gemma form, head_dim 256
 attention_bwd_launches = LaunchCounter()
 
 
@@ -81,8 +82,9 @@ def fused_qknorm_rope_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Fused attention block output (B, S, H*Dh) bf16 (before wo).
-    The kernel takes head_dim 128 and S <= 128, the shapes the encoder
-    dispatches to it (`encoder/model.py:_fused_ok`)."""
+    The kernel takes S <= 128 and head_dim 128 (the qwen form,
+    `encoder/model.py:_fused_ok`) or 256 (the gemma form, bidirectional,
+    `encoder/gemma.py:_fused_ok`); each form counts its own launches."""
     scale = float(scale) if scale is not None else 1.0 / np.sqrt(head_dim)
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               eps=eps, causal=causal, scale=scale)
@@ -92,8 +94,8 @@ def fused_qknorm_rope_attention(
     if q.device.type != "cuda":
         raise ValueError(f"fused_qknorm_rope_attention: unsupported device {q.device}")
     b, s, _ = q.shape
-    if head_dim != 128 or not 1 <= s <= 128 or num_heads % num_kv_heads or b > 65535:
-        raise ValueError(f"attention kernel takes head_dim 128, S <= 128; got {head_dim}, {s}")
+    if head_dim not in (128, 256) or not 1 <= s <= 128 or num_heads % num_kv_heads or b > 65535:
+        raise ValueError(f"attention kernel takes head_dim 128 or 256, S <= 128; got {head_dim}, {s}")
     for name, t, width in (("q", q, num_heads), ("k", k, num_kv_heads), ("v", v, num_kv_heads)):
         if t.dtype != torch.bfloat16 or t.shape != (b, s, width * head_dim):
             raise ValueError(f"{name}: want bf16 {(b, s, width * head_dim)}, got {t.dtype} {tuple(t.shape)}")
@@ -118,7 +120,7 @@ def fused_qknorm_rope_attention(
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     check(lib, err, "fused_qknorm_rope_attention")
-    attention_launches.bump()
+    (attention_gemma_launches if head_dim == 256 else attention_launches).bump()
     return out
 
 

@@ -42,7 +42,7 @@ from ..core.config import SearchConfig
 from ..index.flat import PAD_ID, FlatIndex
 from ..kernels._build import load as _load_kernels
 from ..kernels.mips import NEG_INF, device_rescore, fused_mips_topk, fused_mips_topk_g
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, upload
 from ..utils.shapes import pow2_bucket, round_up as _round_up
 from .filters import SearchFilters, compile_filter_mask, filter_key, infer_type
 from .metadata import CorpusMetadata
@@ -82,7 +82,10 @@ class SearchEngine:
     ivf_index: optional IVFIndex on the same device, the low-latency
         route for small unfiltered batches (at most `ivf_max_batch` real
         queries). ivf_nprobe: an explicit value wins; else a calibrated
-        index's nprobe is trusted verbatim; else 16.
+        index's nprobe is trusted verbatim; else the IVF route stays off
+        and every batch takes the flat scan (the reference probes 16
+        lists here, which holds the 0.99 gate only on well-separated
+        clusters).
     """
 
     # distinct filter signatures one grouped scan carries; beyond it the
@@ -185,10 +188,10 @@ class SearchEngine:
         self.route_counts: dict[str, int] = {}
 
         # the IVF route for small unfiltered batches. nprobe: an explicit
-        # value wins; a calibrated one (it cleared the recall gate) is
-        # trusted verbatim; else 16, which holds the 0.99 gate only on
-        # well-separated clusters
-        self.ivf = ivf_index
+        # value wins; a calibrated one (it cleared the recall gate at the
+        # serving batch) is trusted verbatim; an uncalibrated index with
+        # no explicit nprobe leaves the route off (ivf_nprobe None): no
+        # nprobe is known to hold the gate on it
         if ivf_index is not None and ivf_index.device != self.device:
             raise ValueError(f"ivf_index lives on {ivf_index.device}, the engine on {self.device}")
         if ivf_nprobe:
@@ -196,13 +199,14 @@ class SearchEngine:
         elif ivf_index is not None and ivf_index.config.ivf_nprobe_calibrated:
             self.ivf_nprobe = int(ivf_index.config.ivf_nprobe)
         else:
-            self.ivf_nprobe = 16
+            self.ivf_nprobe = None
+        self.ivf = ivf_index if self.ivf_nprobe is not None else None
         # IVF wins only at small batches: its selection scales with the
         # probed width, and batch-deduped probing approaches every list
         # as B grows; bigger batches take the flat scan
         self.ivf_max_batch = ivf_max_batch
         self._ivf_fns: dict = {}
-        if ivf_index is not None:
+        if self.ivf is not None:
             # uploads the index once, like the flat index, and refuses one
             # the probe-major route cannot search
             self._ivf_fn(self.config.top_k)
@@ -388,9 +392,7 @@ class SearchEngine:
         if isinstance(query_vecs, torch.Tensor):
             q = query_vecs.to(self.device, torch.float32)
         else:
-            q = torch.from_numpy(np.asarray(query_vecs, dtype=np.float32))
-            if self.device.type == "cuda":   # enqueue the upload, do not wait
-                q = q.pin_memory().to(self.device, non_blocking=True)
+            q = upload(np.asarray(query_vecs, dtype=np.float32), self.device)
         if q.ndim == 1:
             q = q[None, :]
         b = q.shape[0]
@@ -531,8 +533,7 @@ class SearchEngine:
             for lo in range(0, len(ordered), budget):
                 sigs = set(ordered[lo : lo + budget])
                 rows = np.array([r for r, fk in enumerate(keys) if fk in sigs], np.int64)
-                sub_q = (qv[rows] if isinstance(qv, np.ndarray)
-                         else qv[torch.as_tensor(rows, device=qv.device)])
+                sub_q = qv[rows] if isinstance(qv, np.ndarray) else qv[upload(rows, qv.device)]
                 sub_f = [filters_list[r] for r in rows]
                 fin = (self.search_vectors_async(sub_q, k, sub_f[0]) if budget == 1
                        else self._dispatch_grouped(sub_q, k, sub_f))
@@ -555,7 +556,7 @@ class SearchEngine:
         q, b = self._pad_queries(qv)
         mid = np.zeros(q.shape[0], np.int32)
         mid[:n_rows] = [gid[fk] for fk in keys]
-        mid_dev = torch.from_numpy(mid).to(self.device)
+        mid_dev = upload(mid, self.device)
         self._count_route("grouped")
         s, i = self._speed_search(q, k, k, gmasks=gm_dev, mask_ids=mid_dev)
         (s_h, i_h), done = self._to_host(s, i)

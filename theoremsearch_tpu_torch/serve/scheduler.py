@@ -30,6 +30,7 @@ import torch
 
 from ..search.engine import SearchEngine
 from ..search.filters import SearchFilters, filter_key as _filter_key
+from ..utils.device import upload
 from ..utils.shapes import pow2_bucket
 
 # hold-bucket key of the grouped window: every filtered request, whatever
@@ -452,7 +453,7 @@ class BatchScheduler:
             return g if vecs is None else np.concatenate([g, vecs])
         idx = np.zeros(pow2_bucket(len(rows)), np.int64)
         idx[: len(rows)] = rows
-        g = enc[torch.as_tensor(idx, device=enc.device)]   # junk beyond len(rows)
+        g = enc[upload(idx, enc.device)]   # junk beyond len(rows)
         if vecs is None:
             return g
         return BatchScheduler._assemble_mixed(g, len(rows), vecs)
@@ -467,7 +468,7 @@ class BatchScheduler:
         total = n_text + vecs.shape[0]
         out = torch.zeros((pow2_bucket(total), enc.shape[1]), dtype=enc.dtype, device=enc.device)
         out[:n_text] = enc[:n_text]
-        out[n_text:total] = torch.as_tensor(vecs, dtype=enc.dtype).to(enc.device)
+        out[n_text:total] = upload(torch.as_tensor(vecs, dtype=enc.dtype), enc.device)
         return out
 
     # ------------- resolver -------------

@@ -4,9 +4,13 @@ theoremsearch_tpu/train/contrastive.py.
 - in-batch-negatives InfoNCE: queries x positives similarity matrix,
   symmetric cross-entropy at temperature tau, optional explicit hard
   negatives;
-- the encoder forward and backward through autograd; with fused="on" the
-  attention core is kernel B2 forward and kernel B7 backward on the card
-  (`kernels/attention.py:QKNormRopeAttention`);
+- the encoder forward and backward through autograd, for any of the three
+  towers (`encoder/families.py` picks the model module from the config's
+  type); with fused="on" the qwen attention core is kernel B2 forward and
+  kernel B7 backward on the card (`kernels/attention.py:QKNormRopeAttention`),
+  the gemma core kernel B2's gemma form forward and autograd through the
+  reference composition backward (`encoder/gemma.py:GemmaAttentionCore`);
+  BERT has no kernel;
 - optax's `chain(clip_by_global_norm(1.0), adamw(lr, weight_decay=wd))`,
   written out in optax's order and dtypes (`AdamW`): bf16 parameters keep
   bf16 moments, and every constant is rounded to the leaf's dtype as JAX
@@ -29,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import EncoderConfig, TrainConfig
-from ..encoder.model import Params, encode_pooled, init_params, params_from_jax
+from ..encoder.families import family_module
+from ..encoder.model import Params, params_from_jax
 from ..utils.device import resolve_device, tf32_off
 
 _MULTI_GPU = "multi-GPU training (dp + tp over a mesh) is not ported yet: ROADMAP A.10"
@@ -181,16 +186,13 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
 
 def init_train_state(enc_cfg: EncoderConfig, train_cfg: TrainConfig,
                      generator: torch.Generator | None = None, device=None) -> TrainState:
-    """Random params (`init_params`, seeded by train_cfg.seed unless a
-    generator is given) and zero moments on `device` (default: the card;
-    pass "cpu" for a CPU run)."""
-    if not isinstance(enc_cfg, EncoderConfig):
-        raise NotImplementedError(f"training the {type(enc_cfg).__name__} tower is not ported "
-                                  "yet: ROADMAP A.8")
+    """Random params (the tower's `init_params`, seeded by train_cfg.seed
+    unless a generator is given) and zero moments on `device` (default:
+    the card; pass "cpu" for a CPU run)."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
-    params = init_params(enc_cfg, generator, device=device)
+    params = family_module(enc_cfg).init_params(enc_cfg, generator, device=device)
     return TrainState(params, make_optimizer(train_cfg).init(params), 0)
 
 
@@ -228,6 +230,7 @@ def info_nce_loss(
     negatives (n_ids/n_mask, (M, S)) are appended as extra columns of the
     query -> positive direction, shared by every query. The f32 logits
     product runs with TF32 off."""
+    encode_pooled = family_module(enc_cfg).encode_pooled
     q = encode_pooled(params, q_ids, q_mask, enc_cfg, fused=fused)   # (B, D) f32, normalized
     p = encode_pooled(params, p_ids, p_mask, enc_cfg, fused=fused)
     labels = torch.arange(q.shape[0], device=q.device)
@@ -247,14 +250,11 @@ def _on(x, device) -> torch.Tensor | None:
     return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).to(device)
 
 
-def _check_step_args(enc_cfg, mesh, fused) -> None:
+def _check_step_args(mesh, fused) -> None:
     if mesh is not None:
         raise NotImplementedError(_MULTI_GPU)
     if fused not in ("on", "plain", "off"):
         raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
-    if not isinstance(enc_cfg, EncoderConfig):
-        raise NotImplementedError(f"training the {type(enc_cfg).__name__} tower is not ported "
-                                  "yet: ROADMAP A.8")
 
 
 def _grad_step(opt: AdamW, state: TrainState, loss_fn) -> tuple[TrainState, torch.Tensor]:
@@ -284,13 +284,15 @@ def make_train_step(
     a 0-d tensor on the params' device with no host sync (`float(loss)`
     syncs). Token arrays may be numpy or tensors on any device.
 
-    fused: "on" = the attention core through kernel B2 forward and kernel
-    B7 backward on the card (their plain versions for CPU tensors);
+    fused: "on" = the attention core through the kernels on the card (qwen:
+    B2 forward, B7 backward; gemma: B2's gemma form forward, autograd
+    through the reference composition backward), their plain versions for
+    CPU tensors;
     "plain" = the plain versions on any device; "off" = the reference's
     composition, through autograd. The port's default is "on"; the
     reference's is "off", chosen for its TPU. A mesh raises: multi-GPU
     training is ROADMAP A.10."""
-    _check_step_args(enc_cfg, mesh, fused)
+    _check_step_args(mesh, fused)
     opt = make_optimizer(train_cfg)
 
     def step(state: TrainState, q_ids, q_mask, p_ids, p_mask, n_ids=None, n_mask=None):
@@ -315,7 +317,7 @@ def make_lora_train_step(
     adapters and their moments are updated in place."""
     from .lora import lora_merge
 
-    _check_step_args(enc_cfg, mesh, fused)
+    _check_step_args(mesh, fused)
     opt = make_optimizer(train_cfg)
     alpha = train_cfg.lora_alpha
 

@@ -12,6 +12,7 @@ import contextlib
 import subprocess
 import threading
 
+import numpy as np
 import torch
 
 
@@ -33,6 +34,17 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def upload(a, device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on `device`. On the card the
+    copy goes through pinned memory with non_blocking=True: a pageable
+    host -> device copy waits for all device work already queued, a
+    pinned one is enqueued behind it and the host goes on."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def gpu_name_power() -> str:
