@@ -78,7 +78,11 @@ exits non-zero (there is no CPU path):
              on 1M int8 per-row and bf16; B2, B3 and B4 at (512, 64); B6
              at the ivf phase's B=8 search and the b6 shapes, as device
              time: its launches queued behind a sleep kernel, between
-             CUDA events), the bf16 and int8 encoder
+             CUDA events), B2 in both forms at (64, 64) too, B3 and B4's
+             int8 products alone (i8_gemm_kernel's device time in a
+             profile) beside torch._int_mm on the same shapes (the
+             kernels line's library_ms; the port never calls it), the bf16
+             and int8 encoder
              forwards, and torch.profiler tables of one bf16 and one int8
              encoder forward, one scan + rescore batch, one filtered
              grouped batch and one B=8 IVF search.
@@ -1331,6 +1335,33 @@ def main(argv=None) -> int:
           lambda: fused_mlp_int8_layer_plain(x512, layer["mlp_norm"], lq["w_gate"], lq["w_up"],
                                              lq["w_down"]),
           2 * T * DM * 2 + 3 * DM * I + 4 * (2 * I + 2 * DM), {"int8": 6 * T * DM * I})
+
+    def int8_products(fn, t_, products, key):
+        """The int8 products of one B3 / B4 call: the port's own product
+        kernel (i8_gemm_kernel's device time in a profile of one call)
+        beside torch._int_mm (cuBLAS's int8 path, never called by the
+        port) on the same (T, K) x (K, N) shapes, summed; the latter is the
+        kernel line's library_ms for the products alone."""
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof_:
+            fn()
+            torch.cuda.synchronize()
+        own = sum(e.self_device_time_total for e in prof_.key_averages()
+                  if "i8_gemm_kernel" in e.key) / 1e3
+        lib = 0.0
+        for k_, n_ in products:
+            a_ = torch.randint(-127, 128, (t_, k_), generator=g, device=dev, dtype=torch.int8)
+            w_ = torch.randint(-127, 128, (n_, k_), generator=g, device=dev, dtype=torch.int8)
+            lib += cuda_ms(lambda: torch._int_mm(a_, w_.t()), 10)
+        times[key]["library_ms"] = lib
+        int8_product_ms[key] = {"kernel_products_ms": own, "int_mm_ms": lib,
+                                "products": [[t_, k_, n_] for k_, n_ in products]}
+
+    int8_product_ms = {}
+    int8_products(lambda: fused_attn_int8_layer(x512, layer, lq, mask512, rope512, lcfg), T,
+                  [(DM, HQ), (DM, HKD), (DM, HKD), (HQ, DM)], "fused_attn_int8_layer")
+    int8_products(lambda: fused_mlp_int8_layer(x512, layer["mlp_norm"], lq["w_gate"], lq["w_up"],
+                                               lq["w_down"]), T,
+                  [(DM, I), (DM, I), (I, DM)], "fused_mlp_int8_layer")
     # the gemma forms at (512, 64) on the slogans' masks: B2 bidirectional
     # (every pair of live tokens), B3 and B4 on the phase-4h layer
     GS = int(gt.shape[2])
@@ -1364,6 +1395,25 @@ def main(argv=None) -> int:
           lambda: fused_mlp_int8_layer(*gmlp, act="gelu_tanh"),
           lambda: fused_mlp_int8_layer_plain(*gmlp, act="gelu_tanh"),
           2 * GT * GD * 2 + 3 * GD * GI + 4 * (2 * GI + 3 * GD), {"int8": 6 * GT * GD * GI})
+    int8_products(lambda: fused_attn_int8_layer_gemma(gx512, glayer, glq, mask512, grope512, glcfg),
+                  GT, [(GD, GHQ), (GD, GHKD), (GD, GHKD), (GHQ, GD)], "fused_attn_int8_layer_gemma")
+    int8_products(lambda: fused_mlp_int8_layer(*gmlp, act="gelu_tanh"), GT,
+                  [(GD, GI), (GD, GI), (GI, GD)], "fused_mlp_int8_layer_gemma")
+    # B2 at (64, 64), full masks, in both forms (the qwen form's training
+    # shape; phase 17 times it again on its own inputs)
+    full64 = torch.ones((64, 64), dtype=torch.int32, device=dev)
+    b2_64x64 = {}
+    for name_, (q_, k_, v_, w_, cs_, sn_, kw_) in {
+            "qwen": (qa, ka, va, wq, cos, sin, dict(kwargs, scale=1.0 / np.sqrt(DH))),
+            "gemma": (gqa, gka, gva, gw1, gcs, gsn, gkw)}.items():
+        q_, k_, v_ = q_[:64, :64].contiguous(), k_[:64, :64].contiguous(), v_[:64, :64].contiguous()
+        cs_, sn_ = cs_[:64, :64].contiguous(), sn_[:64, :64].contiguous()
+        hd_, nh_ = kw_["head_dim"], kw_["num_heads"]
+        pairs_ = 64 * (64 * 65 / 2 if kw_["causal"] else 64 * 64)
+        b2_64x64[name_] = {"ms": cuda_ms(lambda: fused_qknorm_rope_attention(
+            q_, k_, v_, w_, w_, cs_, sn_, full64, **kw_), 20),
+            **bound(2 * (q_.numel() * 2 + k_.numel() * 2) + cs_.numel() * 4 * 2 + full64.numel() * 4
+                    + hd_ * 4 * 2, {"bf16": 4 * nh_ * hd_ * pairs_})}
     with torch.inference_mode():
         genc_ms = {
             "kernel": cuda_ms(lambda: gemma_mod.encode_pooled(gparams, gt[0], gt[1], gcfg), 5),
@@ -1455,6 +1505,7 @@ def main(argv=None) -> int:
                  "fused_*_int8_layer_gemma": [*gx512.shape[:2], GD, GI, GH, GHK, GDH],
                  "ivf_probe_scores": {"B": 8, "P": P6, "R": R6, "D": D, "distinct_chunks": distinct6,
                                       "spill_chunks": n_spill_ch, "nprobe": int(np_cal)}},
+         b2_at_64x64=b2_64x64, int8_product_ms=int8_product_ms,
          ivf_search_ms=lat, ivf_probe_scores_wrapper_ms=b6_wrapper_ms, b6_shapes=b6_shapes,
          scan_rescore_ms_per_batch={"kernel": pipe_k, "plain": pipe_p, "qps_kernel": 1024 / pipe_k * 1e3},
          encoder_forward_ms={"kernel": enc_k, "plain": enc_p, "shape": [512, S]},

@@ -677,3 +677,122 @@ def test_recall_gate_on_the_card(cuda):
     off = ids.copy()
     off[:, -1] = (off[:, -1] + 1) % 5000
     assert recall_gate(q, corpus, off, k=10) < 1.0
+
+
+# ---- B2 on the tensor cores and the wgmma int8 product behind B3 / B4 ----
+
+
+@pytest.mark.parametrize("form", ["qwen", "gemma"])
+@pytest.mark.parametrize("s", [1, 7, 16, 33, 64, 100, 128])
+@pytest.mark.parametrize("group", [1, 2, 3, 4])
+def test_attention_kernel_forms_over_s_and_groups(cuda, form, s, group):
+    """B2 in both forms at S with a partial last key tile, one tile and
+    many, for each GQA group H/Hk, on ragged masks (mask[:, 0] = 1, one
+    item full, one with interior holes): cosine > 0.9999 and max abs <=
+    2e-2 * max|plain|, and a second launch bit-equal to the first."""
+    if form == "qwen":
+        dh, hk, causal, scale = 128, 2, True, 128 ** -0.5
+    else:
+        dh, hk, causal, scale = 256, 1, False, 256 ** -0.5
+    h, b = hk * group, 5
+    g = torch.Generator(device=cuda).manual_seed(1000 * s + 10 * group + dh)
+    q = (torch.randn((b, s, h * dh), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    k = (torch.randn((b, s, hk * dh), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    v = torch.randn((b, s, hk * dh), generator=g, device=cuda).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn((2, dh), generator=g, device=cuda)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=cuda)
+    lens[0] = s
+    mask = (torch.arange(s, device=cuda)[None] < lens[:, None]).to(torch.int32)
+    mask[1, 2::3] = 0
+    mask[:, 0] = 1
+    ang = torch.clamp(mask.cumsum(1) - 1, min=0)[..., None].float() * torch.rand(
+        (dh // 2,), generator=g, device=cuda)
+    kw = dict(num_heads=h, num_kv_heads=hk, head_dim=dh, eps=1e-6, causal=causal, scale=scale)
+    args = (q, k, v, w[0], w[1], ang.cos(), ang.sin(), mask)
+    out = fused_qknorm_rope_attention(*args, **kw)
+    again = fused_qknorm_rope_attention(*args, **kw)
+    ref = fused_qknorm_rope_attention_plain(*args, **kw).float()
+    assert torch.equal(out, again)
+    o, r = out.double().flatten(), ref.double().flatten()
+    assert float(o @ r / (o.norm() * r.norm())) > 0.9999
+    assert float((out.float() - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+
+
+def _full_width_layer(cuda, form, seed):
+    """One layer at the served widths: qwen (d 1024, I 3072, 16/8 heads of
+    128) or gemma (d 768, I 1152, 3/1 heads of 256), int8 with the
+    kernels' weight layout."""
+    if form == "gemma":
+        return _gemma_layer(cuda, seed)
+    cfg = EncoderConfig(vocab_size=512, num_layers=1, max_seq_len=128)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed), device=cuda)
+    return cfg, params["layers"][0], kernel_layout(quantize_params_int8(params))[0]
+
+
+@pytest.mark.parametrize("form", ["qwen", "gemma"])
+@pytest.mark.parametrize("t", [1, 127, 129, 32768])
+def test_mlp_int8_products_bit_equal_plain_stages(cuda, form, t):
+    """The int8 product through B4: h (the SwiGLU or GeGLU epilogue) from
+    the kernel's own codes, hq from h, and the whole output (the residual
+    epilogue, or the bf16 product and the post-norm pass) bit-equal to
+    the plain stages, with token tiles ragged and whole."""
+    from theoremsearch_tpu_torch.kernels.layer_int8 import (
+        _act, dequant, i8_matmul, quant_rows_plain,
+    )
+
+    cfg, layer, lq = _full_width_layer(cuda, form, t)
+    x = torch.randn((t, cfg.hidden_size), generator=torch.Generator(device=cuda).manual_seed(t),
+                    device=cuda).to(torch.bfloat16)
+    if form == "qwen":
+        nw, pw, act = layer["mlp_norm"], None, "silu"
+    else:
+        nw, pw, act = 1.0 + layer["pre_mlp_norm"], 1.0 + layer["post_mlp_norm"], "gelu_tanh"
+    args = (x, nw, lq["w_gate"], lq["w_up"], lq["w_down"], pw)
+    stages = {}
+    out = fused_mlp_int8_layer(*args, eps=cfg.rms_norm_eps, act=act, stages=stages)
+    sx = stages["sx"][:, None]
+    gate = dequant(i8_matmul(stages["xq"], lq["w_gate"]["q"]), sx, lq["w_gate"]["s"])
+    up = dequant(i8_matmul(stages["xq"], lq["w_up"]["q"]), sx, lq["w_up"]["s"])
+    assert torch.equal(stages["h"], (_act(act)(gate) * up).to(torch.bfloat16))
+    hq, sh = quant_rows_plain(stages["h"])
+    assert torch.equal(stages["hq"], hq) and torch.equal(stages["sh"], sh[:, 0])
+    assert torch.equal(out, fused_mlp_int8_layer_plain(*args, eps=cfg.rms_norm_eps, act=act))
+
+
+@pytest.mark.parametrize("form", ["qwen", "gemma"])
+@pytest.mark.parametrize("b,s", [(1, 1), (1, 127), (3, 43), (512, 64)])
+def test_attn_int8_products_bit_equal_plain_stages(cuda, form, b, s):
+    """The int8 product through B3 at T = 1, 127, 129 and 32,768 tokens:
+    q, k, v (the bf16 epilogue) from the kernel's own codes, aq from the
+    kernel's attention output, and the block output from aq (the residual
+    epilogue, or the bf16 product and the post-norm pass) bit-equal to
+    the plain stages."""
+    from theoremsearch_tpu_torch.encoder.gemma import _rope_tables as gemma_rope
+    from theoremsearch_tpu_torch.kernels.layer_int8 import (
+        _block_out, dequant, fused_attn_int8_layer_gemma, i8_matmul, quant_rows_plain,
+    )
+
+    cfg, layer, lq = _full_width_layer(cuda, form, s)
+    g = torch.Generator(device=cuda).manual_seed(b * 1000 + s)
+    x = torch.randn((b, s, cfg.hidden_size), generator=g, device=cuda).to(torch.bfloat16)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=cuda)
+    mask = (torch.arange(s, device=cuda)[None] < lens[:, None]).to(torch.int32)
+    pos = torch.clamp(mask.cumsum(1) - 1, min=0)
+    stages = {}
+    if form == "qwen":
+        rope = _rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        out = fused_attn_int8_layer(x, layer, lq, mask, rope, cfg, stages=stages)
+        pw = None
+    else:
+        rope = gemma_rope(pos, cfg.head_dim, cfg.rope_local_theta)
+        out = fused_attn_int8_layer_gemma(x, layer, lq, mask, rope, cfg, stages=stages)
+        pw = 1.0 + layer["post_attn_norm"]
+    sx = stages["sx"][:, None]
+    for name, key in (("q", "wq"), ("k", "wk"), ("v", "wv")):
+        want = dequant(i8_matmul(stages["xq"], lq[key]["q"]), sx, lq[key]["s"])
+        assert torch.equal(stages[name], want.to(torch.bfloat16).view(b, s, -1)), name
+    aq, sa = quant_rows_plain(stages["ao"].view(b * s, -1))
+    assert torch.equal(stages["aq"], aq) and torch.equal(stages["sa"], sa[:, 0])
+    y = dequant(i8_matmul(stages["aq"], lq["wo"]["q"]), stages["sa"][:, None], lq["wo"]["s"])
+    want = x.view(b * s, -1) + _block_out(y, pw, cfg.rms_norm_eps)
+    assert torch.equal(out, want.view(b, s, -1))

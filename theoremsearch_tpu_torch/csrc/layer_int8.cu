@@ -40,23 +40,39 @@
 //     in f64 as above, r = rsqrtf(ss * (1/D) + eps), bf16((y * r) * pw).
 // Built with -fmad=false, so no multiply-add is contracted.
 //
-// What bounds it on an H100: at the serving shapes (T = B * S = 32,768
-// tokens, D = 1024, I = 3072, 16/8 heads of 128) the products are
-// 6 * T * D * I = 6.2e11 int8 operations for the MLP and
-// 2 * T * D * (2 * 2048 + 2 * 1024) = 4.1e11 for the attention block's
-// projections, against ~0.3 GB of activations: the int8 tensor cores bound
-// both. The TPU kernels copied all int8 weights (9.4 MB MLP, 6 MB
-// attention) into VMEM once and streamed 128-token tiles past them. A
-// Hopper block has at most 227 KB of shared memory, so here the weights
-// stay in the 50 MB L2: each product's grid runs its column tiles fastest,
-// so the blocks in flight share one token tile and read the whole weight
-// matrix from L2. Each product is one block of eight warps per (128-token,
-// 128-column) tile: 64-byte K slices of the token tile and of the 128
-// weight rows (weights stored K-contiguous, (N, K)) stream through a
-// two-stage cp.async ring in shared memory into mma.sync m16n8k32 s8;
-// each warp owns a 32 x 64 accumulator tile. The gate/up product loads
-// 64 gate rows and the same 64 up rows into one tile, so each thread holds
-// g and u of the same (token, column) and the GLU is its epilogue.
+// What bounds it on an H100: operations. At the serving shapes (T = B * S
+// = 32,768 tokens, D = 1024, I = 3072, 16/8 heads of 128) the products are
+// 6 * T * D * I = 6.2e11 int8 operations for the MLP (0.313 ms at the
+// 1,979 TOP/s dense int8 peak) and 2 * T * D * (2 * 2048 + 2 * 1024) =
+// 4.1e11 for the attention block's projections (0.209 ms with B2's core),
+// against ~0.3 GB of activations; the gemma shapes (D = 768, I = 1152, 3/1
+// heads of 256) are 1.7e11 for the MLP. Only wgmma reaches the int8
+// tensor cores' full rate on this card, so the products run on it.
+//
+// The product, i8_gemm_kernel: one block of three warpgroups per output
+// tile of 128 tokens x 256 weight rows (256 columns, or 128 where N is not
+// a multiple of 256; for the GLUs 128 gate rows and the same 128 up rows,
+// so each thread holds g and u of the same (token, column) and the GLU is
+// its epilogue). One thread of the third warpgroup (the producer) keeps a
+// four-stage ring of shared-memory tiles full with TMA: each stage holds a
+// 128-byte K slice of the 128 token rows and of the weight rows (weights
+// stored K-contiguous, (N, K)), with the 128-byte swizzle, and its
+// full/empty mbarrier pair hands it over; three more of its warps fetch
+// the epilogue's token and column scales into shared memory meanwhile (but
+// for the residual product). The two consumer warpgroups
+// each own 64 of the token rows and issue wgmma m64nNk32 s8 x s8 -> s32
+// with both operands read from shared memory, keeping one wgmma group in
+// flight while releasing the stage before it; the s32 accumulators stay
+// in registers (setmaxnreg moves the producer's registers to the
+// consumers). Tokens past T arrive as zeros from TMA's out-of-bounds fill
+// and are never stored. The weights (at most 6.3 MB a matrix) stay in the
+// 50 MB L2: each product's grid runs its column tiles fastest, so the
+// blocks in flight share one token tile and read the whole weight matrix
+// from L2. (A pair of blocks in a cluster, each loading half of the
+// weight tile and multicasting it to both, ran slower: L2 reads do not
+// bound the product.) The TPU kernels instead copied all int8 weights
+// (9.4 MB MLP, 6 MB attention) into VMEM once and streamed 128-token
+// tiles past them.
 //
 // The per-token requant needs a whole row's absmax first (I = 3072 of h,
 // 2048 of the attention output), so the norm + quant and the requant are
@@ -65,24 +81,36 @@
 // post-norm needs a whole row of the product too (it normalizes over D),
 // so it cannot be a tile epilogue either: with a post-norm the down/o
 // product writes its bf16 output and a one-warp-a-row pass applies the
-// norm and the residual add (the gemma shapes, D = 768 and I = 1152 at
-// T = 32,768 tokens, are 1.7e11 int8 operations for the MLP). Fusing
-// these passes away, and wgmma/TMA for the products, are later work.
+// norm and the residual add. Fusing these passes away, and a persistent
+// block that overlaps one tile's epilogue with the next tile's loads, are
+// later work.
+//
+// Measured (chip_smoke.py's phase times on an NVIDIA H100 80GB HBM3 at
+// 700.00 W), at (512, 64): B3 0.969 ms and B4 0.958 ms in the qwen form
+// (bounds 0.209 and 0.313), 0.437 and 0.377 ms in the gemma form; the
+// products alone take 0.487 ms of B3 and 0.736 of B4, where torch._int_mm
+// takes 0.675 and 0.966 for the same int8 products. The SwiGLU product
+// runs at ~39% of the int8 peak: with one block an SM nothing overlaps a
+// tile's first loads and its epilogue (expf and an IEEE division for each
+// of a thread's 64 outputs) with the tensor cores; a persistent block that
+// overlaps them is the next step.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "int8_mma.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
 constexpr int BM = 128;        // tokens per product block
-constexpr int BN = 128;        // weight rows per product block
-constexpr int BK = 64;         // K bytes per pipeline stage
-constexpr int SSTR = BK + 16;  // padded shared row: 20 words, conflict-free
-constexpr int THREADS = 256;   // 8 warps: 4 (tokens) x 2 (weight rows)
-constexpr int ROWS_PER_BLOCK = THREADS / 32;   // row passes: one warp a row
+constexpr int BK = 128;        // K bytes per pipeline stage: one 128-byte swizzle atom
+constexpr int GEMM_THREADS = 384;   // warpgroups 0-1 consume (64 tokens each), 2 produces
+constexpr int STAGES = 4;      // TMA ring depth
+constexpr int EPI_ROW = 256;   // bytes of a staged output row: 128 bf16 columns
+constexpr int EPI_TILE = 64 * EPI_ROW;   // a consumer warpgroup's staged rows
+constexpr int THREADS = 256;   // row passes: 8 warps, one warp a row
+constexpr int ROWS_PER_BLOCK = THREADS / 32;
 constexpr float INV127 = 1.0f / 127.0f;        // what XLA makes of m / 127
 constexpr float MIN_SCALE = 1e-12f;
 
@@ -220,129 +248,196 @@ __global__ void __launch_bounds__(THREADS) post_norm_residual_kernel(
   }
 }
 
+// The product's tile: CN output columns a block and WN weight rows a
+// stage (the wgmma N: CN, or CN gate + CN up rows for the GLUs). One block
+// an SM: a 64-accumulator consumer needs more than the 80 registers a
+// thread that two 384-thread blocks would leave it.
+template <int EPI, int CN>
+struct Tile {
+  static constexpr bool GLU = EPI == EPI_GLU || EPI == EPI_GEGLU;
+  static constexpr int WN = GLU ? 2 * CN : CN;
+  static constexpr int ACC = WN / 2;            // s32 accumulators a consumer thread
+  static constexpr int STAGE = (BM + WN) * BK;  // bytes of one ring stage
+  static constexpr int SCALES = BM + (GLU ? 2 : 1) * CN;   // f32 row and column scales
+  static constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8 + SCALES * 4;
+};
+
 // out (T, N) bf16 from a (T, K) int8 x (N, K) int8 product with per-token
-// scales sa and per-column scales s0, through one of three epilogues:
+// scales sa and per-column scales s0, through one of four epilogues:
 //   EPI_BF16      out = bf16((acc * sa) * s0)
-//   EPI_GLU       out = bf16(silu(g) * u), g from (w0, s0), u from (w1, s1);
-//                 a block covers 64 output columns (64 gate + 64 up rows)
+//   EPI_GLU       out = bf16(silu(g) * u), g from (w0, s0), u from (w1, s1)
 //   EPI_GEGLU     out = bf16(gelu_tanh(g) * u), as EPI_GLU
 //   EPI_RESIDUAL  out = bf16(res + bf16((acc * sa) * s0))
-// Grid: (column tiles, token tiles); tokens past T are zero-filled and
-// not stored. N % 128 == 0 (64 for EPI_GLU and EPI_GEGLU), K % 64 == 0.
-template <int EPI>
-__global__ void __launch_bounds__(THREADS) i8_gemm_kernel(
-    const int8_t* __restrict__ a, const float* __restrict__ sa,
-    const int8_t* __restrict__ w0, const float* __restrict__ s0,
-    const int8_t* __restrict__ w1, const float* __restrict__ s1,
-    const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out, int T, int N,
-    int K) {
-  __shared__ __align__(16) int8_t As[2][BM * SSTR];
-  __shared__ __align__(16) int8_t Bs[2][BN * SSTR];
-  constexpr bool GLU = EPI == EPI_GLU || EPI == EPI_GEGLU;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int gq = lane >> 2, tig = lane & 3;
-  constexpr int CT = GLU ? BN / 2 : BN;   // output columns per block
-  const int c0 = blockIdx.x * CT;
+// ta, tw0, tw1: tensor maps of a (T, K), w0 and w1 (N, K) (tw1 unused but
+// for the GLUs). Grid: (N / CN column tiles, token tiles); tokens past T
+// are zero-filled and not stored. N % CN == 0, K % 128 == 0.
+template <int EPI, int CN>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+i8_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw0,
+               const __grid_constant__ CUtensorMap tw1, const float* __restrict__ sa,
+               const float* __restrict__ s0, const float* __restrict__ s1,
+               const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out, int T,
+               int N, int K) {
+  using C = Tile<EPI, CN>;
+  constexpr bool GLU = C::GLU;
+  // the epilogue's scales come from shared memory, fetched by the
+  // producer's idle warps; the residual product, whose epilogue reads
+  // the residual from device memory anyway, ran faster reading its
+  // scales there too (on an H100)
+  constexpr bool PREFETCHED = EPI != EPI_RESIDUAL;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled tiles must start on 1024-byte boundaries
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * C::STAGE);
+  uint64_t* empty = full + STAGES;
+  // the block's token scales (BM), then its column scales (CN; the up
+  // columns' next for the GLUs)
+  float* scl = reinterpret_cast<float*>(empty + STAGES);
+  const int c0 = blockIdx.x * CN;
   const int m0 = blockIdx.y * BM;
   const int nk = K / BK;
+  const int wg = threadIdx.x >> 7;
 
-  auto load = [&](int st, int k0) {
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int idx = tid + s * THREADS, r = idx >> 2, kb = (idx & 3) * 16;
-      const bool ok = m0 + r < T;
-      cp_async16(&As[st][r * SSTR + kb], ok ? a + (size_t)(m0 + r) * K + k0 + kb : a,
-                 ok ? 16 : 0);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);   // one arrival from each consumer warpgroup
     }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int idx = tid + s * THREADS, r = idx >> 2, kb = (idx & 3) * 16;
-      const int8_t* src = GLU
-          ? (r < CT ? w0 + (size_t)(c0 + r) * K : w1 + (size_t)(c0 + r - CT) * K)
-          : w0 + (size_t)(c0 + r) * K;
-      cp_async16(&Bs[st][r * SSTR + kb], src + k0 + kb, 16);
-    }
-    cp_async_commit();
-  };
-
-  // weight row (within the block's 128) of this warp's n8 tile nt: gate
-  // tiles 0-3 and up tiles 4-7 of the same columns for the GLU
-  auto brow = [&](int nt) {
-    return GLU ? (nt >> 2) * CT + wn * 32 + (nt & 3) * 8 : wn * 64 + nt * 8;
-  };
-
-  int32_t acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-
-  load(0, 0);
-  for (int kc = 0; kc < nk; ++kc) {
-    const int st = kc & 1;
-    if (kc + 1 < nk) {
-      load(st ^ 1, (kc + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int8_t* p = &As[st][(wm * 32 + mt * 16 + gq) * SSTR + ks + tig * 4];
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * SSTR);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * SSTR + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int8_t* p = &Bs[st][(brow(nt) + gq) * SSTR + ks + tig * 4];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 16);
-        mma_s8(acc[0][nt], af[0], b0, b1);
-        mma_s8(acc[1][nt], af[1], b0, b1);
-      }
-    }
-    __syncthreads();  // the next iteration's load overwrites this stage
+    mbar_fence_init();
   }
+  __syncthreads();
 
+  if (wg == 2) {
+    // producer: one thread issues every TMA load of the block
+    regs_dealloc<40>();
+    if (PREFETCHED && threadIdx.x >= 288) {
+      // warps 9-11 fetch the epilogue's scales into shared memory while
+      // the mainloop runs; each consumer warpgroup waits for them before
+      // its epilogue
+      for (int i = threadIdx.x - 288; i < C::SCALES; i += 96) {
+        float v = 0.0f;
+        if (i < BM) {
+          if (m0 + i < T) v = sa[m0 + i];
+        } else if (i < BM + CN) {
+          v = s0[c0 + i - BM];
+        } else {
+          v = s1[c0 + i - BM - CN];
+        }
+        scl[i] = v;
+      }
+      bar_arrive(3, 224);
+      bar_arrive(4, 224);
+    }
+    if (threadIdx.x == 256) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % STAGES;
+        if (kb >= STAGES) mbar_wait(&empty[s], ((kb / STAGES) + 1) & 1);
+        unsigned char* st = smem + s * C::STAGE;
+        mbar_expect_tx(&full[s], C::STAGE);
+        tma_load_2d(st, &ta, &full[s], kb * BK, m0);
+        tma_load_2d(st + BM * BK, &tw0, &full[s], kb * BK, c0);
+        if constexpr (GLU) tma_load_2d(st + (BM + CN) * BK, &tw1, &full[s], kb * BK, c0);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns token rows 64 wg .. 64 wg + 63
+    regs_alloc<232>();   // 256 x 232 + 128 x 40 registers fit the SM's 65,536
+    // no zeroing: the first k step overwrites (scale-d 0); zeroing made
+    // ptxas serialize the staged form's wgmma (its warning C7515)
+    int32_t acc[C::ACC];
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % STAGES;
+      mbar_wait(&full[s], (kb / STAGES) & 1);
+      const unsigned char* st = smem + s * C::STAGE;
+      const uint64_t da = sw128_desc(st + wg * 64 * BK);
+      const uint64_t db = sw128_desc(st + BM * BK);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+      for (int kk = 0; kk < BK / 32; ++kk) {
+        const int accumulate = kb > 0 || kk > 0;
+        if constexpr (C::WN == 256)
+          wgmma_s8_n256(acc, da + 2 * kk, db + 2 * kk, accumulate);
+        else
+          wgmma_s8_n128(acc, da + 2 * kk, db + 2 * kk, accumulate);
+      }
+      wgmma_commit();
+      // the group before this one has finished reading its stage
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (kb > 0 && (threadIdx.x & 127) == 0) mbar_arrive(&empty[(kb - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // epilogue, in passes of 128 columns. EPI_BF16 stages each pass in its
+    // warpgroup's tile in ring stage 0 (64 rows of 256 bytes, 16-byte
+    // chunks XOR-swizzled by row), free once both consumer warpgroups are
+    // past their last wgmma, and writes it out in coalesced 16-byte pieces;
+    // the others store each thread's bf16 pairs straight to device memory
+    // (staged, the residual and GLU products ran slower on an H100).
+    constexpr bool STAGED = EPI == EPI_BF16;
+    const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3, tl = threadIdx.x & 127;
+    const int gq = lane >> 2, tig = lane & 3;
+    unsigned char* stg = smem + wg * EPI_TILE;
+    if constexpr (PREFETCHED) bar_sync(3 + wg, 224);   // the scales are in
+    if constexpr (STAGED) bar_sync(5, 256);   // both warpgroups past their last wgmma
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 32 + mt * 16 + gq + h * 8;
-      if (row >= T) continue;
-      const float rs = sa[row];
+    for (int p = 0; p < (GLU ? 1 : CN / 128); ++p) {
+      // the last pass's copy-out has read the tile
+      if (STAGED && p > 0) bar_sync(1 + wg, 128);
 #pragma unroll
-      for (int nt = 0; nt < (GLU ? 4 : 8); ++nt) {
-        const int col = c0 + brow(nt) + tig * 2;   // brow(nt) < CT for the stored tiles
-        float v[2];
+      for (int h = 0; h < 2; ++h) {
+        const int r = wq * 16 + gq + h * 8;
+        const int row = m0 + wg * 64 + r;
+        if (row >= T) continue;
+        const float rs = PREFETCHED ? scl[wg * 64 + r] : sa[row];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float d = ((float)__int2float_rn(acc[mt][nt][2 * h + e]) * rs) * s0[col + e];
-          if (GLU) {
-            const float u = ((float)__int2float_rn(acc[mt][nt + 4][2 * h + e]) * rs) * s1[col + e];
-            v[e] = (EPI == EPI_GLU ? d / (1.0f + expf(-d)) : gelu_tanh(d)) * u;
+        for (int j = 0; j < 16; ++j) {
+          const int jj = 16 * p + j;   // n8 block of the accumulators
+          const int cl = 8 * jj + 2 * tig, col = c0 + cl;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float d = ((float)__int2float_rn(acc[4 * jj + 2 * h + e]) * rs) *
+                            (PREFETCHED ? scl[BM + cl + e] : s0[col + e]);
+            if constexpr (GLU) {
+              const float u =
+                  ((float)__int2float_rn(acc[4 * (jj + CN / 8) + 2 * h + e]) * rs) *
+                  scl[BM + CN + cl + e];
+              v[e] = (EPI == EPI_GLU ? d / (1.0f + expf(-d)) : gelu_tanh(d)) * u;
+            } else {
+              v[e] = d;
+            }
+          }
+          const __nv_bfloat162 o = __floats2bfloat162_rn(v[0], v[1]);
+          if constexpr (STAGED) {
+            unsigned char* at = stg + r * EPI_ROW + ((j ^ (r & 7)) << 4) + 4 * tig;
+            *reinterpret_cast<__nv_bfloat162*>(at) = o;
+          } else if constexpr (EPI == EPI_RESIDUAL) {
+            const float2 xr = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)row * N + col));
+            const float2 dv = __bfloat1622float2(o);
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
+                __floats2bfloat162_rn(xr.x + dv.x, xr.y + dv.y);
           } else {
-            v[e] = d;
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) = o;
           }
         }
-        __nv_bfloat162 o = __floats2bfloat162_rn(v[0], v[1]);
-        if (EPI == EPI_RESIDUAL) {
-          const float2 xr = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)row * N + col));
-          const float2 dv = __bfloat1622float2(o);
-          o = __floats2bfloat162_rn(xr.x + dv.x, xr.y + dv.y);
+      }
+      if constexpr (STAGED) {
+        bar_sync(1 + wg, 128);
+        // 64 rows x 16 pieces of 16 bytes, 8 a thread
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = tl + 128 * u, r = i >> 4, c = i & 15;
+          const int row = m0 + wg * 64 + r;
+          if (row < T)
+            *reinterpret_cast<uint4*>(out + (size_t)row * N + c0 + 128 * p + 8 * c) =
+                *reinterpret_cast<const uint4*>(stg + r * EPI_ROW + ((c ^ (r & 7)) << 4));
         }
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) = o;
       }
     }
   }
@@ -350,18 +445,41 @@ __global__ void __launch_bounds__(THREADS) i8_gemm_kernel(
 
 int row_blocks(int T) { return (T + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK; }
 
+template <int EPI, int CN>
+int gemm_tile(const void* a, const void* sa, const void* w0, const void* s0, const void* w1,
+              const void* s1, const void* res, void* out, int T, int N, int K,
+              cudaStream_t stream) {
+  using C = Tile<EPI, CN>;
+  // tensor maps are 128 bytes each, encoded on the host for every call
+  CUtensorMap ta, tw0, tw1;
+  if (!tma_map_i8(&ta, a, T, K, BM) || !tma_map_i8(&tw0, w0, N, K, CN) ||
+      !tma_map_i8(&tw1, C::GLU ? w1 : w0, N, K, CN))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      i8_gemm_kernel<EPI, CN>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(N / CN, (T + BM - 1) / BM);
+  i8_gemm_kernel<EPI, CN><<<grid, GEMM_THREADS, C::SMEM, stream>>>(
+      ta, tw0, tw1, (const float*)sa, (const float*)s0, (const float*)s1,
+      (const __nv_bfloat16*)res, (__nv_bfloat16*)out, T, N, K);
+  return (int)cudaGetLastError();
+}
+
 template <int EPI>
 int gemm(const void* a, const void* sa, const void* w0, const void* s0, const void* w1,
          const void* s1, const void* res, void* out, int T, int N, int K,
          cudaStream_t stream) {
-  const int ct = (EPI == EPI_GLU || EPI == EPI_GEGLU) ? BN / 2 : BN;
-  if (N % ct || K % BK || (T + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / ct, (T + BM - 1) / BM);
-  i8_gemm_kernel<EPI><<<grid, THREADS, 0, stream>>>(
-      (const int8_t*)a, (const float*)sa, (const int8_t*)w0, (const float*)s0,
-      (const int8_t*)w1, (const float*)s1, (const __nv_bfloat16*)res, (__nv_bfloat16*)out,
-      T, N, K);
-  return (int)cudaGetLastError();
+  constexpr bool GLU = EPI == EPI_GLU || EPI == EPI_GEGLU;
+  if (N % 128 || K % BK || (T + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+  // 256 weight rows a stage: 128 gate + 128 up rows for the GLUs, else
+  // 256 columns where N allows (fewer bytes a product than 128)
+  if constexpr (GLU) {
+    return gemm_tile<EPI, 128>(a, sa, w0, s0, w1, s1, res, out, T, N, K, stream);
+  } else {
+    if (N % 256 == 0)
+      return gemm_tile<EPI, 256>(a, sa, w0, s0, w1, s1, res, out, T, N, K, stream);
+    return gemm_tile<EPI, 128>(a, sa, w0, s0, w1, s1, res, out, T, N, K, stream);
+  }
 }
 
 int rmsnorm_quant(const void* x, const void* w, void* q, void* s, int T, int D, float eps,

@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Time the port's encoder kernels and forwards of one checkout on the card.
+
+    python tools/torch_kernel_ab.py --root DIR [--label NAME]
+
+Imports `theoremsearch_tpu_torch` from DIR (a checkout of the repository;
+its kernels are built from DIR's own sources at first use) and prints one
+JSON line of CUDA-event times, in ms, at the encoder's serving shape
+(B, S) = (512, 64) with ragged masks from a fixed seed:
+
+- B2 (`fused_qknorm_rope_attention`), qwen form (16/8 heads of 128,
+  causal) and gemma form (3/1 heads of 256, bidirectional), at (512, 64)
+  and at (64, 64) with full masks;
+- B3 and B4 in both forms on one full-width layer of random int8 weights;
+- B1 (`mips_g_scan`, unmasked) at B = 1024 on a 1,048,576 x 1024 int8
+  corpus (row block 4096, merge tiles 4: the speed engine's geometry);
+- the four full-width encoder forwards (`encode_pooled`): Qwen3-0.6B-
+  class (`EncoderConfig()`) and embeddinggemma-300m-class
+  (`GemmaEncoderConfig()`), bf16 and int8 whole layers.
+
+Every input is made from fixed seeds, so two checkouts timed in one call
+(parent, change, change, parent) see the same data. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", required=True, help="checkout whose theoremsearch_tpu_torch to time")
+    ap.add_argument("--label", default=None, help="name printed with the result")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.root))
+    from theoremsearch_tpu_torch.core.config import EncoderConfig, GemmaEncoderConfig
+    from theoremsearch_tpu_torch.encoder import gemma as gemma_mod
+    from theoremsearch_tpu_torch.encoder.model import (
+        _rope_tables, encode_pooled, init_params, quantize_params_int8,
+    )
+    from theoremsearch_tpu_torch.index.quant import quantize_global_int8
+    from theoremsearch_tpu_torch.kernels import _build
+    from theoremsearch_tpu_torch.kernels.attention import fused_qknorm_rope_attention
+    from theoremsearch_tpu_torch.kernels.layer_int8 import (
+        fused_attn_int8_layer, fused_attn_int8_layer_gemma, fused_mlp_int8_layer, kernel_layout,
+    )
+    from theoremsearch_tpu_torch.kernels.mips import mips_g_scan, quantize_queries
+    from theoremsearch_tpu_torch.utils.device import gpu_name_power
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_build = time.perf_counter()
+    _build.load()
+    res = {"label": args.label or args.root, "gpu": gpu_name_power(),
+           "build_s": round(time.perf_counter() - t_build, 1)}
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, S = 512, 64
+    lens = torch.randint(12, S + 1, (B,), generator=g, device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).to(torch.int32)
+    pos = torch.clamp(mask.cumsum(1) - 1, min=0)
+
+    # B2, both forms
+    forms = {"qwen": (16, 8, 128, True, 128 ** -0.5, 1e6), "gemma": (3, 1, 256, False, 256 ** -0.5, 1e4)}
+    for name, (h, hk, dh, causal, scale, theta) in forms.items():
+        q = (torch.randn((B, S, h * dh), generator=g, device=dev) * 2).to(torch.bfloat16)
+        k = (torch.randn((B, S, hk * dh), generator=g, device=dev) * 2).to(torch.bfloat16)
+        v = torch.randn((B, S, hk * dh), generator=g, device=dev).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn((2, dh), generator=g, device=dev)
+        cos, sin = _rope_tables(pos, dh, theta)
+        kw = dict(num_heads=h, num_kv_heads=hk, head_dim=dh, eps=1e-6, causal=causal, scale=scale)
+        res[f"b2_{name}_512x64"] = cuda_ms(
+            lambda: fused_qknorm_rope_attention(q, k, v, w[0], w[1], cos, sin, mask, **kw), 20)
+        full = torch.ones((64, S), dtype=torch.int32, device=dev)
+        c64, s64 = _rope_tables(torch.clamp(full.cumsum(1) - 1, min=0), dh, theta)
+        q64, k64, v64 = q[:64].contiguous(), k[:64].contiguous(), v[:64].contiguous()
+        res[f"b2_{name}_64x64"] = cuda_ms(
+            lambda: fused_qknorm_rope_attention(q64, k64, v64, w[0], w[1], c64, s64, full, **kw), 50)
+        del q, k, v
+
+    # B3 and B4 on one full-width layer, both forms
+    cfg = EncoderConfig(vocab_size=512, num_layers=1)
+    p1 = init_params(cfg, torch.Generator(device=dev).manual_seed(2), device=dev)
+    layer, lq = p1["layers"][0], kernel_layout(quantize_params_int8(p1))[0]
+    x = torch.randn((B, S, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    rope = _rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    gcfg = GemmaEncoderConfig(vocab_size=512, num_layers=1)
+    gg = torch.Generator(device=dev).manual_seed(3)
+    gp1 = gemma_mod.init_params(gcfg, gg, device=dev)
+    glayer = gp1["layers"][0]
+    for t_ in glayer.values():          # the (1 + w) norm weights off zero
+        if t_.ndim == 1:
+            t_ += 0.1 * torch.randn(t_.shape, generator=gg, device=dev)
+    glq = kernel_layout(gemma_mod.quantize_params_int8({"layers": [glayer]}))[0]
+    gx = torch.randn((B, S, gcfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    grope = gemma_mod._rope_tables(pos, gcfg.head_dim, gcfg.rope_local_theta)
+    with torch.inference_mode():
+        res["b3_qwen"] = cuda_ms(lambda: fused_attn_int8_layer(x, layer, lq, mask, rope, cfg), 20)
+        res["b4_qwen"] = cuda_ms(lambda: fused_mlp_int8_layer(
+            x, layer["mlp_norm"], lq["w_gate"], lq["w_up"], lq["w_down"]), 20)
+        res["b3_gemma"] = cuda_ms(
+            lambda: fused_attn_int8_layer_gemma(gx, glayer, glq, mask, grope, gcfg), 20)
+        res["b4_gemma"] = cuda_ms(lambda: fused_mlp_int8_layer(
+            gx, 1.0 + glayer["pre_mlp_norm"], glq["w_gate"], glq["w_up"], glq["w_down"],
+            1.0 + glayer["post_mlp_norm"], act="gelu_tanh"), 20)
+    del p1, gp1, layer, lq, glayer, glq, x, gx
+
+    # B1 on the speed engine's geometry
+    n, d, rb, m = 1 << 20, 1024, 4096, 4
+    codes = torch.empty((n, d), dtype=torch.int8, device=dev)
+    for lo in range(0, n, 1 << 18):
+        xc = torch.randn((1 << 18, d), generator=g, device=dev)
+        codes[lo:lo + (1 << 18)] = quantize_global_int8(xc / xc.norm(dim=1, keepdim=True))[0]
+    q8, _ = quantize_queries(torch.randn((1024, d), generator=g, device=dev))
+    res["b1_1024x1M"] = cuda_ms(lambda: mips_g_scan(q8, codes, n, rb, m), 10)
+    del codes, xc
+
+    # the four full-width forwards
+    ecfg, egcfg = EncoderConfig(), GemmaEncoderConfig()
+    params = init_params(ecfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    ql = kernel_layout(quantize_params_int8(params))
+    ids = torch.randint(3, 1000, (B, S), generator=g, device=dev) * mask
+    gparams = gemma_mod.init_params(egcfg, torch.Generator(device=dev).manual_seed(4), device=dev)
+    gr = torch.Generator(device=dev).manual_seed(5)
+    for lay in gparams["layers"]:
+        for t_ in lay.values():
+            if t_.ndim == 1:
+                t_ += 0.1 * torch.randn(t_.shape, generator=gr, device=dev)
+    gql = kernel_layout(gemma_mod.quantize_params_int8(gparams))
+    with torch.inference_mode():
+        res["fwd_qwen_bf16"] = cuda_ms(lambda: encode_pooled(params, ids, mask, ecfg), 5)
+        res["fwd_qwen_int8"] = cuda_ms(lambda: encode_pooled(
+            params, ids, mask, ecfg, qlayers=ql, fused_layers=True), 5)
+        res["fwd_gemma_bf16"] = cuda_ms(lambda: gemma_mod.encode_pooled(gparams, ids, mask, egcfg), 5)
+        res["fwd_gemma_int8"] = cuda_ms(lambda: gemma_mod.encode_pooled(
+            gparams, ids, mask, egcfg, qlayers=gql, fused_layers=True), 5)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
