@@ -74,7 +74,12 @@ exits non-zero (there is no CPU path):
              result passes its filter, overlap@10 vs the direct path,
              grouped scans carrying more than one signature.
 13. times    kernel / plain / bound times at the main path's shapes (B1
-             unmasked, mask and gmask G=32 at B=1024 on 1M; B5 at B=512
+             unmasked, mask and gmask G=32 at B=1024 on 1M, with their
+             device times (launches queued behind a sleep kernel) beside;
+             the unmasked form also at B=8 and 64, first held bit-equal to
+             plain there (the mask and gmask forms too at B=8), and its
+             int8 product alone through torch._int_mm in 16,384-row slices
+             (library_ms); B5 at B=512
              on 1M int8 per-row and bf16; B2, B3 and B4 at (512, 64); B6
              at the ivf phase's B=8 search and the b6 shapes, as device
              time: its launches queued behind a sleep kernel, between
@@ -185,6 +190,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device time per call: the calls are queued behind a sleep kernel,
+    so the host has enqueued them all before the card starts, and timed
+    between two CUDA events. A wrapper whose host work (many small torch
+    ops) outlasts its device work on a busy host would otherwise be timed
+    by the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     t0.record()
     for _ in range(iters):
         fn()
@@ -345,9 +371,9 @@ def main(argv=None) -> int:
     )
     from theoremsearch_tpu_torch.kernels.mips import (
         auto_merge_tiles, device_rescore, ivf_probe_scores, ivf_probe_scores_plain,
-        ivf_scores_launches, mips_g_gmask_launches, mips_g_launches, mips_g_mask_launches,
-        mips_g_scan, mips_g_scan_plain, mips_topk, mips_topk_launches, mips_topk_plain,
-        quantize_queries, select_candidates,
+        ivf_scores_launches, mips_g_batch_order, mips_g_gmask_launches, mips_g_launches,
+        mips_g_mask_launches, mips_g_scan, mips_g_scan_plain, mips_g_tile_need, mips_topk,
+        mips_topk_launches, mips_topk_plain, quantize_queries, select_candidates,
     )
     from theoremsearch_tpu_torch.search.engine import SearchEngine
     from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
@@ -1260,6 +1286,31 @@ def main(argv=None) -> int:
     timed("mips_g_scan", lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m),
           lambda: mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m),
           nrows * D + 1024 * D + out_bytes, {"int8": 2 * 1024 * n_valid * D})
+    # library yardstick: the same int8 product alone through torch._int_mm
+    # (cuBLAS; the port never calls it), in 16,384-row slices of the corpus
+    slices = [engine.vectors[r0 : r0 + 16384].t() for r0 in range(0, nrows, 16384)]
+
+    def int_mm_scan():
+        for w_ in slices:
+            torch._int_mm(q8, w_)
+
+    times["mips_g_scan"]["library_ms"] = cuda_ms(int_mm_scan, 5)
+    del slices
+    # the unmasked form at the served batch buckets, where each span is
+    # split across blocks (atomicMax into a prefilled output): bit-equal
+    # to plain there first, then device and back-to-back wrapper times
+    b1_small = {}
+    for bs in (8, 64):
+        q8s = q8[:bs].contiguous()
+
+        def small():
+            return mips_g_scan(q8s, engine.vectors, n_valid, rb, m)
+
+        if not torch.equal(small(), mips_g_scan_plain(q8s, engine.vectors, n_valid, rb, m)):
+            raise AssertionError(f"B1 at B={bs} on the 1M index disagrees with plain")
+        b1_small[f"B{bs}"] = {"ms": queued_ms(small, 20), "wrapper_ms": cuda_ms(small, 20),
+                              **bound(nrows * D + bs * D + bs * out_bytes // 1024,
+                                      {"int8": 2 * bs * n_valid * D})}
     # masked forms: only the passing rows' products and codes are needed
     n_year = int(host_masks[0].sum())
     timed("mips_g_scan_mask", lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m, mask=year_dev),
@@ -1269,11 +1320,27 @@ def main(argv=None) -> int:
     pass_of = np.array([int(mk.sum()) for mk in host_masks[3:35]])
     n_union = int(np.logical_or.reduce(host_masks[3:35]).sum())
     g32 = g32.to(dev)
+    for name_, kw_ in (("mask", {"mask": year_dev}), ("gmask", {"gmasks": st32, "mask_ids": g32[:8]})):
+        if not torch.equal(mips_g_scan(q8[:8], engine.vectors, n_valid, rb, m, **kw_),
+                           mips_g_scan_plain(q8[:8], engine.vectors, n_valid, rb, m, **kw_)):
+            raise AssertionError(f"B1's {name_} form at B=8 on the 1M index disagrees with plain")
     timed("mips_g_scan_gmask",
           lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m, gmasks=st32, mask_ids=g32),
           lambda: mips_g_scan_plain(q8, engine.vectors, n_valid, rb, m, gmasks=st32, mask_ids=g32),
           32 * nrows + n_union * D + 1024 * (D + 4) + out_bytes,
           {"int8": 2 * int(pass_of[g32.cpu().numpy()].sum()) * D})
+    # B1's "ms" is the wrapper's back-to-back time; its device time, the
+    # launches queued behind a sleep (the masked wrappers' host work, the
+    # need map and the grouped form's batch order, then overlaps nothing),
+    # stands beside it
+    b1_device_ms = {}
+    for name_, kw_ in (("mips_g_scan", {}), ("mips_g_scan_mask", {"mask": year_dev}),
+                       ("mips_g_scan_gmask", {"gmasks": st32, "mask_ids": g32})):
+        b1_device_ms[name_] = queued_ms(lambda: mips_g_scan(q8, engine.vectors, n_valid, rb, m, **kw_), 10)
+    # the share of (query tile, 128-row group) pairs the grouped scan computes
+    # (the rest are skipped: no row passes any signature of the tile)
+    gperm = mips_g_batch_order(g32)
+    gneed_share = float(mips_g_tile_need(nrows, gmasks=st32, mask_ids=g32[gperm]).float().mean())
     qx = quantize_queries(unit_rows(512, D, 14, dev))[0]
     timed("mips_topk", lambda: mips_topk(qx, xeng.vectors, xeng.scales, NC, None, 40),
           lambda: mips_topk_plain(qx, xeng.vectors, xeng.scales, NC, None, 40),
@@ -1466,15 +1533,7 @@ def main(argv=None) -> int:
         launch()
         if not torch.equal(out_, ivf_probe_scores(q_, s_, u_)[0]):
             raise AssertionError("B6's direct launch disagrees with its wrapper")
-        torch.cuda.synchronize()
-        ev6 = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        torch.cuda._sleep(20_000_000)   # ~10 ms: the host queues all n launches meanwhile
-        ev6[0].record()
-        for _ in range(n):
-            launch()
-        ev6[1].record()
-        ev6[1].synchronize()
-        return ev6[0].elapsed_time(ev6[1]) / n
+        return queued_ms(launch, n)
 
     def b6_bytes_ops(b_, p_, r_, distinct_):
         return (distinct_ * r_ * D + b_ * D * 4 + 4 * b_ * p_ * r_ + 4 * b_,
@@ -1505,7 +1564,8 @@ def main(argv=None) -> int:
                  "fused_*_int8_layer_gemma": [*gx512.shape[:2], GD, GI, GH, GHK, GDH],
                  "ivf_probe_scores": {"B": 8, "P": P6, "R": R6, "D": D, "distinct_chunks": distinct6,
                                       "spill_chunks": n_spill_ch, "nprobe": int(np_cal)}},
-         b2_at_64x64=b2_64x64, int8_product_ms=int8_product_ms,
+         b2_at_64x64=b2_64x64, int8_product_ms=int8_product_ms, mips_g_scan_small_batch=b1_small,
+         mips_g_scan_device_ms=b1_device_ms, mips_g_scan_gmask_computed_share=gneed_share,
          ivf_search_ms=lat, ivf_probe_scores_wrapper_ms=b6_wrapper_ms, b6_shapes=b6_shapes,
          scan_rescore_ms_per_batch={"kernel": pipe_k, "plain": pipe_p, "qps_kernel": 1024 / pipe_k * 1e3},
          encoder_forward_ms={"kernel": enc_k, "plain": enc_p, "shape": [512, S]},

@@ -796,3 +796,163 @@ def test_attn_int8_products_bit_equal_plain_stages(cuda, form, b, s):
     y = dequant(i8_matmul(stages["aq"], lq["wo"]["q"]), stages["sa"][:, None], lq["wo"]["s"])
     want = x.view(b * s, -1) + _block_out(y, pw, cfg.rms_norm_eps)
     assert torch.equal(out, want.view(b, s, -1))
+
+
+# ---- B1 on wgmma + TMA with whole-group skipping, B7 on bf16 tensor cores ----
+
+
+def _b1_inputs(cuda, n, d, b, seed):
+    g = torch.Generator().manual_seed(seed)
+    codes = torch.randint(-127, 128, (n, d), generator=g, dtype=torch.int8).to(cuda)
+    q8 = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8).to(cuda)
+    return g, codes, q8
+
+
+@pytest.mark.parametrize("b", [1, 8, 64, 127, 129, 1024])
+@pytest.mark.parametrize("d,rb,m", [(48, 128, 1), (768, 512, 2), (1024, 4096, 4), (1024, 128, 4),
+                                    (768, 4096, 1), (48, 512, 4)])
+def test_mips_g_kernel_bit_equal_over_batch_and_geometry(cuda, b, d, rb, m):
+    """B1's unmasked form bit-equal to plain over the batch (one query
+    tile, a partial one, eight), D with a K tail (48, 768) and the row
+    block / merge geometries, with n_valid inside the last group."""
+    span = rb * m
+    n = span * max(2, 8192 // span)
+    _, codes, q8 = _b1_inputs(cuda, n, d, b, b + d + rb + m)
+    nv = n - 77
+    before = mips_g_launches.n
+    ck = mips_g_scan(q8, codes, nv, rb, m)
+    assert mips_g_launches.n == before + 1
+    assert torch.equal(ck, mips_g_scan_plain(q8, codes, nv, rb, m))
+
+
+@pytest.mark.parametrize("kind", ["range", "stripe", "three", "none", "random", "first_groups"])
+@pytest.mark.parametrize("b,d,rb,m", [(8, 48, 128, 1), (129, 768, 512, 2), (1024, 1024, 4096, 4),
+                                      (64, 1024, 128, 4)])
+def test_mips_g_mask_form_bit_equal_with_skipped_groups(cuda, kind, b, d, rb, m):
+    """The one-mask form, whose kernel skips every 128-row group with no
+    passing row: bit-equal to plain for masks that leave no group, a few
+    groups, every group, and contiguous id ranges (the year filters)."""
+    span = rb * m
+    n = span * max(2, 16384 // span)
+    g, codes, q8 = _b1_inputs(cuda, n, d, b, 7 * b + d)
+    mask = _mask(kind, n, g) if kind != "first_groups" else torch.zeros(n, dtype=torch.int8)
+    if kind == "first_groups":
+        mask[:300] = 1
+    mask = mask.to(cuda)
+    before = mips_g_mask_launches.n
+    ck = mips_g_scan(q8, codes, n - 5, rb, m, mask=mask)
+    assert mips_g_mask_launches.n == before + 1
+    assert torch.equal(ck, mips_g_scan_plain(q8, codes, n - 5, rb, m, mask=mask))
+
+
+@pytest.mark.parametrize("n_masks", [1, 8, 32, 128])
+@pytest.mark.parametrize("b", [8, 129, 1024])
+def test_mips_g_gmask_form_bit_equal_with_ids_out_of_range(cuda, n_masks, b):
+    """The grouped form (batch ordered by mask id, groups skipped per
+    query tile) bit-equal to plain, with ids outside [0, G) and masks of
+    every kind."""
+    n, d, rb, m = 16384, 256, 1024, 2
+    g, codes, q8 = _b1_inputs(cuda, n, d, b, 31 * n_masks + b)
+    kinds = ["range", "stripe", "three", "none", "random"]
+    gm = torch.stack([_mask(kinds[i % 5], n, g) for i in range(n_masks)]).to(cuda)
+    ids = torch.randint(-2, n_masks + 2, (b,), generator=g, dtype=torch.int32).to(cuda)
+    before = mips_g_gmask_launches.n
+    ck = mips_g_scan(q8, codes, n - 3, rb, m, gmasks=gm, mask_ids=ids)
+    assert mips_g_gmask_launches.n == before + 1
+    assert torch.equal(ck, mips_g_scan_plain(q8, codes, n - 3, rb, m, gmasks=gm, mask_ids=ids))
+
+
+@pytest.mark.parametrize("form", ["none", "mask", "gmask"])
+@pytest.mark.parametrize("b", [8, 129])
+@pytest.mark.parametrize("d", [1040, 2048])
+def test_mips_g_streamed_query_chunk_bit_equal_with_split_spans(cuda, form, b, d):
+    """D > 1024: the query tile no longer stays resident and its chunk
+    rides in every ring stage. Every form bit-equal to plain, with each
+    span cut into several slices (8 output blocks for the card's SMs)."""
+    from theoremsearch_tpu_torch.kernels.mips import mips_g_splits
+
+    n, rb, m = 32768, 2048, 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mips_g_splits(b, n // (rb * m), rb // 128 * m, sms, masked=form != "none") > 1
+    g, codes, q8 = _b1_inputs(cuda, n, d, b, d + b)
+    kw = {}
+    if form == "mask":
+        kw = {"mask": _mask("range", n, g).to(cuda)}
+    elif form == "gmask":
+        kinds = ["range", "stripe", "three", "none", "random"]
+        kw = {"gmasks": torch.stack([_mask(k_, n, g) for k_ in kinds]).to(cuda),
+              "mask_ids": torch.randint(-1, 7, (b,), generator=g, dtype=torch.int32).to(cuda)}
+    nv = n - 300
+    ck = mips_g_scan(q8, codes, nv, rb, m, **kw)
+    assert torch.equal(ck, mips_g_scan_plain(q8, codes, nv, rb, m, **kw))
+
+
+def test_mips_g_gmask_empties_groups_for_one_query_tile_only(cuda):
+    """Two query tiles after the id order: signature 0 passes only the
+    first 200 rows, signature 1 only rows near the end, so each tile
+    skips groups the other computes; bit-equal to plain, and every cell
+    a tile's signatures exclude reads exactly INT32_MIN + 1."""
+    n, d, rb, m, b = 8192, 1024, 512, 1, 256
+    g, codes, q8 = _b1_inputs(cuda, n, d, b, 5)
+    gm = torch.zeros((2, n), dtype=torch.int8)
+    gm[0, :200] = 1
+    gm[1, n - 700:] = 1
+    gm = gm.to(cuda)
+    ids = (torch.arange(b) % 2).to(torch.int32)[torch.randperm(b, generator=g)].to(cuda)
+    ck = mips_g_scan(q8, codes, n, rb, m, gmasks=gm, mask_ids=ids)
+    assert torch.equal(ck, mips_g_scan_plain(q8, codes, n, rb, m, gmasks=gm, mask_ids=ids))
+    lanes = ck.view(b, n // rb, 128)
+    assert bool((lanes[ids == 0, 1:] == -(2**31) + 1).all())
+    assert bool((lanes[ids == 1, : (n - 700) // rb] == -(2**31) + 1).all())
+
+
+def _bwd_case(cuda, b, s, h, hk, full, causal, seed):
+    gb = torch.Generator(device=cuda).manual_seed(seed)
+    dh = 128
+    q = (torch.randn((b, s, h * dh), generator=gb, device=cuda) * 0.5).to(torch.bfloat16)
+    k = (torch.randn((b, s, hk * dh), generator=gb, device=cuda) * 0.5).to(torch.bfloat16)
+    v = (torch.randn((b, s, hk * dh), generator=gb, device=cuda) * 0.5).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn((2, dh), generator=gb, device=cuda)
+    if full:
+        mask = torch.ones((b, s), dtype=torch.int32, device=cuda)
+    else:
+        lens = torch.randint(1, s + 1, (b,), generator=gb, device=cuda)
+        mask = (torch.arange(s, device=cuda)[None] < lens[:, None]).to(torch.int32)
+        mask[:, 0] = 1
+        if s > 4:
+            mask[-1, 1 : s // 2] = 0                 # interior holes in one item
+            mask[1, :2] = 0                          # causal rows 0-1 with no real key
+    ang = torch.clamp(mask.cumsum(1) - 1, min=0)[..., None].float() * torch.rand(
+        (dh // 2,), generator=gb, device=cuda)
+    gr = (torch.randn((b, s, h * dh), generator=gb, device=cuda) * mask[..., None]).to(torch.bfloat16)
+    kw = dict(num_heads=h, num_kv_heads=hk, head_dim=dh, eps=1e-6, causal=causal)
+    return (q, k, v, w[0].contiguous(), w[1].contiguous(), ang.cos(), ang.sin(), mask, gr), kw
+
+
+@pytest.mark.parametrize("s", [1, 7, 16, 33, 64, 100, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_bwd_kernel_over_s_groups_masks(cuda, s, group, full, causal):
+    """B7 against its plain version: dq/dk/dv cosine > 0.9999 and max abs
+    <= 2e-2 * max|plain|, dqw/dkw max abs <= 1e-3 * max|plain|, and a
+    second launch bit-equal to the first."""
+    from theoremsearch_tpu_torch.kernels.attention import (
+        fused_qknorm_rope_attention_bwd, fused_qknorm_rope_attention_bwd_plain)
+
+    hk = 2
+    args, kw = _bwd_case(cuda, 3, s, hk * group, hk, full, causal, 100 * s + 10 * group + full)
+    out = fused_qknorm_rope_attention_bwd(*args, **kw)
+    again = fused_qknorm_rope_attention_bwd(*args, **kw)
+    ref = fused_qknorm_rope_attention_bwd_plain(*args, scale=128 ** -0.5, **kw)
+    for i, (o, o2, r) in enumerate(zip(out, again, ref)):
+        assert torch.equal(o, o2) and o.dtype == r.dtype and o.shape == r.shape
+        a, c = o.double().flatten(), r.double().flatten()
+        err, top = float((a - c).abs().max()), float(c.abs().max())
+        if i < 3 and top == 0.0:                     # S = 1: dq = dk = 0 exactly
+            assert err == 0.0, i
+        elif i < 3:
+            assert float(a @ c / (a.norm() * c.norm())) > 0.9999, i
+            assert err <= 2e-2 * top, (i, err, top)
+        else:
+            assert err <= 1e-3 * top, (i, err, top)

@@ -17,7 +17,8 @@ ROOT = PKG.parent
 MODULES = sorted(
     m.name for m in pkgutil.walk_packages([str(PKG)], "theoremsearch_tpu_torch.")
 )
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_kernel_ab.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_kernel_ab.py",
+                                       ROOT / "tools" / "torch_serve_ab.py"]
 
 
 def test_every_module_imports_with_jax_blocked():

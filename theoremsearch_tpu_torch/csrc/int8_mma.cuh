@@ -1,7 +1,7 @@
-// Device helpers shared by the int8 mma.sync kernels (mips_g.cu,
-// mips_topk.cu, ivf_scores.cu): 16-byte cp.async copies into shared memory
-// and the mma.sync m16n8k32 s8 x s8 -> s32 product. (layer_int8.cu's
-// product runs on wgmma, wgmma_tma.cuh.)
+// Device helpers shared by the int8 mma.sync kernels (mips_topk.cu,
+// ivf_scores.cu): 16-byte cp.async copies into shared memory and the
+// mma.sync m16n8k32 s8 x s8 -> s32 product. (The products of
+// layer_int8.cu and mips_g.cu run on wgmma, wgmma_tma.cuh.)
 //
 // Fragment layout of mma_s8 (lane = 4 * gq + tig):
 //   A (16 x 32, row-major): a0 = row gq, bytes 4*tig..+3; a1 = row gq + 8;

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) helpers for the warp-specialized int8 product of
-// layer_int8.cu: mbarriers, TMA tile loads, wgmma s8 x s8 -> s32 with both
-// operands in shared memory, and the host-side tensor maps. Kept apart
-// from int8_mma.cuh (the mma.sync helpers of mips_g.cu, mips_topk.cu and
+// Hopper (sm_90a) helpers for the warp-specialized int8 products of
+// layer_int8.cu and mips_g.cu: mbarriers, TMA tile loads, wgmma s8 x s8 ->
+// s32 with both operands in shared memory, and the host-side tensor maps.
+// Kept apart from int8_mma.cuh (the mma.sync helpers of mips_topk.cu and
 // ivf_scores.cu), which this header does not touch.
 //
 // Layout: every operand tile is K-major int8, 128 bytes of K a row (one

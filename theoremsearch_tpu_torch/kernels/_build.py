@@ -51,7 +51,7 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ts_mips_g_scan.argtypes = [p, p, p, i, i, i, i, i, i, p, p, i, p]
+    lib.ts_mips_g_scan.argtypes = [p, p, p, i, i, i, i, i, i, p, p, i, p, p, i, p]
     lib.ts_mips_g_scan.restype = i
     lib.ts_mips_topk_chunks.argtypes = [i, i]
     lib.ts_mips_topk_chunks.restype = i

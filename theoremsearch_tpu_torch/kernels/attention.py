@@ -234,15 +234,18 @@ def fused_qknorm_rope_attention_bwd(
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
     dev = q.device
-    qw = q_norm_w.to(dev, torch.float32).contiguous()
-    kw_ = k_norm_w.to(dev, torch.float32).contiguous()
-    cs = cos.to(dev, torch.float32).contiguous()
-    sn = sin.to(dev, torch.float32).contiguous()
+
+    def f32_aligned(t):   # the kernel reads these in 16-byte pieces
+        t = t.to(dev, torch.float32).contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    qw, kw_, cs, sn = (f32_aligned(t) for t in (q_norm_w, k_norm_w, cos, sin))
     m = mask.to(dev, torch.int32).contiguous()
     if qw.shape != (head_dim,) or kw_.shape != (head_dim,):
         raise ValueError("norm weights must be (head_dim,)")
     if cs.shape != (b, s, head_dim // 2) or sn.shape != cs.shape or m.shape != (b, s):
         raise ValueError("cos/sin must be (B, S, Dh/2) and mask (B, S)")
+    q, k, v, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # per-block partial sums of the norm-weight gradients, summed in a
     # fixed order by the second launch

@@ -157,6 +157,66 @@ def _check_masks(b: int, n_pad: int, mask, gmasks, mask_ids) -> None:
             raise ValueError(f"mask_ids must be int32 ({b},)")
 
 
+MIPS_G_QUERY_TILE = 128   # queries a block of the B1 kernel
+
+
+def mips_g_splits(b: int, n_blocks: int, g_eff: int, sms: int, masked: bool = False) -> int:
+    """Slices each output block's span is cut into (a power of two that
+    divides g_eff): the fewest that give the B1 kernel at least two blocks
+    an SM, four for the masked forms, whose passing rows (a year range)
+    may sit in a few spans and would leave the card waiting on them. One
+    query tile at B <= 128 leaves n_blocks spans for the card's `sms` SMs.
+    A slice keeps at least 8 groups; the slices' maxima meet through
+    atomicMax."""
+    tiles = -(-b // MIPS_G_QUERY_TILE)
+    want = (4 if masked else 2) * sms
+    s = 1
+    while tiles * n_blocks * s < want and s < min(g_eff // 8, 64):
+        s *= 2
+    return s
+
+
+def mips_g_batch_order(mask_ids: torch.Tensor) -> torch.Tensor | None:
+    """The grouped form's query order: stable by mask id, so that a
+    128-query tile holds few signatures and its union of passing rows
+    leaves whole corpus groups to skip. None when the batch is a single
+    tile (no order helps)."""
+    if mask_ids.shape[0] <= MIPS_G_QUERY_TILE:
+        return None
+    return torch.sort(mask_ids, stable=True).indices
+
+
+def mips_g_tile_need(
+    n_pad: int, mask: torch.Tensor | None = None, gmasks: torch.Tensor | None = None,
+    mask_ids: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The B1 kernel's tile-need map, uint8: for one `mask`, (n_pad/128,)
+    with 1 where some row of the 128-row group passes; for `gmasks` +
+    `mask_ids`, (query tiles, n_pad/128) with 1 where some row of the
+    group passes the mask of some query of the 128-query tile (an id
+    outside [0, G) passes nothing). A 0 lets the kernel skip the group:
+    every product there would give the INT32_MIN sentinel."""
+    n_tiles = n_pad // 128
+
+    def occupied(m: torch.Tensor) -> torch.Tensor:
+        # a 128-row group passes somewhere iff one of its 16 int64 words of
+        # mask bytes is nonzero: 8x fewer elements than the bytes
+        return m.contiguous().view(torch.int64).view(-1, n_tiles, 16).any(dim=2).view(torch.uint8)
+
+    if mask is not None:
+        return occupied(mask.view(1, n_pad))[0]
+    # row G of the padded map passes nothing: an id outside [0, G), clamped
+    # to -1 or G and taken mod G + 1, reads it
+    g = gmasks.shape[0]
+    occ = torch.nn.functional.pad(occupied(gmasks), (0, 0, 0, 1))          # (G + 1, n_tiles)
+    sel = occ.index_select(0, mask_ids.clamp(-1, g).remainder(g + 1))     # (B, n_tiles)
+    b = sel.shape[0]
+    if b <= MIPS_G_QUERY_TILE:
+        return sel.amax(dim=0, keepdim=True)
+    sel = torch.nn.functional.pad(sel, (0, 0, 0, -b % MIPS_G_QUERY_TILE))
+    return sel.view(-1, MIPS_G_QUERY_TILE, n_tiles).amax(dim=1)
+
+
 def mips_g_scan(
     q8: torch.Tensor, codes: torch.Tensor, n_valid: int, row_block: int, merge_tiles: int,
     mask: torch.Tensor | None = None, gmasks: torch.Tensor | None = None,
@@ -180,19 +240,32 @@ def mips_g_scan(
     n_blocks = n_pad // (row_block * merge_tiles)
     if n_pad % (row_block * merge_tiles) or not 1 <= n_blocks <= 65535:
         raise ValueError("mips_g_scan: bad corpus shape")
-    out = torch.empty((b, n_blocks * 128), dtype=torch.int32, device=q8.device)
+    g_eff = (row_block // 128) * merge_tiles
+    rows = None   # the output row of each query the kernel sees
     if mask is not None:
         masks, ids, n_masks, counter = mask, None, 1, mips_g_mask_launches
+        need = mips_g_tile_need(n_pad, mask=mask)
     elif gmasks is not None:
+        perm = mips_g_batch_order(mask_ids)
+        if perm is not None:
+            q8, mask_ids, rows = q8[perm], mask_ids[perm], perm.to(torch.int32)
         masks, ids, n_masks, counter = gmasks, mask_ids, gmasks.shape[0], mips_g_gmask_launches
+        need = mips_g_tile_need(n_pad, gmasks=gmasks, mask_ids=mask_ids)
     else:
-        masks, ids, n_masks, counter = None, None, 0, mips_g_launches
+        masks, ids, n_masks, counter, need = None, None, 0, mips_g_launches, None
+    sms = torch.cuda.get_device_properties(q8.device).multi_processor_count
+    splits = mips_g_splits(b, n_blocks, g_eff, sms, masked=masks is not None)
+    shape = (b, n_blocks * 128)
+    out = (torch.full(shape, INT32_MIN, dtype=torch.int32, device=q8.device) if splits > 1
+           else torch.empty(shape, dtype=torch.int32, device=q8.device))
     lib = load()
     err = lib.ts_mips_g_scan(
         q8.data_ptr(), codes.data_ptr(), out.data_ptr(), b, d, n_pad, int(n_valid),
         row_block, merge_tiles,
         None if masks is None else masks.data_ptr(), None if ids is None else ids.data_ptr(),
-        n_masks, ctypes.c_void_p(torch.cuda.current_stream(q8.device).cuda_stream),
+        n_masks, None if need is None else need.data_ptr(),
+        None if rows is None else rows.data_ptr(), splits,
+        ctypes.c_void_p(torch.cuda.current_stream(q8.device).cuda_stream),
     )
     check(lib, err, "mips_g_scan")
     counter.bump()

@@ -12,8 +12,18 @@ JSON line of CUDA-event times, in ms, at the encoder's serving shape
   causal) and gemma form (3/1 heads of 256, bidirectional), at (512, 64)
   and at (64, 64) with full masks;
 - B3 and B4 in both forms on one full-width layer of random int8 weights;
-- B1 (`mips_g_scan`, unmasked) at B = 1024 on a 1,048,576 x 1024 int8
-  corpus (row block 4096, merge tiles 4: the speed engine's geometry);
+- B1 (`mips_g_scan`) on a 1,048,576 x 1024 int8 corpus (row block 4096,
+  merge tiles 4: the speed engine's geometry) at B = 1024, 64 and 8:
+  unmasked, with a year mask (a contiguous 30% of the ids, as the serving
+  benchmark's year filter lays them out) and with 32 mask rows per query
+  (16 year windows, 8 category stripes, 8 citation bands, random ids);
+  each as device time (launches queued behind a sleep kernel) and as the
+  wrapper's back-to-back time (`..._back_to_back`), which also counts the
+  host work of the wrapper where it outlasts the card;
+- B7 (`fused_qknorm_rope_attention_bwd`) at the training shape (64, 64,
+  16, 8, 128) with full masks, and the full-width qwen train step "on"
+  (B2 forward, B7 backward) at 64 pairs x 64 tokens (median of 8 steps
+  after 2 warm ones);
 - the four full-width encoder forwards (`encode_pooled`): Qwen3-0.6B-
   class (`EncoderConfig()`) and embeddinggemma-300m-class
   (`GemmaEncoderConfig()`), bf16 and int8 whole layers.
@@ -39,6 +49,25 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device time per call, the calls queued behind a sleep kernel (a
+    wrapper whose host work outlasts its device work would otherwise be
+    timed by the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     t0.record()
     for _ in range(iters):
         fn()
@@ -136,8 +165,63 @@ def main(argv=None) -> int:
         xc = torch.randn((1 << 18, d), generator=g, device=dev)
         codes[lo:lo + (1 << 18)] = quantize_global_int8(xc / xc.norm(dim=1, keepdim=True))[0]
     q8, _ = quantize_queries(torch.randn((1024, d), generator=g, device=dev))
-    res["b1_1024x1M"] = cuda_ms(lambda: mips_g_scan(q8, codes, n, rb, m), 10)
-    del codes, xc
+    rows = torch.arange(n, device=dev)
+    year = ((rows >= int(0.4 * n)) & (rows < int(0.7 * n))).to(torch.int8)
+    yr = rows // (n // 30)
+    stack = ([(yr >= j) & (yr < j + 6) for j in range(1, 17)]
+             + [rows % 22 == c for c in range(8)]
+             + [(rows % 1000 >= 50 * j) & (rows % 1000 <= 50 * j + 120) for j in range(8)])
+    gm = torch.stack(stack).to(torch.int8)
+    gids = torch.randint(0, 32, (1024,), generator=g, device=dev, dtype=torch.int32)
+    for bs in (1024, 64, 8):
+        qs_, ids_ = q8[:bs].contiguous(), gids[:bs].contiguous()
+        for form, kw_ in (("", {}), ("year_mask_", {"mask": year}),
+                          ("gmask32_", {"gmasks": gm, "mask_ids": ids_})):
+            def scan(qs_=qs_, kw_=kw_):
+                return mips_g_scan(qs_, codes, n, rb, m, **kw_)
+            res[f"b1_{form}{bs}x1M"] = queued_ms(scan, 20)
+            res[f"b1_{form}{bs}x1M_back_to_back"] = cuda_ms(scan, 20)
+    del codes, xc, gm, stack
+
+    # B7 at the training shape, full masks
+    from theoremsearch_tpu_torch.kernels.attention import fused_qknorm_rope_attention_bwd
+
+    tb, ts, th, thk, tdh = 64, 64, 16, 8, 128
+    qa = (torch.randn((tb, ts, th * tdh), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    ka = (torch.randn((tb, ts, thk * tdh), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    va = (torch.randn((tb, ts, thk * tdh), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    ga = (torch.randn((tb, ts, th * tdh), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    w7 = 1.0 + 0.1 * torch.randn((2, tdh), generator=g, device=dev)
+    full = torch.ones((tb, ts), dtype=torch.int32, device=dev)
+    c7, s7 = _rope_tables(torch.clamp(full.cumsum(1) - 1, min=0), tdh, 1e6)
+    kw7 = dict(num_heads=th, num_kv_heads=thk, head_dim=tdh, eps=1e-6, causal=True)
+    res["b7_64x64"] = cuda_ms(lambda: fused_qknorm_rope_attention_bwd(
+        qa, ka, va, w7[0], w7[1], c7, s7, full, ga, **kw7), 50)
+    del qa, ka, va, ga
+
+    # the qwen train step "on" at 64 pairs x 64 tokens
+    from theoremsearch_tpu_torch.core.config import TrainConfig
+    from theoremsearch_tpu_torch.train.contrastive import init_train_state, make_train_step
+
+    tcfg = TrainConfig(batch_size=64, seq_len=64, learning_rate=2e-5, temperature=0.05)
+    trc = EncoderConfig(max_seq_len=64)
+    st = init_train_state(trc, tcfg, device=dev)
+    step = make_train_step(trc, tcfg, fused="on")
+    tq = torch.randint(3, trc.vocab_size, (tb, ts), generator=g, device=dev, dtype=torch.int32)
+    tp = tq.clone()
+    tp[:, 2:6] = torch.randint(3, trc.vocab_size, (tb, 4), generator=g, device=dev, dtype=torch.int32)
+    step_ms = []
+    for i in range(10):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        st, _ = step(st, tq, full, tp, full)
+        ev[1].record()
+        ev[1].synchronize()
+        if i >= 2:
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+    res["train_step_on_64x64"] = sorted(step_ms)[len(step_ms) // 2]
+    del st, step
+    torch.cuda.empty_cache()
 
     # the four full-width forwards
     ecfg, egcfg = EncoderConfig(), GemmaEncoderConfig()
