@@ -64,11 +64,14 @@ exits non-zero (there is no CPU path):
              a mixed 36-signature batch (grouped, split 32 + 4) equal to
              per-signature dispatch.
 10. b5       exact top-k kernel vs plain on the 1M per-row int8 corpus
-             and 262,144 x 1024 bf16 / f32 corpora, B 8 and 512, k 10,
-             40, 400, with and without a 0/-inf bias.
+             and 262,144 x 1024 bf16 / f32 corpora, B 8, 64 and 512, k
+             10, 40, 400, with no bias, a random 0/-inf bias and the year
+             filter's (a contiguous 30% of the ids passing); a second
+             launch bit-equal to the first.
 11. exact    SearchEngine on the 1M per-row int8 index with a bf16 host
              rescore copy (kernel B5), unfiltered and year-filtered, min
-             recall@10 over 5 draws of 512.
+             recall@10 over 5 draws of 512, and the route's wall time a
+             batch.
 12. serve_filtered  256 POST /search with filters from the 36-signature
              mix, 64 client threads, after a warm round: all 200, every
              result passes its filter, overlap@10 vs the direct path,
@@ -79,8 +82,13 @@ exits non-zero (there is no CPU path):
              the unmasked form also at B=8 and 64, first held bit-equal to
              plain there (the mask and gmask forms too at B=8), and its
              int8 product alone through torch._int_mm in 16,384-row slices
-             (library_ms); B5 at B=512
-             on 1M int8 per-row and bf16; B2, B3 and B4 at (512, 64); B6
+             (library_ms); B5 at B=512, k=40
+             on 1M int8 per-row and bf16, beside torch._int_mm /
+             torch.matmul over the same products in 16,384-row slices
+             (library_ms), and on int8 at B=8 and 64 (bit-equal to plain
+             there first), with the year bias (and its computed-group
+             share) and at k=400, as device time and back to back; B2, B3
+             and B4 at (512, 64); B6
              at the ivf phase's B=8 search and the b6 shapes, as device
              time: its launches queued behind a sleep kernel, between
              CUDA events), B2 in both forms at (64, 64) too, B3 and B4's
@@ -373,7 +381,7 @@ def main(argv=None) -> int:
         auto_merge_tiles, device_rescore, ivf_probe_scores, ivf_probe_scores_plain,
         ivf_scores_launches, mips_g_batch_order, mips_g_gmask_launches, mips_g_launches,
         mips_g_mask_launches, mips_g_scan, mips_g_scan_plain, mips_g_tile_need, mips_topk,
-        mips_topk_launches, mips_topk_plain, quantize_queries, select_candidates,
+        mips_topk_launches, mips_topk_need, mips_topk_plain, quantize_queries, select_candidates,
     )
     from theoremsearch_tpu_torch.search.engine import SearchEngine
     from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
@@ -902,25 +910,34 @@ def main(argv=None) -> int:
     rescore_bf16 = torch.from_numpy(corpus).to(torch.bfloat16)                       # host copy
     xeng = SearchEngine(xindex, meta=meta, rescore_vectors=rescore_bf16, device=dev)
     xbuild_s = time.perf_counter() - t0
-    bias = torch.where(torch.rand(NC, generator=gcpu) < 0.4, float("-inf"), 0.0).to(dev)
+    rows_nc = torch.arange(NC, device=dev)
+    biases = {"random": torch.where(torch.rand(NC, generator=gcpu) < 0.4, float("-inf"), 0.0).to(dev),
+              # the serving benchmark's year filter: a contiguous 30% of the ids
+              "year": torch.where((rows_nc >= int(0.4 * NC)) & (rows_nc < int(0.7 * NC)), 0.0,
+                                  float("-inf"))}
     xb = unit_rows(262_144, D, 11, dev)
-    corpora = {"int8_perrow_1M": (xeng.vectors, xeng.scales, bias, True),
-               "bf16_262k": (xb.to(torch.bfloat16), None, bias[:262_144].contiguous(), False),
-               "f32_262k": (xb, None, bias[:262_144].contiguous(), False)}
+    corpora = {"int8_perrow_1M": (xeng.vectors, xeng.scales, True),
+               "bf16_262k": (xb.to(torch.bfloat16), None, False),
+               "f32_262k": (xb, None, False)}
     del xb
-    cases = [(bb, k_, wb) for bb in (8, 512) for k_ in (10, 40, 400) for wb in (False, True)]
-    for cname, (cc, sc, bi, exact) in corpora.items():
+    cases = [(bb, k_, bf) for bb in (8, 512) for k_ in (10, 40, 400) for bf in (None, "random")]
+    cases += [(64, 40, None), (512, 40, "year"), (8, 40, "year")]
+    for cname, (cc, sc, exact) in corpora.items():
         qb5 = unit_rows(512, D, 12, dev)
         qk = quantize_queries(qb5)[0] if cc.dtype == torch.int8 else qb5.to(cc.dtype).contiguous()
-        for bb, k_, wb in (cases if cname != "f32_262k" else [(512, 10, True), (8, 40, False)]):
-            nv = cc.shape[0] - (1000 if wb else 0)
-            sk, ik = mips_topk(qk[:bb], cc, sc, nv, bi if wb else None, k_)
-            sp, ip = mips_topk_plain(qk[:bb], cc, sc, nv, bi if wb else None, k_)
+        for bb, k_, bf in (cases if cname != "f32_262k" else [(512, 10, "random"), (8, 40, None)]):
+            nv = cc.shape[0] - (1000 if bf else 0)
+            bi = None if bf is None else biases[bf][: cc.shape[0]].contiguous()
+            sk, ik = mips_topk(qk[:bb], cc, sc, nv, bi, k_)
+            sk2, ik2 = mips_topk(qk[:bb], cc, sc, nv, bi, k_)
+            sp, ip = mips_topk_plain(qk[:bb], cc, sc, nv, bi, k_)
             torch.cuda.synchronize()
             ok, err = topk_agree(sk, ik, sp, ip, exact)
+            repeat = torch.equal(sk, sk2) and torch.equal(ik, ik2)
             err_of["mips_topk"] = max(err_of["mips_topk"], err)
-            emit("b5", corpus=cname, batch=bb, k=k_, bias=wb, n_valid=nv, agree=ok, max_abs_err=err)
-            if not ok:
+            emit("b5", corpus=cname, batch=bb, k=k_, bias=bf, n_valid=nv, agree=ok,
+                 repeat_bit_equal=repeat, max_abs_err=err)
+            if not (ok and repeat):
                 raise AssertionError(f"B5 kernel disagrees with its plain version ({cname}, B={bb}, k={k_})")
     del corpora
 
@@ -930,6 +947,14 @@ def main(argv=None) -> int:
     path_start()
     xres = [(xeng.search_vectors(qq, k=10)[1], xeng.search_vectors(qq, k=10, filters=year)[1]) for qq in xq]
     path3 = path_end()
+    # the route's wall time a batch of 512, B5 and the host rescore included
+    # (results come back to the host, so each call ends synchronized)
+    exact_batch_ms = {}
+    for name_, kw_ in (("unfiltered", {}), ("year", {"filters": year})):
+        t0 = time.perf_counter()
+        for qq in xq:
+            xeng.search_vectors(qq, k=10, **kw_)
+        exact_batch_ms[name_] = (time.perf_counter() - t0) * 1e3 / len(xq)
     year_mask = host_masks[0]
     xrec, xrec_f, xpass = [], [], True
     for qq, (ids_u, ids_f) in zip(xq, xres):
@@ -938,6 +963,7 @@ def main(argv=None) -> int:
                                                         mask=year_mask)[1], k=10))
         xpass &= bool(year_mask[ids_f[ids_f >= 0]].all())
     emit("exact", rows=NC, speed_ok=xeng._speed_ok, build_s=round(xbuild_s, 3),
+         batch_ms_b512=exact_batch_ms,
          recall_draws=xrec, recall_min=min(xrec), recall_year_draws=xrec_f,
          recall_year_min=min(xrec_f), all_pass_filter=xpass, routes=dict(xeng.route_counts),
          launches=path3)
@@ -1350,6 +1376,51 @@ def main(argv=None) -> int:
     timed("mips_topk_bf16", lambda: mips_topk(qbf, bf_corpus, None, NC, None, 40),
           lambda: mips_topk_plain(qbf, bf_corpus, None, NC, None, 40),
           NC * D * 2 + 512 * D * 2 + 512 * 40 * 8, {"bf16": 2 * 512 * NC * D}, plain_iters=2)
+    # library yardsticks for B5's products alone (the port never calls
+    # them): torch._int_mm / torch.matmul over the same product in
+    # 16,384-row slices of the corpus
+    i8_slices = [xeng.vectors[r0 : r0 + 16384].t() for r0 in range(0, NC, 16384)]
+    bf_slices = [bf_corpus[r0 : r0 + 16384].t() for r0 in range(0, NC, 16384)]
+
+    def int_mm_b5():
+        for w_ in i8_slices:
+            torch._int_mm(qx, w_)
+
+    def matmul_b5():
+        for w_ in bf_slices:
+            torch.matmul(qbf, w_)
+
+    times["mips_topk"]["library_ms"] = cuda_ms(int_mm_b5, 5)
+    times["mips_topk_bf16"]["library_ms"] = cuda_ms(matmul_b5, 5)
+    del i8_slices, bf_slices
+    # B5 on the exact route's 1M per-row index beyond B = 512, k = 40: B = 8
+    # and 64 (held bit-equal to plain there first), the serving benchmark's
+    # year filter as a 0 / -inf bias (a contiguous 30% of the ids; only the
+    # groups with a passing row are computed) and k = 400; each as device
+    # time (launches queued behind a sleep kernel) and back to back
+    year_bias = biases["year"]
+    year_groups = int(mips_topk_need(year_bias, NC).sum())
+    b5_more = {}
+    for name_, bb, k_, bi in (("B8", 8, 40, None), ("B64", 64, 40, None),
+                               ("year_B512", 512, 40, year_bias), ("k400_B512", 512, 400, None)):
+        qs_ = qx[:bb].contiguous()
+
+        def exact_scan(qs_=qs_, k_=k_, bi=bi):
+            return mips_topk(qs_, xeng.vectors, xeng.scales, NC, bi, k_)
+
+        if bb < 512:
+            sk, ik = exact_scan()
+            if not topk_agree(sk, ik, *mips_topk_plain(qs_, xeng.vectors, xeng.scales, NC, bi, k_),
+                              True)[0]:
+                raise AssertionError(f"B5 at B={bb} on the 1M index disagrees with plain")
+        rows_ = NC if bi is None else year_groups * 128
+        b5_more[name_] = {"ms": queued_ms(exact_scan, 10), "wrapper_ms": cuda_ms(exact_scan, 10),
+                          **bound(rows_ * (D + 4 + (0 if bi is None else 4)) + bb * D + bb * k_ * 8,
+                                  {"int8": 2 * bb * rows_ * D})}
+    b5_more["year_B512"]["computed_group_share"] = year_groups / (NC // 128)
+    b5_device_ms = {
+        "mips_topk": queued_ms(lambda: mips_topk(qx, xeng.vectors, xeng.scales, NC, None, 40), 10),
+        "mips_topk_bf16": queued_ms(lambda: mips_topk(qbf, bf_corpus, None, NC, None, 40), 10)}
 
     def pipeline(scan):
         def run():
@@ -1566,6 +1637,7 @@ def main(argv=None) -> int:
                                       "spill_chunks": n_spill_ch, "nprobe": int(np_cal)}},
          b2_at_64x64=b2_64x64, int8_product_ms=int8_product_ms, mips_g_scan_small_batch=b1_small,
          mips_g_scan_device_ms=b1_device_ms, mips_g_scan_gmask_computed_share=gneed_share,
+         mips_topk_device_ms=b5_device_ms, mips_topk_more=b5_more,
          ivf_search_ms=lat, ivf_probe_scores_wrapper_ms=b6_wrapper_ms, b6_shapes=b6_shapes,
          scan_rescore_ms_per_batch={"kernel": pipe_k, "plain": pipe_p, "qps_kernel": 1024 / pipe_k * 1e3},
          encoder_forward_ms={"kernel": enc_k, "plain": enc_p, "shape": [512, S]},
@@ -1600,7 +1672,7 @@ def main(argv=None) -> int:
     del (engine, xeng, eng_ivf, ivf, flat_ivf, index, xindex, corpus_dev, ivf_dev, corpus,
          ivf_corpus, rescore_bf16, pa, cents_dev, bf_corpus, fn_cal, captured, cq, cs, cu,
          sched, service, direct, sched8, service8, direct8, fsched, fservice, isched, iservice,
-         idirect, encoder, encoder8, params, ql, x512, layer, lq, bias, st36, year_dev,
+         idirect, encoder, encoder8, params, ql, x512, layer, lq, biases, rows_nc, st36, year_dev,
          geng, gindex, gcorpus, gsched, gservice, gdirect, genc, genc8, gql, gx512, glayer, glq,
          gqa, gka, gva, gcs, gsn, gmlp, gparams, gk, gp, go, g8k, g8p)
     import gc

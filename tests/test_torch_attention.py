@@ -67,3 +67,26 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     a = fused_qknorm_rope_attention(*args, **kw_)
     b = fused_qknorm_rope_attention_plain(*args, scale=1.0 / np.sqrt(DH), **kw_)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dh", [128, 256])
+def test_qk_rms_statistic_is_order_free_f64_sum(dh):
+    """The q/k RMS statistic of B2, B7 and their plain versions: the f64
+    sum of the squares of bf16 values, rounded to f32 once, then
+    rsqrt(ss / Dh + eps) in f32. Permuting a row's columns gives a
+    bit-equal r, and the sum equals numpy's f64 sum rounded to f32."""
+    from theoremsearch_tpu_torch.kernels.attention import qk_rms_inv
+
+    rng = np.random.default_rng(dh)
+    x = _bf16((rng.standard_normal((64, dh)) * np.exp(rng.standard_normal((64, 1)) * 3))
+              .astype(np.float32)).float()
+    eps = 1e-6
+    r = qk_rms_inv(x, eps)
+    assert r.dtype == torch.float32 and r.shape == (64, 1)
+    for seed in range(4):
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(dh))
+        assert torch.equal(qk_rms_inv(x[:, perm], eps), r)
+    xn = x.numpy().astype(np.float64)
+    ss = (xn * xn).sum(axis=1, keepdims=True).astype(np.float32)
+    want = torch.rsqrt(torch.from_numpy(ss) / dh + eps)
+    assert torch.equal(r, want)

@@ -151,21 +151,127 @@ def test_mips_topk_kernel_matches_plain(cuda, dtype, k, with_bias):
     sk, ik = mips_topk(qk, corpus, scales, nv, bias, k)
     assert mips_topk_launches.n == before + 1
     sp, ip = mips_topk_plain(qk, corpus, scales, nv, bias, k)
-    if dtype == torch.int8:                     # exact sums: bit-equal, same tie rule
+    _assert_b5_agrees(sk, ik, sp, ip, exact=dtype == torch.int8)
+
+
+def _assert_b5_agrees(sk, ik, sp, ip, exact):
+    """B5 kernel vs plain: int8 (exact sums) bit-equal scores and ids, the
+    same tie rule; bf16/f32 (f32 sums in other orders) scores within 1e-5
+    of max(1, max|plain|), ids equal except where a neighbouring score is
+    within 1e-5."""
+    if exact:
         torch.testing.assert_close(sk, sp, rtol=0, atol=0)
         torch.testing.assert_close(ik, ip, rtol=0, atol=0)
         return
-    # f32 sums in other orders: scores within 1e-5, ids equal except
-    # where a neighbouring score is within 1e-5
     fin = torch.isfinite(sp)
     assert torch.equal(fin, torch.isfinite(sk))
-    assert float((sk[fin] - sp[fin]).abs().max()) <= 1e-5 * max(1.0, float(sp[fin].abs().max()))
+    if bool(fin.any()):
+        assert float((sk[fin] - sp[fin]).abs().max()) <= 1e-5 * max(1.0, float(sp[fin].abs().max()))
     near = torch.zeros_like(fin)
     gap = (sp[:, 1:] - sp[:, :-1]).abs() <= 1e-5
     near[:, 1:] |= gap
     near[:, :-1] |= gap
     near[:, -1] = True                          # the k-th slot's neighbour is outside the list
     assert torch.equal(ik[~near], ip[~near])
+
+
+def _b5_sweep_inputs(cuda, kind, n, d, b, seed):
+    """Unit rows, as the index holds them, with 40 copies of row 7 (exact
+    ties) and query 0 equal to it: (queries, corpus, scales)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, d), generator=g)
+    x /= x.norm(dim=1, keepdim=True)
+    x[100:140] = x[7]
+    q = torch.randn((b, d), generator=g)
+    q /= q.norm(dim=1, keepdim=True)
+    q[0] = x[7]
+    if kind == torch.int8:
+        amax = x.abs().amax(1, keepdim=True)
+        corpus = torch.round(x / (amax / 127)).clamp(-127, 127).to(torch.int8)
+        qk, scales = quantize_queries(q)[0], (amax[:, 0] / 127).float().to(cuda)
+    else:
+        corpus, qk, scales = x.to(kind), q.to(kind), None
+    return qk.to(cuda).contiguous(), corpus.to(cuda).contiguous(), scales
+
+
+def _b5_bias(cuda, form, n, seed):
+    """None; 40% of rows at -inf; a contiguous 30% window passing (a year
+    filter); every row excluded; all but 3 rows excluded."""
+    if form is None:
+        return None
+    g = torch.Generator().manual_seed(seed)
+    b = torch.full((n,), float("-inf"))
+    if form == "random":
+        b = torch.where(torch.rand(n, generator=g) < 0.4, float("-inf"), 0.0)
+    elif form == "window":
+        b[int(0.4 * n):int(0.7 * n)] = 0.0
+    elif form == "three":
+        b[[5, n // 2, n - 90]] = 0.0
+    return b.to(cuda)
+
+
+def _check_b5(qk, corpus, scales, nv, bias, k):
+    """One launch (the counter moves by one), a second one bit-equal to
+    it, then the plain version's agreement."""
+    before = mips_topk_launches.n
+    sk, ik = mips_topk(qk, corpus, scales, nv, bias, k)
+    assert mips_topk_launches.n == before + 1
+    s2, i2 = mips_topk(qk, corpus, scales, nv, bias, k)
+    assert torch.equal(sk, s2) and torch.equal(ik, i2)
+    sp, ip = mips_topk_plain(qk, corpus, scales, nv, bias, k)
+    _assert_b5_agrees(sk, ik, sp, ip, exact=corpus.dtype == torch.int8)
+
+
+@pytest.mark.parametrize("kind", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1, 10, 40, 64, 65, 400, 1024])
+@pytest.mark.parametrize("b", [1, 8, 64, 70, 512])
+def test_mips_topk_kernel_over_k_and_batch(cuda, kind, k, b):
+    """B5 at every query-tile form (64 queries for k <= 64, 16 above) and
+    span split (one wave of blocks for any B), n_valid short of the
+    padding, a 0 / -inf bias."""
+    n, d = 20480, 256
+    qk, corpus, scales = _b5_sweep_inputs(cuda, kind, n, d, b, seed=k * 1000 + b)
+    _check_b5(qk, corpus, scales, n - 77, _b5_bias(cuda, "random", n, seed=b), k)
+
+
+@pytest.mark.parametrize("kind", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [10, 40, 64])
+def test_mips_topk_kernel_with_the_top_rows_in_first_groups(cuda, kind, k):
+    """Query 0's 64 best rows, at distinct falling scores, lie in groups 2
+    and 134, the first groups of span 2's two warpgroups (132 spans at B =
+    8): the kernel's first-group bound (each query's exact k-th best score
+    of the group) must keep every one of them that belongs in the top k."""
+    n, d, b = 20480, 256, 8
+    g = torch.Generator().manual_seed(k)
+    x = torch.randn((n, d), generator=g)
+    x /= x.norm(dim=1, keepdim=True)
+    q = torch.randn((b, d), generator=g)
+    q /= q.norm(dim=1, keepdim=True)
+    rows = [256 + 4 * j for j in range(32)] + [134 * 128 + 4 * j for j in range(32)]
+    for j, r in enumerate(rows):
+        e = torch.randn(d, generator=g)
+        e -= (e @ q[0]) * q[0]
+        x[r] = q[0] + 0.02 * j * e / e.norm()
+        x[r] /= x[r].norm()
+    if kind == torch.int8:
+        amax = x.abs().amax(1, keepdim=True)
+        corpus = torch.round(x / (amax / 127)).clamp(-127, 127).to(torch.int8)
+        qk, scales = quantize_queries(q)[0], (amax[:, 0] / 127).float().to(cuda)
+    else:
+        corpus, qk, scales = x.to(kind), q.to(kind), None
+    _check_b5(qk.to(cuda).contiguous(), corpus.to(cuda).contiguous(), scales, n, None, k)
+
+
+@pytest.mark.parametrize("kind", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [48, 768, 1024, 1040, 2048])
+@pytest.mark.parametrize("form", [None, "random", "window", "none", "three"])
+def test_mips_topk_kernel_over_dims_and_filters(cuda, kind, d, form):
+    """B5 with the query tile resident or streamed (by D and kind) and
+    whole groups skipped by the need map (all -inf groups, a contiguous
+    window, all rows excluded, 3 rows left)."""
+    n = 20480
+    qk, corpus, scales = _b5_sweep_inputs(cuda, kind, n, d, 70, seed=d)
+    _check_b5(qk, corpus, scales, n - 77, _b5_bias(cuda, form, n, seed=d), 40)
 
 
 @pytest.mark.parametrize("s", [1, 17, 64, 128])

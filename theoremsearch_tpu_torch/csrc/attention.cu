@@ -3,7 +3,10 @@
 //
 // Replaces the TPU kernel theoremsearch_tpu/kernels/attention.py:_attn_kernel
 // (driven by fused_qknorm_rope_attention), with that kernel's casts:
-//   - norm statistics, the norm and RoPE in f32;
+//   - the norm and RoPE in f32; the RMS statistic's sum of squares in f64,
+//     rounded to f32 once (the squares of bf16 values are exact, so the
+//     sum is the same f32 in any order: the plain version and B7's
+//     recomputation take the same r bit for bit), r = rsqrtf(ss / DH + eps);
 //   - q multiplied by `scale` before its bf16 cast; k normed, rotated, cast;
 //   - logits f32 (bf16 x bf16 products, f32 sums) plus -1e30 where masked
 //     (causal x key padding);
@@ -80,13 +83,18 @@ namespace {
 constexpr int WARPS = 8;   // a block: 8 strips at S = 64 in the qwen form, 12 in the gemma form
 constexpr int THREADS = WARPS * 32;
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ double quad_sum(double v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
@@ -157,7 +165,7 @@ __device__ __forceinline__ int vpos(int d) {
   return (d & ~63) + 8 * ((dd & 15) >> 1) + 2 * (dd >> 4) + (dd & 1);
 }
 
-// RMSNorm (f32 stats) + half-split RoPE of one DH row of K held by a warp:
+// RMSNorm (f64 sum of squares) + half-split RoPE of one DH row of K held by a warp:
 // lane l holds E = DH / 64 consecutive elements of each half, x1[e] =
 // x[E l + e] and x2[e] = x[DH/2 + E l + e] (2 + 2 at DH 128, 4 + 4 at DH
 // 256), written at their kpos. A row past S (ok false) has x zero and
@@ -171,13 +179,10 @@ __device__ __forceinline__ void rope_row(const float (&x1)[DH / 64], const float
   constexpr int HALF = DH / 2;
   constexpr int E = DH / 64;
   const int d = E * lane;
-  float ss = x1[0] * x1[0];
+  double ss = 0.0;
 #pragma unroll
-  for (int e = 1; e < E; ++e) ss += x1[e] * x1[e];
-#pragma unroll
-  for (int e = 0; e < E; ++e) ss += x2[e] * x2[e];
-  ss = warp_sum(ss);
-  const float r = rsqrtf(ss / (float)DH + eps);   // torch.rsqrt's CUDA form
+  for (int e = 0; e < E; ++e) ss += (double)(x1[e] * x1[e]) + (double)(x2[e] * x2[e]);
+  const float r = rsqrtf((float)warp_sum(ss) / (float)DH + eps);   // torch.rsqrt's CUDA form
 #pragma unroll
   for (int e = 0; e < E; e += 2) {
     float y1[2], y2[2];
@@ -339,7 +344,7 @@ qknorm_rope_attention_kernel(
     const size_t ta = (size_t)b * S + (va ? ia : 0), tb = (size_t)b * S + (vb ? ib : 0);
     const __nv_bfloat16* qa = q + ta * qstride + (size_t)h * DH + 8 * tig;
     const __nv_bfloat16* qb = q + tb * qstride + (size_t)h * DH + 8 * tig;
-    float ssa = 0.0f, ssb = 0.0f;
+    double ssa = 0.0, ssb = 0.0;
 #pragma unroll
     for (int c = 0; c < DH / 32; ++c) {
       float xa[8], xb[8];
@@ -347,12 +352,12 @@ qknorm_rope_attention_kernel(
       unpack8(vb ? *reinterpret_cast<const uint4*>(qb + 32 * c) : make_uint4(0, 0, 0, 0), xb);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        ssa += xa[j] * xa[j];
-        ssb += xb[j] * xb[j];
+        ssa += (double)(xa[j] * xa[j]);
+        ssb += (double)(xb[j] * xb[j]);
       }
     }
-    const float ra = rsqrtf(quad_sum(ssa) / (float)DH + eps);
-    const float rb = rsqrtf(quad_sum(ssb) / (float)DH + eps);
+    const float ra = rsqrtf((float)quad_sum(ssa) / (float)DH + eps);
+    const float rb = rsqrtf((float)quad_sum(ssb) / (float)DH + eps);
 
     float lg[2 * NT][4];
 #pragma unroll

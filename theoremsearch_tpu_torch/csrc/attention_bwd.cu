@@ -78,8 +78,10 @@
 // after every operation, as the plain PyTorch version's unfused ops do
 // (the tensor cores sum the bf16 x bf16 products in another order than
 // the plain version's einsum, so the two agree to a tolerance). The RMS
-// statistics sum their squares in f32, as the reference's mean does, in
-// another order than the plain version's (one ulp apart at times).
+// statistics sum their squares in f64 and round to f32 once, as B2's
+// forward and both plain versions do: the squares of bf16 values are
+// exact, so every order gives the same f32 and the backward recomputes
+// exactly the r of the forward.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -97,6 +99,11 @@ constexpr int FSTR = DH + 8;   // f32 row of the dk scratch
 constexpr int RED_PARTS = 8;   // threads per column in the partial-sum kernel
 
 __device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ double quad_sum(double v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
@@ -234,10 +241,10 @@ __device__ __forceinline__ void stage_norm_rope(
       load16_f32(ctab + row * HALF + c0, c);
       load16_f32(stab + row * HALF + c0, sn);
     }
-    float ss = 0.0f;
+    double ss = 0.0;
 #pragma unroll
-    for (int i = 0; i < QC; ++i) ss += x1[i] * x1[i] + x2[i] * x2[i];
-    const float r = rsqrtf(quad_sum(ss) / (float)DH + eps);
+    for (int i = 0; i < QC; ++i) ss += (double)(x1[i] * x1[i]) + (double)(x2[i] * x2[i]);
+    const float r = rsqrtf((float)quad_sum(ss) / (float)DH + eps);
     float y1[QC], y2[QC];
 #pragma unroll
     for (int i = 0; i < QC; ++i) {
@@ -279,10 +286,10 @@ __device__ __forceinline__ void finish_rows(
       load16_f32(Fs + row * FSTR + c0, dy1);
       load16_f32(Fs + row * FSTR + HALF + c0, dy2);
     }
-    float ss = 0.0f;
+    double ss = 0.0;
 #pragma unroll
-    for (int i = 0; i < QC; ++i) ss += x1[i] * x1[i] + x2[i] * x2[i];
-    const float r = rsqrtf(quad_sum(ss) / (float)DH + eps);
+    for (int i = 0; i < QC; ++i) ss += (double)(x1[i] * x1[i]) + (double)(x2[i] * x2[i]);
+    const float r = rsqrtf((float)quad_sum(ss) / (float)DH + eps);
     float proj = 0.0f;
 #pragma unroll
     for (int i = 0; i < QC; ++i) {
@@ -600,17 +607,15 @@ __global__ void __launch_bounds__(THREADS, 1) qknorm_rope_attention_bwd_kernel(
           // rows ra and rb: the rotation's transpose and the norm adjoint.
           // Lane (gq, tig) holds columns d = 8 n + 2 tig + e, n < 8, of the
           // first half and d + 64 (n + 8) of the second, for both rows.
-          float ssa = 0.0f, ssb = 0.0f;
+          double ssa = 0.0, ssb = 0.0;
 #pragma unroll
           for (int n = 0; n < 16; ++n) {
             const float2 fa = bf2(xa[n]), fb = bf2(xb[n]);
-            ssa += fa.x * fa.x;
-            ssa += fa.y * fa.y;
-            ssb += fb.x * fb.x;
-            ssb += fb.y * fb.y;
+            ssa += (double)(fa.x * fa.x) + (double)(fa.y * fa.y);
+            ssb += (double)(fb.x * fb.x) + (double)(fb.y * fb.y);
           }
-          const float r_a = rsqrtf(quad_sum(ssa) / (float)DH + eps);
-          const float r_b = rsqrtf(quad_sum(ssb) / (float)DH + eps);
+          const float r_a = rsqrtf((float)quad_sum(ssa) / (float)DH + eps);
+          const float r_b = rsqrtf((float)quad_sum(ssb) / (float)DH + eps);
           const float* csa = ctab + tra * HALF + 2 * tig;
           const float* sna = stab + tra * HALF + 2 * tig;
           const float* csb = ctab + trb * HALF + 2 * tig;

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) helpers for the warp-specialized int8 products of
-// layer_int8.cu and mips_g.cu: mbarriers, TMA tile loads, wgmma s8 x s8 ->
-// s32 with both operands in shared memory, and the host-side tensor maps.
-// Kept apart from int8_mma.cuh (the mma.sync helpers of mips_topk.cu and
-// ivf_scores.cu), which this header does not touch.
+// Hopper (sm_90a) helpers for the warp-specialized products of
+// layer_int8.cu, mips_g.cu and mips_topk.cu: mbarriers, TMA tile and bulk
+// loads, wgmma s8 x s8 -> s32 and bf16 x bf16 -> f32 with both operands
+// in shared memory, and the host-side tensor maps. Kept apart from
+// int8_mma.cuh (the mma.sync helpers of ivf_scores.cu), which this header
+// does not touch.
 //
 // Layout: every operand tile is K-major int8, 128 bytes of K a row (one
 // 128-byte swizzle atom), loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B
@@ -10,7 +11,10 @@
 // the 128-byte swizzle mode, SBO = 1024 bytes (8 rows) and advances by 32
 // bytes (2 in its 16-byte address field) per k32 step.
 //
-// wgmma accumulator layout (m64nN, s32): thread t of the warpgroup, warp
+// A bf16 tile is the same bytes: 64 bf16 of K a row, k16 steps of 32 bytes
+// (the same descriptor advance).
+//
+// wgmma accumulator layout (m64nN, s32 or f32): thread t of the warpgroup, warp
 // wq = t / 32, lane = 4 * gq + tig, holds for each n8 block j
 //   d[4j], d[4j + 1] = (row 16 wq + gq, cols 8j + 2 tig, + 1),
 //   d[4j + 2], d[4j + 3] = (row 16 wq + gq + 8, the same cols).
@@ -76,6 +80,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory, completing on `bar` like a tile load
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // descriptor of a K-major, 128-byte swizzled tile at `tile` (1024-byte aligned)
 __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
@@ -103,6 +117,12 @@ __device__ __forceinline__ void fence_regs(int32_t (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 // named barrier `id` of n threads (a multiple of 32; id 0 is
 // __syncthreads): bar_sync waits for all n, bar_arrive counts the calling
 // warp's and goes on
@@ -112,6 +132,20 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// bar_sync that also returns whether p held in any of the n threads
+__device__ __forceinline__ bool bar_or(int id, int n, bool p) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"((uint32_t)p), "r"(id), "r"(n)
+      : "memory");
+  return r != 0;
 }
 
 template <int R>
@@ -200,6 +234,66 @@ __device__ __forceinline__ void wgmma_s8_n256(int32_t (&d)[128], uint64_t da, ui
         "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
         "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// mips_topk.cu's forms: bf16 at N = 128 (A the query tile, B the corpus
+// chunk); s8 and bf16 at N = 16 into half H of a two-half accumulator (A a
+// 64-row half of the corpus chunk, B the query tile).
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int H>
+__device__ __forceinline__ void wgmma_s8_n16(int32_t (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n}\n"
+      : "+r"(d[H * 8 + 0]), "+r"(d[H * 8 + 1]), "+r"(d[H * 8 + 2]), "+r"(d[H * 8 + 3]),
+        "+r"(d[H * 8 + 4]), "+r"(d[H * 8 + 5]), "+r"(d[H * 8 + 6]), "+r"(d[H * 8 + 7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int H>
+__device__ __forceinline__ void wgmma_bf16_n16(float (&d)[16], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[H * 8 + 0]), "+f"(d[H * 8 + 1]), "+f"(d[H * 8 + 2]), "+f"(d[H * 8 + 3]),
+        "+f"(d[H * 8 + 4]), "+f"(d[H * 8 + 5]), "+f"(d[H * 8 + 6]), "+f"(d[H * 8 + 7])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

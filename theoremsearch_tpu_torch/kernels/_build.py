@@ -53,9 +53,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ts_mips_g_scan.argtypes = [p, p, p, i, i, i, i, i, i, p, p, i, p, p, i, p]
     lib.ts_mips_g_scan.restype = i
-    lib.ts_mips_topk_chunks.argtypes = [i, i]
-    lib.ts_mips_topk_chunks.restype = i
-    lib.ts_mips_topk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.ts_mips_topk.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.ts_mips_topk.restype = i
     lib.ts_qknorm_rope_attention.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, p,

@@ -28,6 +28,19 @@ attention_gemma_launches = LaunchCounter()    # the gemma form, head_dim 256
 attention_bwd_launches = LaunchCounter()
 
 
+def qk_rms_inv(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The q/k RMSNorm statistic r = rsqrt(mean(x^2) + eps) over the last
+    axis, as B2, B7 and both plain versions take it: the squares of the
+    bf16-valued f32 inputs summed in f64 and rounded to f32 once (each
+    square is exact, so the sum is one f32 whatever its order), then
+    rsqrt(ss / Dh + eps) in f32, the kernels' rsqrtf(ss / DH + eps). The
+    reference's f32 `mean` is one rounding order among many; this one
+    is the same in every kernel and in the plain versions."""
+    xd = x.double()
+    ss = (xd * xd).sum(dim=-1, keepdim=True).float()
+    return torch.rsqrt(ss / x.shape[-1] + eps)
+
+
 def fused_qknorm_rope_attention_plain(
     q, k, v, q_norm_w, k_norm_w, cos, sin, mask, *,
     num_heads: int, num_kv_heads: int, head_dim: int, eps: float, causal: bool,
@@ -41,8 +54,7 @@ def fused_qknorm_rope_attention_plain(
     sn = sin.float()[:, :, None, :]
 
     def norm_rope(x, w):
-        var = (x * x).mean(dim=-1, keepdim=True)
-        x = x * torch.rsqrt(var + eps) * w.float()
+        x = x * qk_rms_inv(x, eps) * w.float()
         x1, x2 = x[..., :half], x[..., half:]
         return torch.cat([x1 * c - x2 * sn, x2 * c + x1 * sn], dim=-1)
 
@@ -147,8 +159,7 @@ def fused_qknorm_rope_attention_bwd_plain(
 
     def parts(x, w):
         """(rotated output, normalized-before-weight xn, r), all f32."""
-        var = (x * x).mean(dim=-1, keepdim=True)
-        r = torch.rsqrt(var + eps)
+        r = qk_rms_inv(x, eps)
         xn = x * r
         z = xn * w
         z1, z2 = z[..., :half], z[..., half:]

@@ -468,13 +468,59 @@ def mips_topk_plain(
     return _unpack_keys(best)
 
 
+MIPS_TOPK_GROUP = 128   # corpus rows a group of the B5 kernel
+
+
+def mips_topk_query_tile(k: int) -> int:
+    """Queries a block of the B5 kernel holds: 64, or 16 when k > 64, so
+    that the tile's heaps (tile x k int64 keys) fit in shared memory up to
+    k = 1024."""
+    return 64 if k <= 64 else 16
+
+
+def mips_topk_spans(b: int, n_groups: int, k: int, sms: int) -> int:
+    """Spans each query tile's corpus is cut into: the most that keep the
+    grid of (query tile, span) blocks within one wave of the card's `sms`
+    SMs (one block an SM), at least 1 and at most one a 128-row group.
+    Each span keeps its own k best; `torch.topk` merges the spans."""
+    tiles = -(-b // mips_topk_query_tile(k))
+    return max(1, min(n_groups, sms // tiles))
+
+
+def mips_topk_span_groups(count: int, n_spans: int, span: int) -> range:
+    """The positions of span `span` in the list of `count` needed groups,
+    as the kernel walks them: every n_spans-th, from `span`. Interleaving
+    spreads a run of similar rows (many candidates) over all the spans."""
+    return range(span, count, n_spans)
+
+
+def mips_topk_need(bias: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """The B5 kernel's need map, bool (n_pad / 128,): a 128-row group is
+    needed when it starts below n_valid and some bias value in it is
+    above -inf. A group that is not needed would only give (-inf, row)
+    keys, which never beat an empty slot."""
+    n_groups = bias.shape[0] // MIPS_TOPK_GROUP
+    live = (bias.view(n_groups, MIPS_TOPK_GROUP) != NEG_INF).any(dim=1)
+    starts = torch.arange(n_groups, device=bias.device) * MIPS_TOPK_GROUP
+    return live & (starts < n_valid)
+
+
+def mips_topk_group_list(need: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(groups int32 (n_groups,), count int32 (1,)): the needed groups in
+    increasing order first, then the rest; the count stays on the device,
+    so nothing waits for it on the host."""
+    order = torch.sort((~need).to(torch.uint8), stable=True).indices.to(torch.int32)
+    return order, need.sum(dtype=torch.int32).view(1)
+
+
 def mips_topk(
     qk: torch.Tensor, corpus: torch.Tensor, scales: torch.Tensor | None, n_valid: int,
     bias: torch.Tensor | None, k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The exact top-k scan: CUDA kernel `csrc/mips_topk.cu` (products and
-    per-chunk selection in the kernel, then one top-k over the chunks'
-    keys) for CUDA tensors, `mips_topk_plain` for CPU tensors."""
+    each span's k best in the kernel, then one top-k over the spans'
+    keys) for CUDA tensors, `mips_topk_plain` for CPU tensors. With a
+    bias, groups whose rows are all -inf are skipped (`mips_topk_need`)."""
     if not 1 <= k <= TOPK_MAX_K:
         raise ValueError(f"mips_topk: k={k} outside [1, {TOPK_MAX_K}]")
     if qk.device.type == "cpu":
@@ -491,13 +537,19 @@ def mips_topk(
     for t in extra:
         if t.dtype != torch.float32 or tuple(t.shape) != (n_pad,):
             raise ValueError(f"mips_topk: scales and bias must be f32 ({n_pad},)")
+    n_valid = min(int(n_valid), n_pad)
+    glist = count = None
+    if bias is not None:
+        glist, count = mips_topk_group_list(mips_topk_need(bias, n_valid))
+    sms = torch.cuda.get_device_properties(qk.device).multi_processor_count
+    n_spans = mips_topk_spans(b, n_pad // MIPS_TOPK_GROUP, k, sms)
+    part = torch.empty((b, n_spans * k), dtype=torch.int64, device=qk.device)
     lib = load()
-    n_chunks = lib.ts_mips_topk_chunks(n_pad, k)
-    part = torch.empty((b, n_chunks * k), dtype=torch.int64, device=qk.device)
     err = lib.ts_mips_topk(
         qk.data_ptr(), corpus.data_ptr(),
         None if scales is None else scales.data_ptr(), None if bias is None else bias.data_ptr(),
-        part.data_ptr(), kind, b, d, n_pad, int(n_valid), k,
+        None if glist is None else glist.data_ptr(), None if count is None else count.data_ptr(),
+        part.data_ptr(), kind, b, d, n_pad, n_valid, k, n_spans,
         ctypes.c_void_p(torch.cuda.current_stream(qk.device).cuda_stream),
     )
     check(lib, err, "mips_topk")
