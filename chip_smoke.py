@@ -72,6 +72,30 @@ exits non-zero (there is no CPU path):
              rescore copy (kernel B5), unfiltered and year-filtered, min
              recall@10 over 5 draws of 512, and the route's wall time a
              batch.
+11r. residual  a 1,048,576 x 1024 residual capacity index (2 bytes/dim:
+             FlatIndex.build(config.residual) on the card) on the speed
+             path with the device residual rescore: min recall@10 over
+             phase 6's 5 draws of 1024, batch ms beside phase 6's bf16-copy
+             engine; then the reference's 6,291,456-row capacity rung
+             (bench.py), built chunk by chunk on the card: recall over 2
+             draws of 1024 (oracle over the regenerated chunks), batch ms.
+11l. live    a second engine over phase 6's index (bf16 copy) at B=512:
+             baseline batch ms; 10,240 adds (each at rank 1); 1,000 main
+             and 100 delta deletes (no deleted id returned, the tombstone
+             over-fetch's batch ms); year-filtered and 36-signature grouped
+             batches over tombstones and the delta (every id passes, mask
+             build ms); phase 11's per-row index with the deletes (B5's
+             bias form); min recall@10 >= 0.99 over the live rows after
+             each step; B1's three forms and B5's bias form at these inputs
+             bit-equal to plain.
+11c. compact compact() then compact(reclaim=True), each while a client
+             thread queries (seconds, longest query, queries during); the
+             folded codes bit-equal to a fresh FlatIndex.build of the same
+             rows; a batch dispatched before the reclaim swap returns new
+             ids; recall held after both.
+11s. serve_live  POST /documents with 32 new slogans (B2 encodes them),
+             /search finds each by its text, /documents/delete, then the
+             deleted ids are absent; all 200.
 12. serve_filtered  256 POST /search with filters from the 36-signature
              mix, 64 client threads, after a warm round: all 200, every
              result passes its filter, overlap@10 vs the direct path,
@@ -118,6 +142,11 @@ exits non-zero (there is no CPU path):
              flat, ivf_index=...) -> SearchService -> HTTP, 128 requests
              from 8 client threads (batches <= 8, the IVF route): all 200
              with metadata, IVF route taken, overlap@10 vs the direct path.
+16l. ivf_live  phase 15's index behind a second engine: 1,024 adds, 1,024
+             deletes, compact and reclaim (IVFIndex.with_updates and
+             remap_ids): recall@10 at B=8 >= 0.99 at the calibrated nprobe
+             after each step, the IVF route kept, B6 bit-equal to plain on
+             the updated slabs.
 20. encoder_gemma / encoder_gemma_int8  the embeddinggemma-300m-class
              tower at full width (GemmaEncoderConfig(): 24 layers, d 768,
              3/1 heads of 256, vocab 262,144, the 768 -> 3072 -> 768 head;
@@ -163,8 +192,9 @@ exits non-zero (there is no CPU path):
              B2 at the training shape (64, 64, 16, 8, 128), the train step
              "on" and "off", and the script's total seconds.
 
-Each path (phases 5-7, 7b, 9, 11, 12, 15, 16, 18, 18g, 20, 21) runs with every launch counter set to
-0 just before it and read just after; kernel-vs-plain comparisons run
+Each path (phases 5-7, 7b, 9, 11, 11r, 11l, 11c, 11s, 12, 15, 16, 16l,
+18, 18g, 20, 21) runs with every launch counter set to 0 just before it
+and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
 stack, the train step).
@@ -175,6 +205,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -362,9 +393,9 @@ def main(argv=None) -> int:
     from theoremsearch_tpu_torch.eval.metrics import recall_vs_exact
     from theoremsearch_tpu_torch.eval.oracle import exact_topk
     from theoremsearch_tpu_torch.index import ivf as ivf_mod
-    from theoremsearch_tpu_torch.index.flat import FlatIndex
+    from theoremsearch_tpu_torch.index.flat import FlatIndex, l2_normalize_rows
     from theoremsearch_tpu_torch.index.ivf import IVFIndex, calibrate_nprobe
-    from theoremsearch_tpu_torch.index.quant import quantize_global_int8
+    from theoremsearch_tpu_torch.index.quant import quantize_global_int8, quantize_residual_int8
     from theoremsearch_tpu_torch.kernels import _build
     from theoremsearch_tpu_torch.kernels.attention import (
         attention_bwd_launches, attention_gemma_launches, attention_launches,
@@ -384,6 +415,7 @@ def main(argv=None) -> int:
         mips_topk_launches, mips_topk_need, mips_topk_plain, quantize_queries, select_candidates,
     )
     from theoremsearch_tpu_torch.search.engine import SearchEngine
+    from theoremsearch_tpu_torch.search.filters import compile_filter_mask
     from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
     from theoremsearch_tpu_torch.serve.app import SearchService, _filters_from_ui
     from theoremsearch_tpu_torch.serve.http_api import SearchServer
@@ -971,6 +1003,329 @@ def main(argv=None) -> int:
             and path3["mips_topk"] >= 10):
         raise AssertionError("exact phase failed")
 
+    # ---- 11r. the residual capacity mode (2 bytes/dim) ----
+    def batch_wall_ms(eng_, qq, n=8, **kw_):
+        """Wall ms a batch of search_vectors (results on the host)."""
+        eng_.search_vectors(qq, k=10, **kw_)
+        t0_ = time.perf_counter()
+        for _ in range(n):
+            eng_.search_vectors(qq, k=10, **kw_)
+        return (time.perf_counter() - t0_) * 1e3 / n
+
+    def profile_top(fn, name):
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10]
+        emit("profile", what=name, gpu=gpu, top_device_us=[
+            [e.key[:60], round(e.self_device_time_total, 1), e.count] for e in rows])
+
+    t0 = time.perf_counter()
+    rindex = FlatIndex.build(corpus, config=IndexConfig(dtype="int8", int8_scale="global", residual=True),
+                             device=dev)
+    rbuild_s = time.perf_counter() - t0
+    reng = SearchEngine(rindex, device=dev)      # adopts the residual codes
+    path_start()
+    rrec = []
+    for s in range(5):
+        _, ids = reng.search_vectors(qd[s], k=10)
+        rrec.append(recall_vs_exact(ids, oracle[s * 1024 : (s + 1) * 1024], k=10))
+    pathr = path_end()
+    qpad = qd[0].contiguous()
+    resid_ms = {"residual_device": cuda_ms(lambda: reng._speed_search(qpad, 10, 10), 10),
+                "bf16_copy_device": cuda_ms(lambda: engine._speed_search(qpad, 10, 10), 10),
+                "residual_wall": batch_wall_ms(reng, qd[0]), "bf16_copy_wall": batch_wall_ms(engine, qd[0])}
+    profile_top(lambda: reng._speed_search(qpad, 10, 10), "residual_scan_rescore_b1024")
+    emit("residual", rows=NC, build_s=round(rbuild_s, 3), speed_ok=reng._speed_ok,
+         bytes_per_dim=(reng.vectors.numel() + reng._res_codes_device.numel()) / (NC * D),
+         recall_draws=rrec, recall_min=min(rrec), batch_ms_b1024=resid_ms, gpu=gpu, launches=pathr)
+    if not (reng._speed_ok and reng._rescore_device is None and min(rrec) >= 0.99
+            and pathr["mips_g_scan"] >= 5):
+        raise AssertionError("residual phase failed")
+    del reng, rindex
+
+    # the reference's capacity rung (bench.py: 6,291,456 rows at 2 bytes/dim),
+    # built chunk by chunk on the card; its oracle regenerates the chunks
+    NR, RCH = 6_291_456, 262_144
+
+    def rung_chunk(i):
+        return unit_rows(RCH, D, 40_000 + i, dev)
+
+    t0 = time.perf_counter()
+    amax = max(float(rung_chunk(i).abs().max()) for i in range(NR // RCH))
+    rscale = amax / 127.0
+    div = torch.tensor(np.float32(rscale), device=dev)
+    rcodes = torch.empty((NR, D), dtype=torch.int8, device=dev)
+    rres = torch.empty((NR, D), dtype=torch.int8, device=dev)
+    rres_s = torch.empty(NR, dtype=torch.float32, device=dev)
+    for i in range(NR // RCH):
+        xc = rung_chunk(i)
+        sl = slice(i * RCH, (i + 1) * RCH)
+        rcodes[sl] = torch.clamp(torch.round(xc / div), -127, 127).to(torch.int8)
+        rres[sl], rres_s[sl] = quantize_residual_int8(xc, rcodes[sl], rscale)
+    rung = FlatIndex(vectors=rcodes, ids=torch.arange(NR, dtype=torch.int64),
+                     scales=torch.full((NR,), np.float32(rscale), device=dev), num_rows=NR,
+                     config=IndexConfig(dtype="int8", int8_scale="global", residual=True, dim=D),
+                     global_scale=rscale, rescore_residual=(rres, rres_s))
+    rung_eng = SearchEngine(rung, device=dev)
+    rung_build_s = time.perf_counter() - t0
+    rq = [unit_rows(1024, D, 41_000 + s, dev) for s in range(2)]
+    with torch.inference_mode():
+        best_s = torch.full((2048, 10), float("-inf"), device=dev)
+        best_i = torch.full((2048, 10), -1, dtype=torch.int64, device=dev)
+        qcat = torch.cat(rq)
+        for i in range(NR // RCH):
+            s_ = qcat @ rung_chunk(i).T
+            cs, ci = torch.topk(s_, 10, dim=1)
+            best_s, sel = torch.topk(torch.cat([best_s, cs], 1), 10, dim=1)
+            best_i = torch.gather(torch.cat([best_i, ci + i * RCH], 1), 1, sel)
+    rung_oracle = best_i.cpu().numpy()
+    path_start()
+    rung_rec = [recall_vs_exact(rung_eng.search_vectors(rq[s], k=10)[1],
+                                rung_oracle[s * 1024 : (s + 1) * 1024], k=10) for s in range(2)]
+    pathrr = path_end()
+    rung_ms = {"device": cuda_ms(lambda: rung_eng._speed_search(rq[0], 10, 10), 5),
+               "wall": batch_wall_ms(rung_eng, rq[0], n=4)}
+    emit("residual_rung", rows=NR, build_s=round(rung_build_s, 3),
+         device_gb=(rcodes.numel() + rres.numel() + rres_s.numel() * 4) / 1e9, recall_draws=rung_rec,
+         recall_min=min(rung_rec), batch_ms_b1024=rung_ms, gpu=gpu, launches=pathrr)
+    if not (rung_eng._speed_ok and min(rung_rec) >= 0.99 and pathrr["mips_g_scan"] >= 2):
+        raise AssertionError("residual_rung phase failed")
+    del rung_eng, rung, rcodes, rres, rres_s, best_s, best_i, qcat
+    torch.cuda.empty_cache()
+
+    # ---- 11l. live updates on phase 6's 1M index (bf16 rescore copy), B=512 ----
+    lmeta = bench_metadata(NC, texts, CorpusMetadata)
+    leng = SearchEngine(index, meta=lmeta, rescore_vectors=corpus, device=dev)
+    xl = SearchEngine(xindex, meta=meta, rescore_vectors=rescore_bf16, device=dev)
+    qlive = [qd[s][:512].contiguous() for s in range(5)]
+    NA = 10_240
+    add_vecs = l2_normalize_rows(unit_rows(NA, D, 50_000, dev).cpu())   # unit rows, as a build packs them
+    add_meta = [{"paper_id": f"new{i}", "paper_title": f"New paper {i}",
+                 "link": f"https://arxiv.org/abs/2501.{i:05d}", "year": 1995 + (i % 30),
+                 "primary_category": CATS[i % len(CATS)], "journal_ref": None if i % 2 else "J. Math.",
+                 "citations": i % 1000, "theorem_name": "Theorem", "slogan": f"added {i}",
+                 "theorem_body": ""} for i in range(NA)]
+    live_rows = torch.cat([corpus_dev, add_vecs.to(dev)])               # the oracle's rows
+    alive = np.zeros(NC + NA, bool)
+    alive[:NC] = True
+
+    def live_recall(eng_, qs_, mask=None, **kw_):
+        """min recall@10 over the draws vs the fp32 oracle over the live
+        (and passing) rows; every returned id live (and passing)."""
+        keep = alive if mask is None else alive & mask
+        recs, ok = [], True
+        for qq in qs_:
+            _, ids_ = eng_.search_vectors(qq, k=10, **kw_)
+            orc = exact_topk(qq, live_rows, k=10, device=dev, mask=keep)[1]
+            recs.append(recall_vs_exact(ids_, orc, k=10))
+            real = ids_[ids_ >= 0]
+            ok &= bool(keep[real].all()) and bool((ids_ >= 0).all())
+        return min(recs), ok
+
+    path_start()
+    base_ms = batch_wall_ms(leng, qlive[0])
+    rec0, ok0 = live_recall(leng, qlive)
+    t0 = time.perf_counter()
+    new_ids = np.concatenate([leng.add_documents(add_vecs[i : i + 1024].numpy(), normalize=False,
+                                                 meta_rows=add_meta[i : i + 1024]) for i in range(0, NA, 1024)])
+    add_s = time.perf_counter() - t0
+    alive[NC:] = True
+    self_hits = sum(int((leng.search_vectors(add_vecs[i : i + 512].numpy(), k=1)[1][:, 0]
+                         == new_ids[i : i + 512]).sum()) for i in range(0, NA, 512))
+    add_ms = batch_wall_ms(leng, qlive[0])
+    rec_add, ok_add = live_recall(leng, qlive)
+    gdel = np.random.default_rng(60)
+    del_main = gdel.choice(NC, 1000, replace=False)
+    del_delta = new_ids[gdel.choice(NA, 100, replace=False)]
+    deleted = np.concatenate([del_main, del_delta])
+    assert leng.delete_documents(deleted) == 1100
+    alive[deleted] = False
+    r0 = dict(leng.route_counts)
+    del_ms = batch_wall_ms(leng, qlive[0])
+    rec_del, ok_del = live_recall(leng, qlive)
+    overfetch_batches = leng.route_counts.get("overfetch", 0) - r0.get("overfetch", 0)
+    # filtered, with tombstones and the delta: the year mix (masked) and
+    # the 36-signature grouped mix; every id passes its filter and lives
+    lmasks = [np.asarray(compile_filter_mask(f, leng.meta), bool) for f in f3 + f36]
+    fb0, fs0 = leng.filter_mask_builds, leng.filter_mask_build_s
+    rec_year, ok_year = live_recall(leng, qlive, mask=lmasks[0], filters=f3[0])
+    year_builds = leng.filter_mask_builds - fb0
+    year_build_ms = (leng.filter_mask_build_s - fs0) * 1e3
+    sig = np.random.default_rng(61).integers(0, 36, 512)
+    fb1, fs1 = leng.filter_mask_builds, leng.filter_mask_build_s
+    _, gids36 = leng.search_vectors(qlive[1], k=10, filters=[f36[s_] for s_ in sig])
+    g36_builds = leng.filter_mask_builds - fb1
+    g36_build_ms = (leng.filter_mask_build_s - fs1) * 1e3
+    g36_ok = all(bool((alive & lmasks[3 + s_])[gids36[r][gids36[r] >= 0]].all()) for r, s_ in enumerate(sig))
+    year_ms = batch_wall_ms(leng, qlive[0], filters=f3[0])
+    # the exact route (phase 11's per-row index) with the same main deletes:
+    # unfiltered on the over-fetch, year-filtered on B5's bias form
+    xl.delete_documents(del_main)
+    xalive = np.ones(NC, bool)
+    xalive[del_main] = False
+    xrecs, xok = [], True
+    for qq in qlive[:3]:
+        for kw_, msk in (({}, xalive), ({"filters": year}, xalive & host_masks[0])):
+            _, ids_ = xl.search_vectors(qq, k=10, **kw_)
+            xrecs.append(recall_vs_exact(ids_, exact_topk(qq, corpus_dev, k=10, device=dev, mask=msk)[1], k=10))
+            xok &= bool(msk[ids_[ids_ >= 0]].all())
+    pathl = path_end()
+    profile_top(lambda: leng.search_vectors(qlive[0], k=10), "live_batch_b512_delta_tombstones")
+    # the three B1 forms and B5's bias form at the live inputs, vs plain
+    q8l, qsl = quantize_queries(qlive[0])
+    ml = auto_merge_tiles(D, leng.row_block // 128, leng.padded_rows // leng.row_block)
+    tomb_dev = leng._combined_mask_inputs(None)[1]
+    year_tomb_dev = leng._combined_mask_inputs(f3[0])[1]
+    st_live = torch.stack([leng._combined_mask_inputs(f)[1] for f in f36[:32]])
+    mid_live = torch.from_numpy(sig % 32).to(dev, torch.int32)
+    b1_live = {}
+    for name_, key_, kw_ in (("none", "mips_g_scan", {}), ("tombstones", "mips_g_scan_mask", {"mask": tomb_dev}),
+                             ("year_and_tombstones", "mips_g_scan_mask", {"mask": year_tomb_dev}),
+                             ("gmask_32_tombstones", "mips_g_scan_gmask",
+                              {"gmasks": st_live, "mask_ids": mid_live})):
+        b1_live[name_], _, _ = check_b1(key_, leng.n_valid, ml, q8l, qsl, leng._global_scale, leng.vectors,
+                                        leng.row_block, **kw_)
+    xbias = xl._combined_mask_inputs(year)[1]
+    qx8 = quantize_queries(qlive[0])[0]
+    sk, ik = mips_topk(qx8, xl.vectors, xl.scales, NC, xbias, 40)
+    sp, ip = mips_topk_plain(qx8, xl.vectors, xl.scales, NC, xbias, 40)
+    b5_live, b5_err = topk_agree(sk, ik, sp, ip, True)
+    err_of["mips_topk"] = max(err_of["mips_topk"], b5_err)
+    emit("live", rows=NC, batch=512, added=NA, add_s=round(add_s, 3), added_self_top1=self_hits,
+         deleted_main=1000, deleted_delta=100, batch_ms={"baseline": base_ms, "after_add": add_ms,
+         "after_delete": del_ms, "year_filtered": year_ms},
+         tombstone_overhead=del_ms / add_ms, overfetch_batches=overfetch_batches,
+         recall_min={"baseline": rec0, "after_add": rec_add, "after_delete": rec_del, "year": rec_year},
+         no_deleted_returned=ok0 and ok_add and ok_del and ok_year and g36_ok,
+         mask_builds={"year": year_builds, "grouped36": g36_builds},
+         mask_build_ms={"year": year_build_ms, "grouped36": g36_build_ms},
+         exact_route={"recall_min": min(xrecs), "all_live_and_passing": xok, "routes": dict(xl.route_counts)},
+         kernels_bit_equal={**b1_live, "mips_topk_bias": b5_live}, routes=dict(leng.route_counts),
+         num_live=leng.num_live, gpu=gpu, launches=pathl)
+    if not (self_hits == NA and min(rec0, rec_add, rec_del, rec_year, min(xrecs)) >= 0.99
+            and ok0 and ok_add and ok_del and ok_year and g36_ok and xok and all(b1_live.values())
+            and b5_live and leng.num_live == NC + NA - 1100
+            and all(pathl[k_] >= 1 for k_ in ("mips_g_scan", "mips_g_scan_mask", "mips_g_scan_gmask",
+                                               "mips_topk"))):
+        raise AssertionError("live phase failed")
+
+    # ---- 11c. compact and reclaim while a client queries ----
+    def compact_under_load(reclaim):
+        lat, stop_ = [], threading.Event()
+        qc = qlive[2][:64].contiguous()
+
+        def client():
+            while not stop_.is_set():
+                t_ = time.perf_counter()
+                leng.search_vectors(qc, k=10)
+                lat.append((t_, time.perf_counter() - t_))
+
+        base = [batch_wall_ms(leng, qc, n=20)]
+        th = threading.Thread(target=client)
+        th.start()
+        time.sleep(0.5)
+        t_c = time.perf_counter()
+        folded_ = leng.compact(reclaim=reclaim)
+        t_e = time.perf_counter()
+        time.sleep(0.2)
+        stop_.set()
+        th.join()
+        during = [(t_ - t_c, d_) for t_, d_ in lat if t_ + d_ >= t_c and t_ <= t_e]
+        slow = sorted(during, key=lambda x_: -x_[1])[:5]
+        return {"folded": folded_, "seconds": t_e - t_c, "queries_during": len(during),
+                "longest_query_ms": 1e3 * max((d_ for _, d_ in during), default=0.0),
+                "slowest_at_s_ms": [[round(a_, 3), round(1e3 * d_, 1)] for a_, d_ in slow],
+                "idle_query_ms": base[0],
+                "rows_after": leng.n_valid, "num_live_after": leng.num_live,
+                "stats": {k_: (round(v_, 4) if isinstance(v_, float) else v_)
+                          for k_, v_ in (leng.last_compact_stats or {}).items()}}
+
+    path_start()
+    comp = compact_under_load(False)
+    n_fold = leng.n_valid
+    rec_c, ok_c = live_recall(leng, qlive)
+    # the fold's codes against a fresh FlatIndex.build of the same rows
+    # (phase 6's normalized rows, the added rows, zeros at the deleted
+    # delta rows' ids, which fold as tombstoned gaps)
+    fold_rows = torch.cat([l2_normalize_rows(torch.from_numpy(corpus), dev), add_vecs])
+    fold_rows[torch.from_numpy(del_delta)] = 0
+    fresh = FlatIndex.build(fold_rows, config=IndexConfig(dtype="int8", int8_scale="global"),
+                            normalize=False, device=dev)
+    same_scale = fresh.global_scale == leng._global_scale
+    fold_equal = (same_scale and torch.equal(fresh.vectors[:n_fold], leng.index.vectors[:n_fold])
+                  and torch.equal(fresh.vectors[:n_fold].to(dev), leng.vectors[:n_fold]))
+    fold_dev = live_rows.clone()
+    fold_dev[torch.from_numpy(del_delta).to(dev)] = 0
+    rescore_equal = all(torch.equal(leng._rescore_device[i : i + 131_072],
+                                    fold_dev[i : i + 131_072].to(torch.bfloat16))
+                        for i in range(0, n_fold, 131_072))
+    del fold_rows, fresh, fold_dev
+    inflight = leng.search_vectors_async(qlive[3], k=10)          # dispatched before the swap
+    recl = compact_under_load(True)
+    _, inflight_ids = inflight()
+    id_map = leng.last_id_map
+    keep_old = np.nonzero(id_map >= 0)[0]
+    rows_new = live_rows[torch.from_numpy(keep_old).to(dev)]
+    orc_new = exact_topk(qlive[3], rows_new, k=10, device=dev)[1]
+    inflight_rec = recall_vs_exact(inflight_ids, orc_new, k=10)
+    _, after_ids = leng.search_vectors(qlive[3], k=10)
+    inflight_equal = float((inflight_ids == after_ids).mean())
+    rrecs = []
+    for qq in qlive:
+        _, ids_ = leng.search_vectors(qq, k=10)
+        rrecs.append(recall_vs_exact(ids_, exact_topk(qq, rows_new, k=10, device=dev)[1], k=10))
+    pathc = path_end()
+    emit("compact", compact=comp, reclaim=recl, recall_min_after_compact=rec_c,
+         recall_min_after_reclaim=min(rrecs), no_deleted_after_compact=ok_c,
+         fold_bit_equal_fresh_build=fold_equal, fold_same_global_scale=same_scale,
+         rescore_copy_bit_equal=rescore_equal, inflight_recall=inflight_rec,
+         inflight_ids_equal_post_swap=inflight_equal, generation=leng._generation,
+         rows_after_reclaim=leng.n_valid, gpu=gpu, launches=pathc)
+    if not (comp["folded"] == NA - 100 and recl["rows_after"] == NC + NA - 1100 and rec_c >= 0.99 and ok_c
+            and min(rrecs) >= 0.99 and fold_equal and rescore_equal and inflight_rec >= 0.99
+            and inflight_equal >= 0.99 and leng._tombstone is None and leng._speed_ok):
+        raise AssertionError("compact phase failed")
+
+    # ---- 11s. live routes over HTTP: add slogans, find them, delete them ----
+    lsched = BatchScheduler(leng, max_batch=64, encode_fn=encoder.encode_device)
+    lservice = SearchService(leng, encoder.encode, scheduler=lsched)
+    lserver = SearchServer(lservice, "127.0.0.1", 0).start()
+    new_texts = slogans(4096 + 32)[4096:]
+
+    def lpost(path_, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{lserver.port}{path_}", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        path_start()
+        code_add, added = lpost("/documents", {"documents": [
+            {"slogan": t_, "theorem_name": "Theorem", "link": "https://arxiv.org/abs/2502.00001",
+             "year": 2024, "paper_title": "Live"} for t_ in new_texts]})
+        with ThreadPoolExecutor(8) as ex:
+            found = list(ex.map(lambda t_: lpost("/search", {"query": t_, "top_k": 10}), new_texts))
+        code_del, deleted_ = lpost("/documents/delete", {"doc_ids": added["doc_ids"]})
+        with ThreadPoolExecutor(8) as ex:
+            after = list(ex.map(lambda t_: lpost("/search", {"query": t_, "top_k": 10}), new_texts))
+        paths = path_end()
+    finally:
+        lserver.stop()
+        lsched.shutdown()
+    ids_new = added["doc_ids"]
+    found_ok = [d_ in [r["doc_id"] for r in body["results"]] for d_, (_, body) in zip(ids_new, found)]
+    gone = all(not set(ids_new) & {r["doc_id"] for r in body["results"]} for _, body in after)
+    all200 = code_add == code_del == 200 and all(c_ == 200 for c_, _ in found + after)
+    emit("serve_live", added=len(ids_new), all_200=all200, found_by_text=sum(found_ok),
+         found_top1=sum(d_ == body["results"][0]["doc_id"] for d_, (_, body) in zip(ids_new, found)),
+         deleted=deleted_["deleted"], deleted_absent=gone, gpu=gpu, launches=paths)
+    if not (all200 and all(found_ok) and gone and deleted_["deleted"] == len(new_texts)
+            and paths["qknorm_rope_attention"] >= 1 and paths["mips_g_scan"] >= 1):
+        raise AssertionError("serve_live phase failed")
+    del leng, xl, lmeta, live_rows, rows_new, lservice, lsched, inflight
+    torch.cuda.empty_cache()
+
     # ---- 12. filtered serving over HTTP ----
     fsched = BatchScheduler(engine, max_batch=256, encode_fn=encoder.encode_device)
     fservice = SearchService(engine, encoder.encode, scheduler=fsched)
@@ -1164,6 +1519,83 @@ def main(argv=None) -> int:
     if not (icodes and ijoined and ivf_batches > 0 and np.mean(iover) >= 0.9 and len(ianswers) == 128
             and path7["ivf_probe_scores"] >= 1):
         raise AssertionError("serve_ivf phase failed")
+
+    # ---- 16l. live updates on the IVF route: adds, deletes, compact, reclaim ----
+    ieng = SearchEngine(flat_ivf, rescore_vectors=ivf_corpus, device=dev, ivf_index=ivf)
+    NAI = 1024
+    gi = torch.Generator(device=dev).manual_seed(70)
+    iadd = centres[torch.randint(0, NL, (NAI,), generator=gi, device=dev)] + (
+        1.5 / np.sqrt(D)) * torch.randn((NAI, D), generator=gi, device=dev)
+    iadd = (iadd / iadd.norm(dim=1, keepdim=True)).cpu()
+    irows = torch.cat([ivf_dev, iadd.to(dev)])                          # the oracle's rows, old ids
+    ialive = np.zeros(NI + NAI, bool)
+    ialive[:NI] = True
+
+    def ivf_live_recall(id_of_row=None):
+        """min recall@10 at B=8 over phase 15's 5 draws vs the fp32 oracle
+        over the live rows; every id live. id_of_row: old row -> present
+        id (after a reclaim)."""
+        recs, ok = [], True
+        for qq, _ in draws:
+            got = np.concatenate([ieng.search_vectors(qq[j : j + 8], k=10)[1] for j in range(0, 128, 8)])
+            orc = exact_topk(qq, irows, k=10, device=dev, mask=ialive)[1]
+            if id_of_row is not None:
+                orc = np.where(orc >= 0, id_of_row[np.clip(orc, 0, None)], -1)
+                live_ids = id_of_row[ialive]
+            else:
+                live_ids = np.nonzero(ialive)[0]
+            recs.append(recall_vs_exact(got, orc, k=10))
+            ok &= bool(np.isin(got, live_ids).all())
+        return min(recs), ok
+
+    path_start()
+    r_ivf0 = ieng.route_counts.get("ivf", 0)
+    iids = ieng.add_documents(iadd.numpy(), normalize=False)
+    ialive[NI:] = True
+    gdi = np.random.default_rng(71)
+    idel = np.concatenate([gdi.choice(NI, 1000, replace=False), iids[gdi.choice(NAI, 24, replace=False)]])
+    assert ieng.delete_documents(idel) == 1024
+    ialive[idel] = False
+    irec_live, iok_live = ivf_live_recall()
+    t0 = time.perf_counter()
+    assert ieng.compact() == NAI - 24
+    icompact_s = time.perf_counter() - t0
+    icompact_stats = dict(ieng.last_compact_stats)
+    irec_c, iok_c = ivf_live_recall()
+    t0 = time.perf_counter()
+    ieng.compact(reclaim=True)
+    ireclaim_s = time.perf_counter() - t0
+    ireclaim_stats = dict(ieng.last_compact_stats)
+    irec_r, iok_r = ivf_live_recall(id_of_row=ieng.last_id_map)
+    pathi = path_end()
+    ivf_batches_live = ieng.route_counts.get("ivf", 0) - r_ivf0
+    # B6 on the updated slabs against its plain version, at a B=8 search's chunks
+    ipa = ieng.ivf._device_arrays()
+    qb8 = draws[0][0][:8].contiguous()
+    with torch.no_grad():
+        probe = torch.topk(qb8 @ ipa["cents"].T, ieng.ivf_nprobe, dim=1).indices
+    nl_ = ieng.ivf.slabs.shape[0]
+    uids_live = ivf_mod.unique_fixed(
+        torch.cat([probe.reshape(-1), torch.arange(nl_, nl_ + ipa["n_spill_chunks"], device=dev)]),
+        min(8 * ieng.ivf_nprobe, nl_) + ipa["n_spill_chunks"], ipa["slabs"].shape[0] - 1).to(torch.int32)
+    ck, cqs = ivf_probe_scores(qb8, ipa["slabs"], uids_live)
+    cp, cps = ivf_probe_scores_plain(qb8, ipa["slabs"], uids_live)
+    b6_live = torch.equal(ck, cp) and torch.equal(cqs, cps)
+    err_of["ivf_probe_scores"] = max(err_of["ivf_probe_scores"], int((ck.long() - cp.long()).abs().max()))
+    emit("ivf_live", added=NAI, deleted=1024, nprobe=ieng.ivf_nprobe,
+         recall_b8_min={"live": irec_live, "after_compact": irec_c, "after_reclaim": irec_r},
+         no_deleted_returned=iok_live and iok_c and iok_r, ivf_route_batches=ivf_batches_live,
+         ivf_rows=ieng.ivf.num_rows, spill_rows=int((ieng.ivf.spill_ids >= 0).sum()),
+         compact_s=round(icompact_s, 3), reclaim_s=round(ireclaim_s, 3),
+         compact_stats={k_: (round(v_, 4) if isinstance(v_, float) else v_) for k_, v_ in icompact_stats.items()},
+         reclaim_stats={k_: (round(v_, 4) if isinstance(v_, float) else v_) for k_, v_ in ireclaim_stats.items()},
+         b6_bit_equal_updated_slabs=b6_live, gpu=gpu, launches=pathi)
+    if not (min(irec_live, irec_c, irec_r) >= 0.99 and iok_live and iok_c and iok_r and b6_live
+            and ieng.ivf is not None and ivf_batches_live >= 3 * 80 and ieng.n_valid == NI + NAI - 1024
+            and pathi["ivf_probe_scores"] >= 1):
+        raise AssertionError("ivf_live phase failed")
+    del ieng, irows, ipa
+    torch.cuda.empty_cache()
 
     # ---- 20. the gemma tower at full width (embeddinggemma-300m class) ----
     gparams = gemma_mod.init_params(gcfg, torch.Generator(device=dev).manual_seed(31), device=dev)

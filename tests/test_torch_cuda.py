@@ -1062,3 +1062,117 @@ def test_attention_bwd_kernel_over_s_groups_masks(cuda, s, group, full, causal):
             assert err <= 2e-2 * top, (i, err, top)
         else:
             assert err <= 1e-3 * top, (i, err, top)
+
+
+# ---------------------------------------------------------------- live updates
+
+
+def _live_corpus(n=20_000, d=256, seed=5):
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((n + 300, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    q = rng.standard_normal((64, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return emb[:n], emb[n:], q
+
+
+def _live_ops(eng, new, q):
+    """add, update, delete, compact, reclaim: the ids after each step."""
+    out = []
+    ids = eng.add_documents(new[:200], normalize=False)
+    out.append(eng.search_vectors(q, k=10)[1])
+    eng.update_document(11, new[200])
+    eng.delete_documents(list(range(0, 20_000, 97)) + [int(ids[5]), int(ids[7])])
+    out.append(eng.search_vectors(q, k=10)[1])
+    out.append(eng.search_vectors(q[:8], k=10)[1])
+    assert eng.compact() == 199
+    out.append(eng.search_vectors(q, k=10)[1])
+    eng.add_documents(new[201:260], normalize=False)
+    assert eng.compact(reclaim=True) == 59
+    out.append(eng.search_vectors(q, k=10)[1])
+    return out
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_live_ops_on_the_card_equal_the_cpu_port(cuda, residual):
+    """The same adds, updates, deletes, compact and reclaim on the card and
+    on the CPU give the same ids (the scans are integer-exact, the
+    rescores f32 with TF32 off)."""
+    emb, new, q = _live_corpus()
+    cfg = IndexConfig(dtype="int8", int8_scale="global", residual=residual)
+    kw = {} if residual else {"rescore_vectors": emb}
+    on_cpu, on_card = (
+        _live_ops(SearchEngine(FlatIndex.build(emb, config=cfg, normalize=False, device=dev),
+                               device=dev, **kw), new, q)
+        for dev in ("cpu", cuda))
+    for a, b in zip(on_cpu, on_card):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_compact_device_fold_bit_equal_to_a_fresh_build(cuda):
+    """compact()'s fold on the card (old device rows + delta-sized uploads,
+    in-place updates, reclaim's device gather) leaves the same device
+    arrays as a fresh engine over the folded index."""
+    emb, new, q = _live_corpus()
+    for residual in (False, True):
+        cfg = IndexConfig(dtype="int8", int8_scale="global", residual=residual)
+        kw = {} if residual else {"rescore_vectors": emb}
+        eng = SearchEngine(FlatIndex.build(emb, config=cfg, normalize=False, device=cuda),
+                           device=cuda, **kw)
+        ids = eng.add_documents(new[:100], normalize=False)
+        eng.update_document(5, new[100])
+        eng.delete_documents([7, int(ids[2])])
+        for reclaim in (False, True):
+            eng.compact(reclaim=reclaim)
+            fresh = SearchEngine(eng.index, device=cuda, rescore_vectors=eng.rescore_vectors,
+                                 rescore_residual=eng.rescore_residual)
+            assert torch.equal(eng.vectors, fresh.vectors)
+            for name in ("_rescore_device", "_res_codes_device", "_res_scales_device"):
+                a, b = getattr(eng, name), getattr(fresh, name)
+                assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
+            eng.add_documents(new[101:110], normalize=False)
+
+
+def test_mips_g_mask_form_bit_equal_under_scattered_tombstones(cuda):
+    """Scattered deletes leave every 128-row group with passing rows: the
+    mask form scans everything and must stay bit-equal to plain."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n, d, rb, m = 262_144, 1024, 4096, 4
+    x = torch.randn((n, d), generator=g, device=cuda)
+    codes, _ = quantize_global_int8(x / x.norm(dim=1, keepdim=True))
+    q8, _ = quantize_queries(torch.randn((512, d), generator=g, device=cuda))
+    mask = torch.ones(n, dtype=torch.int8, device=cuda)
+    mask[torch.randperm(n, generator=g, device=cuda)[:1000]] = 0
+    gm = torch.stack([mask, mask * (torch.arange(n, device=cuda) < n // 3).to(torch.int8)])
+    ids = torch.randint(0, 2, (512,), generator=g, device=cuda, dtype=torch.int32)
+    for kw in ({"mask": mask}, {"gmasks": gm, "mask_ids": ids}):
+        got = mips_g_scan(q8, codes, n - 77, rb, m, **kw)
+        assert torch.equal(got, mips_g_scan_plain(q8, codes, n - 77, rb, m, **kw))
+
+
+def test_device_rescore_residual_on_the_card_matches_plain(cuda):
+    """The residual rescore on the card (f32, TF32 off) within 1e-5 of the
+    same function on the CPU, ids equal where scores are unique."""
+    from theoremsearch_tpu_torch.index.quant import quantize_residual_int8
+    from theoremsearch_tpu_torch.kernels.mips import device_rescore_residual
+
+    emb, _, q = _live_corpus(n=50_000, d=1024)
+    codes, gs = quantize_global_int8(emb)
+    rc, rs = quantize_residual_int8(emb, codes, gs)
+    cand = torch.from_numpy(np.random.default_rng(0).integers(-1, 50_000, (64, 160)).astype(np.int32))
+    torch.backends.cuda.matmul.allow_tf32 = True           # the rescore must turn it off itself
+    try:
+        sc, ic = device_rescore_residual(torch.from_numpy(q).to(cuda), cand.to(cuda), codes.to(cuda),
+                                         gs, rc.to(cuda), rs.to(cuda), 49_990, k=40)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    sp, ip = device_rescore_residual(torch.from_numpy(q), cand, codes, gs, rc, rs, 49_990, k=40)
+    sc, ic = sc.cpu(), ic.cpu()
+    fin = torch.isfinite(sp)
+    assert torch.equal(fin, torch.isfinite(sc))
+    assert float((sc[fin] - sp[fin]).abs().max()) <= 1e-5
+    gap = (sp[:, 1:] - sp[:, :-1]).abs() <= 1e-5
+    near = torch.zeros_like(fin)
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    assert torch.equal(ic[~near], ip[~near])

@@ -116,18 +116,26 @@ def test_trivial_filter_served_and_excluding_filter_not_ported(data, engines):
 
 
 def test_unported_configurations_raise(data):
-    """A mesh and live updates still raise; a bf16 index and a global
-    int8 index without a rescore copy now build on the exact route."""
-    emb, _, _ = data
+    """A mesh still raises; live adds and deletes now run and hold the
+    JAX engine's ids; a bf16 index and a global int8 index without a
+    rescore copy build on the exact route."""
+    emb, q, _ = data
     idx = FlatIndex.build(emb[:2048], config=IndexConfig(**CFG), device="cpu")
     with pytest.raises(NotImplementedError):
         SearchEngine(idx, device="cpu", mesh=object())
     eng = SearchEngine(idx, device="cpu")                # no rescore copy
     assert not eng._speed_ok
-    with pytest.raises(NotImplementedError):
-        eng.add_documents(emb[:1])
-    with pytest.raises(NotImplementedError):
-        eng.delete_documents([0])
+    jeng = JSearchEngine(JFlatIndex.build(emb[:2048], config=JIndexConfig(**CFG)),
+                         use_pallas=True, pallas_interpret=True)
+    for e in (eng, jeng):
+        assert list(e.add_documents(emb[2048:2050])) == [2048, 2049]
+        assert e.delete_documents([0, 2049]) == 2
+    _, ti = eng.search_vectors(q, k=10)
+    _, ji = jeng.search_vectors(q, k=10)
+    np.testing.assert_array_equal(ti, ji)
+    assert not np.isin(ti, [0, 2049]).any()
+    np.testing.assert_array_equal(eng.search_vectors(emb[2048:2049], k=1)[1], [[2048]])
+    assert eng.num_live == jeng.num_live == 2048
     bf = SearchEngine(FlatIndex.build(emb[:2048], config=IndexConfig(dtype="bfloat16"), device="cpu"),
                       rescore_vectors=emb[:2048], device="cpu")
     assert not bf._speed_ok and bf.search_vectors(emb[:2], k=1)[1][:, 0].tolist() == [0, 1]

@@ -92,13 +92,34 @@ def test_scheduler_vectors_and_mixed_groups(stack):
         np.testing.assert_array_equal(i, w)
 
 
-def test_health_and_unported_routes(stack):
-    _, _, service, _, server = stack
+def test_health_and_unported_routes(stack, monkeypatch):
+    """/health, filters over HTTP, and the live routes: POST /documents
+    adds a slogan that /search then finds first, /documents/delete takes
+    it out again, all 200; an engine feature that still raises
+    NotImplementedError (the mesh) answers 501."""
+    engine, _, service, _, server = stack
     with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/health", timeout=30) as r:
         assert json.loads(r.read()) == {"status": "ok", "corpus": N}
-    code, body = _post(server.port, "/documents", {"documents": [{"slogan": "new"}]})
-    assert code == 501 and "not ported" in body["error"]
     # filters reach the engine: the last 8 rows are Stacks Project docs
     code, body = _post(server.port, "/search", {"query": TEXTS[3], "filters": {"sources": ["Stacks Project"]}})
     assert code == 200
     assert sorted(r["doc_id"] for r in body["results"]) == list(range(N - 8, N))
+    text = "every lattice of rank 9999 has a graded decomposition"
+    code, body = _post(server.port, "/documents", {"documents": [
+        {"slogan": text, "theorem_name": "Theorem", "link": "https://arxiv.org/abs/new"}]})
+    assert code == 200 and body == {"doc_ids": [N]}
+    code, body = _post(server.port, "/search", {"query": text, "top_k": 3})
+    assert code == 200 and body["results"][0]["doc_id"] == N
+    assert body["results"][0]["theorem_slogan"] == text
+    code, body = _post(server.port, "/documents/delete", {"doc_ids": [N]})
+    assert code == 200 and body == {"deleted": 1}
+    code, body = _post(server.port, "/search", {"query": text, "top_k": 3})
+    assert code == 200 and N not in [r["doc_id"] for r in body["results"]]
+    assert engine.num_live == N
+
+    def unported(docs):
+        raise NotImplementedError("multi-device search is not ported yet")
+
+    monkeypatch.setattr(service, "index_documents", unported)
+    code, body = _post(server.port, "/documents", {"documents": [{"slogan": "new"}]})
+    assert code == 501 and "not ported" in body["error"]

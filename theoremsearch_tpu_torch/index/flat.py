@@ -8,10 +8,12 @@ either package loads in the other:
     shard_0000.vecs.npy          (padded_rows, dim) bf16-as-uint16, int8 or f32
     shard_0000.scales.npy        (padded_rows,) f32      [int8 only]
     shard_0000.ids.npy           (padded_rows,) int64 doc ids, -1 for padding
+    shard_0000.rescodes.npy      (num_rows, dim) int8    [config.residual only]
+    shard_0000.resscales.npy     (num_rows,) f32         [config.residual only]
 
-Arrays are held as CPU tensors; bf16 goes to disk as its uint16 bit
-pattern (torch.bfloat16 viewed as int16), with no ml_dtypes. The
-residual capacity mode is not ported yet.
+Arrays are held as tensors, on the CPU unless built otherwise; bf16 goes
+to disk as its uint16 bit pattern (torch.bfloat16 viewed as int16), with
+no ml_dtypes.
 """
 
 from __future__ import annotations
@@ -57,6 +59,10 @@ class FlatIndex:
     # int8 with ONE corpus-wide scale (config.int8_scale == "global"):
     # unlocks the engine's speed path; scales repeat it for per-row paths
     global_scale: float = 0.0
+    # capacity mode (config.residual): (res_codes int8 (N, D), res_scales
+    # f32 (N,)), per-row int8 codes of x - gscale*codes; the engine adopts
+    # them for the two-level rescore (2 bytes/dim in all)
+    rescore_residual: tuple[torch.Tensor, torch.Tensor] | None = None
 
     @classmethod
     def build(
@@ -69,8 +75,9 @@ class FlatIndex:
     ) -> "FlatIndex":
         """Normalize, quantize and pad, computing chunk by chunk on
         `device` (default: the card; pass "cpu" for a CPU run); the
-        result lives on the CPU."""
-        from .quant import quantize_global_int8, quantize_int8
+        result lives on the CPU. config.residual (global-scale int8 only)
+        adds the residual codes, quantized on `device` too."""
+        from .quant import quantize_global_int8, quantize_int8, quantize_residual_int8
 
         device = resolve_device(device)
         emb = embeddings
@@ -79,8 +86,8 @@ class FlatIndex:
         emb = emb.cpu()
         n, d = emb.shape
         cfg = (config or IndexConfig()).replace(dim=d)
-        if cfg.residual:
-            raise NotImplementedError("the residual capacity mode is not ported yet")
+        if cfg.residual and not (cfg.dtype == "int8" and cfg.int8_scale == "global"):
+            raise ValueError("config.residual requires dtype='int8', int8_scale='global'")
         ids = torch.arange(n, dtype=torch.int64) if ids is None else torch.as_tensor(
             np.asarray(ids, dtype=np.int64))
         emb = l2_normalize_rows(emb, device) if normalize else emb.float()
@@ -89,10 +96,14 @@ class FlatIndex:
 
         scales = None
         global_scale = 0.0
+        rescore_residual = None
         if cfg.dtype == "int8":
             if cfg.int8_scale == "global":
                 codes, global_scale = quantize_global_int8(emb, device=device)
                 sc = torch.full((n,), np.float32(global_scale), dtype=torch.float32)
+                if cfg.residual:
+                    rc, rs = quantize_residual_int8(emb, codes, global_scale)
+                    rescore_residual = (rc.cpu(), rs.cpu())
             else:
                 codes, sc = quantize_int8(emb, device=device)
             vecs = torch.cat([codes.cpu(), torch.zeros((pad_rows, d), dtype=torch.int8)])
@@ -104,7 +115,7 @@ class FlatIndex:
             raise ValueError(f"unsupported index dtype {cfg.dtype}")
         all_ids = torch.cat([ids, torch.full((pad_rows,), PAD_ID, dtype=torch.int64)])
         return cls(vectors=vecs, ids=all_ids, scales=scales, num_rows=n, config=cfg,
-                   global_scale=global_scale)
+                   global_scale=global_scale, rescore_residual=rescore_residual)
 
     def save(self, path: str | Path) -> None:
         path = Path(path)
@@ -121,8 +132,12 @@ class FlatIndex:
             np.save(path / "shard_0000.scales.npy", self.scales.numpy())
         else:
             (path / "shard_0000.scales.npy").unlink(missing_ok=True)
-        (path / "shard_0000.rescodes.npy").unlink(missing_ok=True)
-        (path / "shard_0000.resscales.npy").unlink(missing_ok=True)
+        if self.rescore_residual is not None:
+            np.save(path / "shard_0000.rescodes.npy", self.rescore_residual[0].cpu().numpy())
+            np.save(path / "shard_0000.resscales.npy", self.rescore_residual[1].cpu().numpy())
+        else:
+            (path / "shard_0000.rescodes.npy").unlink(missing_ok=True)
+            (path / "shard_0000.resscales.npy").unlink(missing_ok=True)
         manifest = {
             "format": "flat",
             "num_rows": self.num_rows,
@@ -140,8 +155,6 @@ class FlatIndex:
         path = Path(path)
         manifest = json.loads((path / "manifest.json").read_text())
         cfg = IndexConfig.from_dict(manifest["config"])
-        if cfg.residual or (path / "shard_0000.rescodes.npy").exists():
-            raise NotImplementedError("the residual capacity mode is not ported yet")
         vecs = np.load(path / "shard_0000.vecs.npy")
         if cfg.dtype == "bfloat16":
             vecs_t = torch.from_numpy(vecs.view(np.int16)).view(torch.bfloat16)
@@ -149,8 +162,14 @@ class FlatIndex:
             vecs_t = torch.from_numpy(vecs)
         scales_path = path / "shard_0000.scales.npy"
         scales = torch.from_numpy(np.load(scales_path)) if scales_path.exists() else None
+        rescore_residual = None
+        rc_path = path / "shard_0000.rescodes.npy"
+        if rc_path.exists():
+            rescore_residual = (torch.from_numpy(np.load(rc_path)),
+                                torch.from_numpy(np.load(path / "shard_0000.resscales.npy")))
         return cls(
             vectors=vecs_t, ids=torch.from_numpy(np.load(path / "shard_0000.ids.npy")),
             scales=scales, num_rows=manifest["num_rows"], config=cfg,
             global_scale=float(manifest.get("global_scale", 0.0)),
+            rescore_residual=rescore_residual,
         )

@@ -27,8 +27,10 @@ Arrays are held as CPU tensors (bf16 as torch.bfloat16); `device` is
 where the index's searches run and its device copies live. The on-disk
 format is the reference's (`ivf.npz` with `raw_flat` as uint16, and
 `manifest.json`), so an index saved by either package loads in the other.
-Live updates (`with_updates`, `remap_ids`) and the sharded searcher are
-not ported yet.
+Live updates: `with_updates` places added rows in their nearest existing
+lists and kills removed ones, `remap_ids` renumbers (the engine's compact
+and reclaim); both return a new index whose device copies are uploaded
+afresh, through a side stream. The sharded searcher is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ import torch
 from ..core.config import IndexConfig
 from ..eval.metrics import recall_vs_exact
 from ..eval.oracle import exact_topk
-from ..kernels.mips import NEG_INF, ivf_probe_scores
-from ..utils.device import resolve_device, tf32_off
+from ..kernels.mips import NEG_INF, ivf_probe_scores, residual_rows
+from ..utils.device import resolve_device, tf32_off, upload_into
 from .flat import PAD_ID, l2_normalize_rows
 from .quant import quantize_global_int8, quantize_residual_int8
 
@@ -394,6 +396,173 @@ class IVFIndex:
             device=dev,
         )
 
+    # ---------------- incremental updates ----------------
+
+    def _host_arrays(self) -> dict:
+        """Writable numpy copies of the packed arrays; bf16 rescore rows
+        as their uint16 bit patterns."""
+        out = {name: getattr(self, name).numpy().copy() for name in (
+            "slabs", "slab_scales", "slab_ids", "spill", "spill_scales", "spill_ids")}
+        if self.raw_flat is not None:
+            out["raw_flat"] = self.raw_flat.view(torch.int16).numpy().view(np.uint16).copy()
+        if self.res_flat is not None:
+            out["res_flat"] = self.res_flat.numpy().copy()
+            out["res_scales_flat"] = self.res_scales_flat.numpy().copy()
+        return out
+
+    def _from_host_arrays(self, a: dict, num_rows: int) -> "IVFIndex":
+        raw = a.get("raw_flat")
+        return IVFIndex(
+            centroids=self.centroids,
+            slabs=_to_tensor(a["slabs"]), slab_scales=_to_tensor(a["slab_scales"]),
+            slab_ids=_to_tensor(a["slab_ids"]), spill=_to_tensor(a["spill"]),
+            spill_scales=_to_tensor(a["spill_scales"]), spill_ids=_to_tensor(a["spill_ids"]),
+            num_rows=num_rows, config=self.config,
+            raw_flat=None if raw is None else torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16),
+            res_flat=_to_tensor(a.get("res_flat")), res_scales_flat=_to_tensor(a.get("res_scales_flat")),
+            global_scale=self.global_scale, device=self.device,
+        )
+
+    def with_updates(self, add_emb=None, add_ids=None, remove_ids=None) -> "IVFIndex":
+        """A new index with `remove_ids` rows dead (every copy, dual
+        assignments included: ids -> PAD_ID, codes zeroed) and `add_emb`
+        rows assigned to their nearest existing centroids: the best
+        list's slack first, then the second best's, then the spill that
+        every query scans. Centroids are not retrained (the engine's
+        compact fold). add_emb: L2-normalized f32 rows; int8 indexes
+        quantize them with the existing global scale (an f32 divide,
+        round half to even, as the build does)."""
+        int8 = self.config.dtype == "int8"
+        a = self._host_arrays()
+        L, R, D = a["slabs"].shape
+        flat_names = [n for n in ("raw_flat", "res_flat", "res_scales_flat") if n in a]
+        # slab and spill views of the flat rescore arrays ([slabs, spill])
+        slab_v = {n: a[n][: L * R].reshape(L, R, *a[n].shape[1:]) for n in flat_names}
+        spill_v = {n: a[n][L * R :] for n in flat_names}
+        slab_ids, spill_ids = a["slab_ids"], a["spill_ids"]
+
+        n_removed = 0
+        if remove_ids is not None and len(np.atleast_1d(remove_ids)):
+            rm_ids = np.asarray(remove_ids, np.int64).astype(np.int32)
+            present = set(slab_ids[np.isin(slab_ids, rm_ids)].tolist())
+            present |= set(spill_ids[np.isin(spill_ids, rm_ids)].tolist())
+            n_removed = len(present)
+            rm = np.isin(slab_ids, rm_ids)
+            rms = np.isin(spill_ids, rm_ids)
+            slab_ids[rm] = PAD_ID
+            spill_ids[rms] = PAD_ID
+            for n in ("slabs", "slab_scales"):
+                a[n][rm] = 0
+            for n in ("spill", "spill_scales"):
+                a[n][rms] = 0
+            for n in flat_names:
+                slab_v[n][rm] = 0
+                spill_v[n][rms] = 0
+
+        m = 0 if add_emb is None else int(np.asarray(add_emb).shape[0])
+        if m:
+            emb = np.array(add_emb, np.float32)
+            ids_new = np.asarray(add_ids, np.int64).astype(np.int32)
+            if ids_new.shape != (m,):
+                raise ValueError("add_ids must be (m,)")
+            rows = {}
+            if int8:
+                g = np.float32(self.global_scale)
+                rows["codes"] = np.clip(np.round(emb / g), -127, 127).astype(np.int8)
+                rows["scales"] = np.full(m, g, np.float32)
+                if "res_flat" in a:
+                    rc, rs = quantize_residual_int8(torch.from_numpy(emb),
+                                                    torch.from_numpy(rows["codes"]), float(g))
+                    rows["res_flat"], rows["res_scales_flat"] = rc.numpy(), rs.numpy()
+            else:
+                rows["codes"] = emb.astype(a["slabs"].dtype)
+                rows["scales"] = np.ones(m, np.float32)
+            if "raw_flat" in a:
+                rows["raw_flat"] = torch.from_numpy(emb).to(torch.bfloat16).view(
+                    torch.int16).numpy().view(np.uint16)
+            cents = self.centroids.numpy()
+            sc = emb @ cents.T
+            if cents.shape[0] > 1:
+                top2 = np.argpartition(-sc, 1, axis=1)[:, :2]
+                swap = (np.take_along_axis(sc, top2[:, :1], 1)[:, 0]
+                        < np.take_along_axis(sc, top2[:, 1:2], 1)[:, 0])
+                top2[swap] = top2[swap][:, ::-1]
+            else:
+                top2 = np.zeros((m, 2), np.int64)
+            # free-slot cursors per involved list (slack = PAD rows,
+            # rows freed by the removal above included)
+            free: dict[int, list[int]] = {}
+            spill_add: list[int] = []
+            for j in range(m):
+                for c in (int(top2[j, 0]), int(top2[j, 1])):
+                    if c not in free:
+                        free[c] = np.nonzero(slab_ids[c] == PAD_ID)[0].tolist()[::-1]
+                    if free[c]:
+                        r = free[c].pop()
+                        a["slabs"][c, r] = rows["codes"][j]
+                        a["slab_scales"][c, r] = rows["scales"][j]
+                        slab_ids[c, r] = ids_new[j]
+                        for n in flat_names:
+                            slab_v[n][c, r] = rows[n][j]
+                        break
+                else:
+                    spill_add.append(j)
+            if spill_add:
+                # append after the spill's last real row, reusing its PAD
+                # tail first, then growing in R-row chunks
+                sa = np.asarray(spill_add, np.int64)
+                tail = np.nonzero(spill_ids != PAD_ID)[0]
+                start = int(tail[-1]) + 1 if tail.size else 0
+                need = start + len(sa)
+                grow = max(len(spill_ids), -(-need // R) * R) - len(spill_ids)
+                if grow:
+                    for n in ("spill", "spill_scales", "spill_ids") + tuple(flat_names):
+                        src = a[n] if n in ("spill", "spill_scales", "spill_ids") else spill_v[n]
+                        fill = PAD_ID if n == "spill_ids" else 0
+                        grown = np.concatenate(
+                            [src, np.full((grow, *src.shape[1:]), fill, src.dtype)])
+                        if n in flat_names:
+                            spill_v[n] = grown
+                        else:
+                            a[n] = grown
+                    spill_ids = a["spill_ids"]
+                a["spill"][start:need] = rows["codes"][sa]
+                a["spill_scales"][start:need] = rows["scales"][sa]
+                spill_ids[start:need] = ids_new[sa]
+                for n in flat_names:
+                    spill_v[n][start:need] = rows[n][sa]
+        for n in flat_names:
+            a[n] = np.concatenate([slab_v[n].reshape(L * R, *slab_v[n].shape[2:]), spill_v[n]])
+        return self._from_host_arrays(a, self.num_rows - n_removed + m)
+
+    def remap_ids(self, id_map) -> "IVFIndex":
+        """A new index with every doc id translated through `id_map` (old
+        id -> new id, -1 = dropped; ids beyond the map are dropped).
+        Dropped rows become PAD slack with zeroed codes (the engine's
+        compact(reclaim=True) renumbering)."""
+        id_map = np.asarray(id_map, np.int64)
+        a = self._host_arrays()
+
+        def _remap(ids: np.ndarray) -> np.ndarray:
+            safe = np.clip(ids, 0, len(id_map) - 1)
+            return np.where((ids >= 0) & (ids < len(id_map)), id_map[safe], PAD_ID).astype(np.int32)
+
+        slab_ids, spill_ids = _remap(a["slab_ids"]), _remap(a["spill_ids"])
+        dead_s = (slab_ids == PAD_ID) & (a["slab_ids"] != PAD_ID)
+        dead_p = (spill_ids == PAD_ID) & (a["spill_ids"] != PAD_ID)
+        a["slab_ids"], a["spill_ids"] = slab_ids, spill_ids
+        a["slabs"][dead_s] = 0
+        a["slab_scales"][dead_s] = 0
+        a["spill"][dead_p] = 0
+        a["spill_scales"][dead_p] = 0
+        dead_flat = np.concatenate([dead_s.reshape(-1), dead_p])
+        for n in ("raw_flat", "res_flat", "res_scales_flat"):
+            if n in a:
+                a[n][dead_flat] = 0
+        # distinct live docs (dual-assignment copies collapse)
+        all_ids = np.concatenate([slab_ids.ravel(), spill_ids])
+        return self._from_host_arrays(a, int(np.unique(all_ids[all_ids != PAD_ID]).size))
+
     # ---------------- search ----------------
 
     @property
@@ -417,13 +586,15 @@ class IVFIndex:
             L, R, D = self.slabs.shape
             n_sp = self.spill.shape[0] // R
             slabs_all = torch.zeros((L + n_sp + 1, R, D), dtype=self.slabs.dtype, device=dev)
-            slabs_all[:L] = self.slabs.to(dev)
-            slabs_all[L : L + n_sp] = self.spill.reshape(n_sp, R, D).to(dev)
+            upload_into(slabs_all[:L], self.slabs)
+            upload_into(slabs_all[L : L + n_sp], self.spill.reshape(n_sp, R, D))
             ids_flat = torch.cat([self.slab_ids.reshape(-1), self.spill_ids,
                                   torch.full((R,), PAD_ID, dtype=torch.int32)])
 
             def put(t):
-                return None if t is None else t.to(dev).contiguous()
+                if t is None:
+                    return None
+                return upload_into(torch.empty(tuple(t.shape), dtype=t.dtype, device=dev), t)
 
             self._dev_cache = {
                 "slabs": slabs_all,
@@ -834,6 +1005,6 @@ def _ivf_rescore(q, slot, slabs_all, raw_flat, res_flat, res_scales_flat, gscale
             return torch.bmm(cvec.float(), qb.unsqueeze(2)).squeeze(2)
         rows = torch.clamp(slot, 0, res_flat.shape[0] - 1)
         d = slabs_all.shape[-1]
-        cg = slabs_all.reshape(-1, d)[rows].float()
-        recon = cg * float(np.float32(gscale)) + res_scales_flat[rows][..., None] * res_flat[rows].float()
+        recon = residual_rows(slabs_all.reshape(-1, d)[rows], gscale, res_flat[rows],
+                              res_scales_flat[rows])
         return torch.bmm(recon, q.float().unsqueeze(2)).squeeze(2)

@@ -14,8 +14,8 @@ hand-written CUDA kernels:
   `ivf_probe_scores` (plain version `ivf_probe_scores_plain`).
 
 A CPU tensor goes to the plain version, a CUDA tensor to the kernel. The
-selection epilogue, `device_rescore` and `merge_topk` were XLA ops in the
-reference and stay PyTorch ops here.
+selection epilogue, `device_rescore`, `device_rescore_residual` and
+`merge_topk` were XLA ops in the reference and stay PyTorch ops here.
 
 Selection over the packed maxima is exact (`torch.topk`): the reference's
 `approx_max_k` is exact on the CPU, so CPU ids of both packages agree, and
@@ -681,6 +681,50 @@ def device_rescore(
     qc = queries.to(cand.dtype).float().unsqueeze(2)               # (B, D, 1)
     with tf32_off():
         s = torch.bmm(cand.float(), qc).squeeze(2)                 # (B, C)
+    valid = cand_ids >= 0
+    if n_valid is not None:
+        valid &= cand_ids < int(n_valid)
+    s = torch.where(valid, s, NEG_INF)
+    top_s, sel = torch.topk(s, k, dim=1)
+    top_i = torch.gather(cand_ids, 1, sel)
+    return top_s, torch.where(torch.isfinite(top_s), top_i, -1)
+
+
+def residual_rows(codes_g: torch.Tensor, gscale: float, res_codes: torch.Tensor,
+                  res_scales: torch.Tensor) -> torch.Tensor:
+    """The two-level reconstruction gscale * cg + s_r * cr in f32, for
+    gathered rows of any leading shape: the one formula of the capacity
+    mode's device rescore, the IVF rescore and the engine's host rescore."""
+    return (codes_g.float() * float(np.float32(gscale))
+            + res_scales[..., None] * res_codes.float())
+
+
+def device_rescore_residual(
+    queries: torch.Tensor,
+    cand_ids: torch.Tensor,
+    codes_g: torch.Tensor,
+    gscale: float,
+    res_codes: torch.Tensor,
+    res_scales: torch.Tensor,
+    n_valid: int | None = None,
+    *,
+    k: int = 10,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact rescoring from the two-level int8 codes (the 2-bytes/dim
+    capacity mode): each candidate is rebuilt as gscale*cg + s_r*cr from
+    the scan codes and the residual codes, then scored against the f32
+    query with f32 products and sums (TF32 off: TF32 would round the
+    ~15-bit reconstruction back to ~10 bits).
+
+    queries (B, D) f32; cand_ids (B, C) int32 rows; codes_g (>= N, D)
+    int8 (may carry padding rows); res_codes (N, D) int8; res_scales (N,)
+    f32. Returns (scores (B, k) f32, ids (B, k), -1 where invalid)."""
+    n = res_codes.shape[0]
+    cand_ids = torch.sort(cand_ids, dim=1).values
+    safe = cand_ids.clamp(0, n - 1).long()
+    cand = residual_rows(codes_g[safe], gscale, res_codes[safe], res_scales[safe])   # (B, C, D)
+    with tf32_off():
+        s = torch.bmm(cand, queries.float().unsqueeze(2)).squeeze(2)                # (B, C)
     valid = cand_ids >= 0
     if n_valid is not None:
         valid &= cand_ids < int(n_valid)

@@ -7,7 +7,8 @@ ranking modes (pure vector / citation-weighted), latest-slogan selection
 (handled at index-build time via the catalog's latest-slogan queue),
 LaTeX display cleanup, and a working feedback store (the reference's
 save_feedback is a stub, streamlit_app.py:145-147). Live updates go to
-the engine, which does not serve them yet (NotImplementedError).
+the engine: added slogans are encoded and searchable by the next query,
+deleted ids leave every later result.
 """
 
 from __future__ import annotations

@@ -85,3 +85,30 @@ def tf32_off():
             if _tf32_depth == 0:
                 torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = _tf32_saved
                 _tf32_saved = None
+
+
+_side_lock = threading.Lock()
+_side_streams: dict = {}
+
+
+def upload_into(dst: torch.Tensor, src) -> torch.Tensor:
+    """Copy a host array (numpy or a CPU tensor) into `dst`, on a side
+    stream when `dst` is on the card, and wait for it; returns `dst`.
+
+    A multi-GB host copy on the default stream would hold every query
+    queued behind it for the whole transfer. The side stream first waits
+    for the work already queued on the current stream (`dst` may be
+    memory that queued kernels were still reading when it was freed), so
+    `dst` keeps the current stream's allocation and needs no
+    record_stream; later queries do not wait for the copy."""
+    t = src if isinstance(src, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(src))
+    if dst.device.type != "cuda":
+        dst.copy_(t)
+        return dst
+    with _side_lock:
+        side = _side_streams.setdefault(dst.device, torch.cuda.Stream(dst.device))
+    side.wait_stream(torch.cuda.current_stream(dst.device))
+    with torch.cuda.stream(side):
+        dst.copy_(t)
+    side.synchronize()
+    return dst
