@@ -188,22 +188,48 @@ exits non-zero (there is no CPU path):
              step 10). Its hermetic encoder has head_dim 32, so this phase
              runs the reference's composition and no B7: phase 18 carries
              the kernel.
+23. catalog_cli  the catalog -> encoder -> index -> engine -> HTTP path
+             through the port's CLI, at full width: a Qwen3 checkpoint of
+             EncoderConfig() (random bf16 weights from a seeded generator,
+             HF layout, written as .safetensors by this script, with a
+             WordLevel tokenizer.json over slogans()'s words) loaded
+             through --model-dir and held bit-equal to what was written;
+             a sqlite catalog of 100,000 theorems (20,000 papers of 5, one
+             slogan each, bench_metadata's layout); `embed` into an
+             int8-global-residual spool (B2 28 times a forward), a second
+             `embed` embedding 0; `search` on the speed route (B1) with min
+             recall@10 >= 0.99 over 5 draws of 1,024 vs the fp32 oracle
+             and 64 metadata rows equal to the catalog's join;
+             make_search_server(--quant int8 --warm --refresh-interval
+             0.5): 128 POST /search from 64 threads (overlap@10 >= 0.9; the
+             served requests alone launch B1, B3 and B4), then 1,024 new
+             theorems and 256 new latest slogans written from a second
+             connection are live within 60 s, found
+             at rank 1, the superseded docs gone; a restart through
+             build_engine_from_catalog (101,024 rows, the latest slogans
+             only, the speed route, the recall gate); `build-ivf
+             --calibrate` (B6, nprobe holding 0.99); `train --model-dir
+             --catalog` (4 steps of 64 x 64, B2 and B7 56 times a step, a
+             checkpoint); `eval` and `compare-embedders` on the checkpoint.
 13. times    (emitted last) the kernel / plain / bound times above, B7 and
              B2 at the training shape (64, 64, 16, 8, 128), the train step
              "on" and "off", and the script's total seconds.
 
 Each path (phases 5-7, 7b, 9, 11, 11r, 11l, 11c, 11s, 12, 15, 16, 16l,
-18, 18g, 20, 21) runs with every launch counter set to 0 just before it
+18, 18g, 20, 21, 23) runs with every launch counter set to 0 just before it
 and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
-stack, the train step).
+stack, the train step). Inside phase 23's window its checks (the recall
+draws, the direct path the served answers are held to) are counted apart
+and taken out.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import threading
 import time
@@ -365,6 +391,517 @@ def unit_rows(n: int, d: int, seed: int, dev):
     return x / x.norm(dim=1, keepdim=True)
 
 
+def write_safetensors(path, tensors: dict) -> None:
+    """`tensors` (name -> CPU tensor, bf16 or f32) as a .safetensors file:
+    an 8-byte little-endian header length, the JSON header, then each
+    tensor's raw little-endian bytes (the card's machine has no
+    safetensors package)."""
+    import torch
+
+    tags = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().data)
+
+
+def qwen_checkpoint(cfg, dev, seed: int) -> tuple[dict, dict]:
+    """(config.json dict with Qwen3's field names, HF-layout tensors) of
+    `cfg` with random bf16 weights from a seeded generator on `dev`:
+    linear weights N(0, 0.02^2) as (out, in), norm weights 1 + N(0, 0.1^2)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(shape, scale, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16).cpu()
+
+    h, dh = cfg.hidden_size, cfg.head_dim
+    t = {"model.embed_tokens.weight": rand((cfg.vocab_size, h), 0.02),
+         "model.norm.weight": rand((h,), 0.1, 1.0)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        t |= {p + "input_layernorm.weight": rand((h,), 0.1, 1.0),
+              p + "self_attn.q_proj.weight": rand((cfg.num_heads * dh, h), 0.02),
+              p + "self_attn.k_proj.weight": rand((cfg.num_kv_heads * dh, h), 0.02),
+              p + "self_attn.v_proj.weight": rand((cfg.num_kv_heads * dh, h), 0.02),
+              p + "self_attn.o_proj.weight": rand((h, cfg.num_heads * dh), 0.02),
+              p + "self_attn.q_norm.weight": rand((dh,), 0.1, 1.0),
+              p + "self_attn.k_norm.weight": rand((dh,), 0.1, 1.0),
+              p + "post_attention_layernorm.weight": rand((h,), 0.1, 1.0),
+              p + "mlp.gate_proj.weight": rand((cfg.intermediate_size, h), 0.02),
+              p + "mlp.up_proj.weight": rand((cfg.intermediate_size, h), 0.02),
+              p + "mlp.down_proj.weight": rand((h, cfg.intermediate_size), 0.02)}
+    config = {"architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+              "vocab_size": cfg.vocab_size, "hidden_size": h,
+              "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+              "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+              "head_dim": dh, "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+              "max_position_embeddings": 32768, "tie_word_embeddings": True,
+              "torch_dtype": "bfloat16"}
+    return config, t
+
+
+def word_level_tokenizer(path: str, words: list[str]) -> None:
+    """Writes a HuggingFace tokenizer into the checkpoint dir `path`: a
+    WordLevel model over `words` (lowercased, split at whitespace and
+    punctuation; a word not in `words` is <unk>) with an end-of-text
+    token appended, as Qwen3's template appends one, and its
+    tokenizer_config.json."""
+    vocab = {"<pad>": 0, "<unk>": 1, "<eot>": 2} | {w: i + 3 for i, w in enumerate(words)}
+    special = [{"id": i, "content": c, "single_word": False, "lstrip": False, "rstrip": False,
+                "normalized": False, "special": True} for c, i in list(vocab.items())[:3]]
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump({
+            "version": "1.0", "truncation": None, "padding": None, "added_tokens": special,
+            "normalizer": {"type": "Lowercase"},
+            "pre_tokenizer": {"type": "Whitespace"},
+            "post_processor": {"type": "TemplateProcessing",
+                               "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                                          {"SpecialToken": {"id": "<eot>", "type_id": 0}}],
+                               "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                                        {"Sequence": {"id": "B", "type_id": 0}}],
+                               "special_tokens": {"<eot>": {"id": "<eot>", "ids": [2],
+                                                            "tokens": ["<eot>"]}}},
+            "decoder": None,
+            "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"}}, f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>",
+                   "unk_token": "<unk>", "model_max_length": 32768}, f)
+
+
+def fill_catalog(cat, papers_: range, per_paper: int, texts: list[str], first: int = 0) -> None:
+    """Papers `papers_` with `per_paper` theorems each and one slogan per
+    theorem: the k-th new theorem has slogan texts[k] and theorem and
+    slogan id first + k + 1. The metadata is bench_metadata's layout:
+    years in contiguous blocks of 1/30 of the 100,000-theorem corpus,
+    striped categories, journal status alternating, citations p % 1000."""
+    block = 100_000 // 30
+    papers, theorems, slogan_rows = [], [], []
+    for pi, p in enumerate(papers_):
+        i0 = first + pi * per_paper
+        papers.append({
+            "paper_id": f"2401.{p:05d}", "title": f"Paper {p}", "authors": [f"Author {p % 97}"],
+            "summary": "", "link": f"https://arxiv.org/abs/2401.{p:05d}",
+            "last_updated": f"{1995 + min(i0 // block, 29)}-06-01",
+            "journal_ref": "J. Math." if p % 2 else None, "primary_category": CATS[p % len(CATS)],
+            "categories": [CATS[p % len(CATS)]], "citations": p % 1000})
+        for j in range(per_paper):
+            i = i0 + j
+            theorems.append({"theorem_id": i + 1, "paper_id": f"2401.{p:05d}",
+                             "name": f"Theorem {j + 1}", "body": f"$x_{{{i}}}$ is bounded.",
+                             "label": None, "parsing_method": "synthetic"})
+            slogan_rows.append({"slogan_id": i + 1, "theorem_id": i + 1, "model": "offline-stub",
+                                "prompt_id": "body-only-v1",
+                                "slogan": texts[i - first]})
+    cat.upsert_rows("paper", papers, ["paper_id"])
+    cat.upsert_rows("theorem", theorems, ["theorem_id"])
+    cat.upsert_rows("theorem_slogan", slogan_rows, ["slogan_id"])
+
+
+def spool_corpus(spool: str, dev, keep=None):
+    """(sorted slogan ids, their L2-normalized f32 rows on `dev`) of a
+    spool, restricted to the ids in `keep` when given: the fp32 oracle's
+    corpus in the rebuilt engine's row order."""
+    import torch
+
+    from theoremsearch_tpu_torch.index.builder import IndexBuilder
+
+    ids, emb = map(np.concatenate, zip(*IndexBuilder(spool).batches()))
+    if keep is not None:
+        m = np.isin(ids, np.fromiter(keep, np.int64))
+        ids, emb = ids[m], emb[m]
+    order = np.argsort(ids, kind="stable")
+    x = torch.from_numpy(emb[order]).to(dev)
+    return ids[order], x / x.norm(dim=1, keepdim=True)
+
+
+def min_recall(engine, corpus_dev, dev, draws: int = 5, nq: int = 1024) -> list[float]:
+    """recall@10 of `engine` over `draws` draws of `nq` random unit query
+    vectors against the fp32 oracle (TF32 off) over `corpus_dev`."""
+    import torch
+
+    from theoremsearch_tpu_torch.eval.metrics import recall_vs_exact
+    from theoremsearch_tpu_torch.eval.oracle import exact_topk
+
+    qd = [unit_rows(nq, corpus_dev.shape[1], 5000 + s, dev) for s in range(draws)]
+    _, oracle = exact_topk(torch.cat(qd), corpus_dev, k=10, device=dev)
+    out = []
+    for s in range(draws):
+        _, ids = engine.search_vectors(qd[s], k=10)
+        out.append(recall_vs_exact(np.asarray(ids), oracle[s * nq : (s + 1) * nq], k=10))
+    return out
+
+
+def catalog_cli(dev, gpu: str, counters: dict, cfg=None, n_papers: int = 20_000,
+                per_paper: int = 5, n_new: int = 1024, n_regen: int = 256,
+                train_steps: int = 4) -> dict:
+    """Phase catalog_cli: the catalog -> encoder -> index -> engine -> HTTP
+    path through the port's CLI at full width (see the module docstring).
+    Returns the phase's numbers; raises if a gate fails. Launch gates are
+    checked last, after every other check. The kernels the phase's own
+    checks launch (the recall draws, the direct searches the served
+    answers are compared with) are counted apart, under
+    "check_launches", for the caller to take out of the window."""
+    import argparse
+    import contextlib
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from theoremsearch_tpu_torch.cli import _batched_encoder, build_parser, run as cli_run
+    from theoremsearch_tpu_torch.cli import make_search_server
+    from theoremsearch_tpu_torch.core.config import EncoderConfig
+    from theoremsearch_tpu_torch.encoder.batching import BatchedEncoder
+    from theoremsearch_tpu_torch.encoder.loader import _QWEN_MAPPING
+    from theoremsearch_tpu_torch.index.builder import IndexBuilder
+    from theoremsearch_tpu_torch.ingest import Catalog
+    from theoremsearch_tpu_torch.pipeline import build_engine_from_catalog
+    from theoremsearch_tpu_torch.serve.app import SearchService
+
+    cfg = cfg or EncoderConfig()
+    work = tempfile.mkdtemp(prefix="chip_smoke_catalog_")
+    model_dir, db = os.path.join(work, "qwen"), os.path.join(work, "catalog.db")
+    spool, ivf_out, ck_dir = (os.path.join(work, d) for d in ("spool", "ivf", "ckpt"))
+    n = n_papers * per_paper
+
+    def snap() -> dict:
+        return {k: c.n for k, c in counters.items()}
+
+    def delta(a: dict, b: dict) -> dict:
+        return {k: b[k] - a[k] for k in a if b[k] != a[k]}
+
+    check = dict.fromkeys(counters, 0)
+
+    @contextlib.contextmanager
+    def aside():
+        """Counts the launches of a check's own work into `check`."""
+        a = snap()
+        try:
+            yield
+        finally:
+            for k, v in delta(a, snap()).items():
+                check[k] += v
+
+    launch_faults: list = []
+    out: dict = {"gpu": gpu, "check_launches": check}
+    try:
+        # 1. the checkpoint, written and loaded through the CLI's --model-dir
+        t0 = time.perf_counter()
+        config, tensors = qwen_checkpoint(cfg, dev, seed=11)
+        os.makedirs(model_dir)
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump(config, f)
+        write_safetensors(os.path.join(model_dir, "model.safetensors"), tensors)
+        write_s = time.perf_counter() - t0
+        # its tokenizer: one token for each word slogans() writes and, as
+        # the hermetic tokenizer has, one for each number (up to the
+        # vocabulary's size: every rank); with digits one token each, the
+        # random model embedded slogans of one word pattern all but alike
+        words = sorted({w for t_ in slogans(16_384) for w in re.findall("[a-z]+", t_.lower())})
+        word_level_tokenizer(model_dir, words + [str(i) for i in
+                                                 range(cfg.vocab_size - 3 - len(words))])
+        t0 = time.perf_counter()
+        be = _batched_encoder(argparse.Namespace(model_dir=model_dir, device=dev))
+        load_s = time.perf_counter() - t0
+        bad = []
+        for name, t in tensors.items():
+            name = name[len("model."):]
+            if name in ("embed_tokens.weight", "norm.weight"):
+                got = be.params["embed" if name.startswith("embed") else "final_norm"]
+            else:
+                li, sub = name[len("layers."):].split(".", 1)
+                key, tr, _ = _QWEN_MAPPING[sub]
+                got = be.params["layers"][int(li)][key]
+                t = t.T if tr else t
+            if not torch.equal(got.cpu(), t.to(got.dtype)):
+                bad.append(name)
+        ck_bytes = os.path.getsize(os.path.join(model_dir, "model.safetensors"))
+        del tensors
+        out["checkpoint"] = {"bytes": ck_bytes, "write_s": write_s, "load_s": load_s,
+                             "tensors_not_bit_equal": bad[:8], "config_is_EncoderConfig": be.cfg == cfg,
+                             "tokenizer": type(be.tokenizer).__name__}
+        emit("catalog_cli", step="checkpoint", **out["checkpoint"], gpu=gpu)
+        if bad or be.cfg != cfg or type(be.tokenizer).__name__ != "HFTokenizer":
+            raise AssertionError(f"checkpoint load: {out['checkpoint']}")
+
+        # 2. the catalog: n theorems on n_papers papers, one slogan each,
+        # dealt through a seeded permutation: slogans() repeats its word
+        # pattern every 256 texts, which in generator order puts
+        # near-duplicates in one lane cell of B1's packed maxima, where
+        # both packages lose the same recall (the CPU twin
+        # tests/test_torch_pipeline.py::test_lane_cell_near_duplicates).
+        # The texts that arrive while serving follow.
+        order = np.concatenate([np.random.default_rng(17).permutation(n),
+                                np.arange(n, n + n_new + n_regen)])
+        generated = slogans(n + n_new + n_regen)
+        texts = [generated[j] for j in order]
+        t0 = time.perf_counter()
+        cat = Catalog(db)
+        fill_catalog(cat, range(n_papers), per_paper, texts[:n])
+        fill_s = time.perf_counter() - t0
+        out["catalog"] = {"papers": n_papers, "theorems": cat.count("theorem"),
+                          "slogans": cat.count("theorem_slogan"), "fill_s": fill_s}
+        emit("catalog_cli", step="catalog", **out["catalog"], gpu=gpu)
+
+        # 3. embed, bf16, into an int8-global-residual spool
+        c0 = snap()
+        t0 = time.perf_counter()
+        n_emb = cli_run(["--catalog", db, "embed", "--model-dir", model_dir, "--spool", spool,
+                         "--index-dtype", "int8-global-residual"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
+        c1 = snap()
+        again = cli_run(["--catalog", db, "embed", "--model-dir", model_dir, "--spool", spool])
+        manifest = cat.count("embedding_manifest")
+        # pages of 256 (embed_missing_slogans), forwards of <= 64 (BatchedEncoder)
+        n_fwd = sum(-(-min(256, n - s) // 64) for s in range(0, n, 256))
+        out["embed"] = {"slogans": n_emb, "seconds": embed_s, "slogans_per_s": n_emb / embed_s,
+                        "second_embed": again, "manifest_rows": manifest, "forwards": n_fwd,
+                        "launches": delta(c0, c1)}
+        emit("catalog_cli", step="embed", **out["embed"], gpu=gpu)
+        if not (n_emb == n and again == 0 and manifest == n):
+            raise AssertionError(f"embed: {n_emb} embedded, then {again}; manifest {manifest}")
+        if c1["qknorm_rope_attention"] - c0["qknorm_rope_attention"] != cfg.num_layers * n_fwd:
+            launch_faults.append(f"embed: B2 launched {delta(c0, c1)}, want "
+                                 f"{cfg.num_layers} x {n_fwd} forwards")
+
+        # 4. search: one query through the subcommand, then the recall gate
+        c0 = snap()
+        t0 = time.perf_counter()
+        engine = cli_run(["--catalog", db, "search", texts[12345 % n], "--model-dir", model_dir,
+                          "--spool", spool])
+        search_s = time.perf_counter() - t0
+        c1 = snap()
+        routes = dict(engine.route_counts)
+        sids, corpus = spool_corpus(spool, dev)
+        with aside():
+            recalls = min_recall(engine, corpus, dev)
+        spread = corpus[:: n // 256][:256]
+        pair_cos = (spread @ spread.T)[torch.triu_indices(256, 256, 1, device=dev).unbind()]
+        rng = np.random.default_rng(3)
+        sample = rng.choice(engine.n_valid, 64, replace=False)
+        meta_bad = []
+        for d in sample.tolist():
+            r = cat.conn.execute(
+                "SELECT p.paper_id, t.name, s.slogan, p.primary_category, p.citations,"
+                " p.journal_ref, p.last_updated FROM theorem_slogan s"
+                " JOIN theorem t ON t.theorem_id = s.theorem_id"
+                " JOIN paper p ON p.paper_id = t.paper_id WHERE s.slogan_id = ?",
+                (int(sids[d]),)).fetchone()
+            m = engine.meta
+            got = (m.paper_id[d], m.theorem_name[d], m.slogan[d], m.primary_category[d],
+                   int(m.citations[d]), m.journal_ref[d], int(m.year[d]))
+            if got != (r[0], r[1], r[2], r[3], r[4], r[5], int(r[6][:4])):
+                meta_bad.append(d)
+        out["search"] = {"seconds": search_s, "route_counts": routes,
+                         "rows": engine.n_valid, "recall_draws": recalls,
+                         "recall_min": min(recalls), "slogan_mean_pairwise_cos": float(pair_cos.mean()),
+                         "meta_rows_checked": 64,
+                         "meta_rows_wrong": meta_bad, "launches": delta(c0, c1)}
+        emit("catalog_cli", step="search", **out["search"], gpu=gpu)
+        if not (routes == {"speed": 1} and engine.n_valid == n
+                and min(recalls) >= 0.99 and not meta_bad):
+            raise AssertionError(f"search: {out['search']}")
+        if c1["mips_g_scan"] - c0["mips_g_scan"] < 1:
+            launch_faults.append(f"search: B1 never launched {delta(c0, c1)}")
+        del engine, corpus
+
+        # 5. serve: int8 encoder, warm, refresh thread; then catalog writes
+        args = build_parser().parse_args(
+            ["--catalog", db, "serve", "--model-dir", model_dir, "--spool", spool, "--quant", "int8",
+             "--warm", "--refresh-interval", "0.5", "--max-batch", "256", "--host", "127.0.0.1",
+             "--port", "0", "--feedback-path", ""])
+        c0 = snap()
+        t0 = time.perf_counter()
+        srv, sched = make_search_server(args)
+        start_s = time.perf_counter() - t0
+        srv.start()
+        live = sched.engine
+        c_warm = snap()
+        base = f"http://127.0.0.1:{srv.port}"
+
+        def post(body):
+            req = urllib.request.Request(base + "/search", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            t_ = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read()), time.perf_counter() - t_
+
+        def corpus_size():
+            with urllib.request.urlopen(base + "/health", timeout=30) as r:
+                return json.loads(r.read())["corpus"]
+
+        try:
+            qtexts = [texts[(37 * i) % n] for i in range(128)]
+            with ThreadPoolExecutor(64) as ex:
+                list(ex.map(post, [{"query": t_, "top_k": 10} for t_ in qtexts]))
+                answers = list(ex.map(post, [{"query": t_, "top_k": 10} for t_ in qtexts]))
+            c_served = snap()
+            lat = np.array([a[2] for a in answers]) * 1e3
+            overlaps = []
+            with aside():       # the direct path the served answers are held to
+                be8 = BatchedEncoder(be.params, be.cfg, tokenizer=be.tokenizer,
+                                     prompts=be.prompts, quant="int8", device=dev)
+                direct = SearchService(live, be8.for_role("query"))
+                for text, (_, body, _) in zip(qtexts, answers):
+                    got = {r["doc_id"] for r in body["results"]}
+                    want = {r["doc_id"] for r in direct.search_and_display(text)}
+                    overlaps.append(len(got & want) / 10)
+            # a second connection writes: n_new theorems on new papers, and
+            # n_regen existing theorems get a new latest slogan
+            writer = Catalog(db)
+            t_write = time.perf_counter()
+            fill_catalog(writer, range(n_papers, n_papers + n_new // 4), 4, texts[n : n + n_new],
+                         first=n)
+            regen_tids = [1 + (i * (n // n_regen)) for i in range(n_regen)]
+            writer.upsert_rows("theorem_slogan", [
+                {"theorem_id": tid, "model": "offline-stub", "prompt_id": "body-and-abstract-v1",
+                 "slogan": texts[n + n_new + j]} for j, tid in enumerate(regen_tids)],
+                ["theorem_id", "model", "prompt_id"])
+            writer.close()
+            deadline = t_write + 60
+            while time.perf_counter() < deadline and not (
+                    len(live.meta) == n + n_new + n_regen and corpus_size() == n + n_new):
+                time.sleep(0.1)
+            refresh_s = time.perf_counter() - t_write
+            num_live = corpus_size()
+            new_q = [(texts[n + i], f"2401.{n_papers + i // 4:05d}", f"Theorem {i % 4 + 1}", None)
+                     for i in range(n_new)]
+            regen_q = [(texts[n + n_new + j], f"2401.{(tid - 1) // per_paper:05d}",
+                        f"Theorem {(tid - 1) % per_paper + 1}", tid - 1)
+                       for j, tid in enumerate(regen_tids)]
+            with ThreadPoolExecutor(64) as ex:
+                found = list(ex.map(post, [{"query": q[0], "top_k": 10} for q in new_q + regen_q]))
+            rank1 = stale_seen = 0
+            for (_, pid, name, old), (code, body, _) in zip(new_q + regen_q, found):
+                top = body["results"][0] if code == 200 and body["results"] else {}
+                rank1 += top.get("paper_id") == pid and top.get("theorem_name") == name
+                stale_seen += old is not None and old in {r["doc_id"] for r in body["results"]}
+        finally:
+            srv.stop()
+            sched.shutdown()
+        c1 = snap()
+        poller_alive = any(t_.name == "catalog-refresh" for t_ in threading.enumerate())
+        out["serve"] = {
+            "start_s": start_s, "requests": len(answers),
+            "all_200": all(a[0] == 200 for a in answers),
+            "latency_ms": {"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99))},
+            "overlap10_mean": float(np.mean(overlaps)), "overlap10_min": float(np.min(overlaps)),
+            "refresh_s": refresh_s, "num_live": num_live, "refreshed_found_at_rank1": rank1,
+            "refreshed_queries": len(found), "superseded_returned": stale_seen,
+            "refresh_thread_stopped": not poller_alive,
+            "launches_warm": delta(c0, c_warm), "launches_served": delta(c_warm, c_served),
+            "launches": delta(c0, c1)}
+        emit("catalog_cli", step="serve", **out["serve"], gpu=gpu)
+        if not (out["serve"]["all_200"] and np.mean(overlaps) >= 0.9 and num_live == n + n_new
+                and refresh_s < 60 and rank1 == n_new + n_regen and stale_seen == 0
+                and not poller_alive):
+            raise AssertionError(f"serve: {out['serve']}")
+        for key, name in (("mips_g_scan", "B1"), ("fused_attn_int8_layer", "B3"),
+                          ("fused_mlp_int8_layer", "B4")):
+            if c_served[key] - c_warm[key] < 1:
+                launch_faults.append(f"serve: the served requests never launched {name} "
+                                     f"{delta(c_warm, c_served)}")
+        del srv, sched, live, direct, be8
+        gc.collect()
+
+        # 6. restart: a fresh engine from the same catalog and spool
+        t0 = time.perf_counter()
+        engine2 = build_engine_from_catalog(cat, be.for_role("document"), spool, device=dev)
+        rebuild_s = time.perf_counter() - t0
+        latest = {int(r[0]) for r in cat.conn.execute(
+            "SELECT MAX(slogan_id) FROM theorem_slogan GROUP BY theorem_id")}
+        sids2, corpus2 = spool_corpus(spool, dev, keep=latest)
+        with aside():
+            recalls2 = min_recall(engine2, corpus2, dev)
+        m2 = engine2.meta
+        theorems = len(set(zip(m2.paper_id, m2.theorem_name)))
+        by_id = dict(cat.conn.execute("SELECT slogan_id, slogan FROM theorem_slogan"))
+        packed_latest = list(m2.slogan) == [by_id[int(i)] for i in sids2]
+        out["restart"] = {"seconds": rebuild_s, "rows": engine2.n_valid,
+                          "spooled_rows": IndexBuilder(spool).total_rows,
+                          "one_doc_per_theorem": theorems == engine2.n_valid,
+                          "packed_are_latest": packed_latest,
+                          "global_scale": engine2._global_scale,
+                          "route_counts": dict(engine2.route_counts), "recall_draws": recalls2,
+                          "recall_min": min(recalls2)}
+        emit("catalog_cli", step="restart", **out["restart"], gpu=gpu)
+        if not (engine2.n_valid == n + n_new and theorems == engine2.n_valid and packed_latest
+                and set(engine2.route_counts) == {"speed"}
+                and min(recalls2) >= 0.99):
+            raise AssertionError(f"restart: {out['restart']}")
+        del engine2, corpus2
+        gc.collect()
+
+        # 7. build-ivf --calibrate on the same spool
+        c0 = snap()
+        t0 = time.perf_counter()
+        index, (nprobe, ivf_recall) = cli_run(["--catalog", db, "build-ivf", "--spool", spool,
+                                               "--calibrate", "--out", ivf_out])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ivf_s = time.perf_counter() - t0
+        c1 = snap()
+        out["ivf"] = {"seconds": ivf_s, "rows": index.num_rows, "lists": int(index.slabs.shape[0]),
+                      "nprobe": nprobe, "recall_min": ivf_recall, "launches": delta(c0, c1)}
+        emit("catalog_cli", step="build_ivf", **out["ivf"], gpu=gpu)
+        if not (ivf_recall >= 0.99 and index.num_rows == n + n_new + n_regen):
+            raise AssertionError(f"build-ivf: {out['ivf']}")
+        if c1["ivf_probe_scores"] - c0["ivf_probe_scores"] < 1:
+            launch_faults.append(f"build-ivf: B6 never launched {delta(c0, c1)}")
+        del index, be
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # 8. train from the checkpoint on catalog pairs
+        c0 = snap()
+        t0 = time.perf_counter()
+        losses = cli_run(["train", "--model-dir", model_dir, "--catalog", db, "--catalog-limit",
+                          "4096", "--steps", str(train_steps), "--batch-size", "64", "--seq-len",
+                          "64", "--checkpoint-dir", ck_dir])
+        train_s = time.perf_counter() - t0
+        c1 = snap()
+        d = delta(c0, c1)
+        out["train"] = {"seconds": train_s, "losses": losses, "checkpoint_files": os.listdir(ck_dir),
+                        "launches": d}
+        emit("catalog_cli", step="train", **out["train"], gpu=gpu)
+        if not (len(losses) == train_steps and all(np.isfinite(losses)) and os.listdir(ck_dir)):
+            raise AssertionError(f"train: {out['train']}")
+        want = 2 * cfg.num_layers * train_steps
+        if (d.get("qknorm_rope_attention"), d.get("qknorm_rope_attention_bwd")) != (want, want):
+            launch_faults.append(f"train: B2/B7 launched {d}, want {want} each")
+
+        # 9. eval and compare-embedders on the checkpoint
+        t0 = time.perf_counter()
+        metrics = cli_run(["eval", "--model-dir", model_dir])
+        results = cli_run(["compare-embedders", "--families", "qwen", "--model-dir", model_dir])
+        out["eval"] = {"seconds": time.perf_counter() - t0, "metrics": metrics,
+                       "compare": {r.name: r.metrics for r in results}}
+        emit("catalog_cli", step="eval", **out["eval"], gpu=gpu)
+        values = list(metrics.values()) + [v for r in results for v in r.metrics.values()]
+        if not (len(results) == 2 and all(np.isfinite(values))):
+            raise AssertionError(f"eval: {out['eval']}")
+        cat.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if launch_faults:
+        raise AssertionError("catalog_cli launches: " + "; ".join(launch_faults))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -445,8 +982,9 @@ def main(argv=None) -> int:
         for c in counters.values():
             c.reset()
 
-    def path_end() -> dict:
-        got = {name: c.n for name, c in counters.items()}
+    def path_end(aside: dict | None = None) -> dict:
+        """The launches since path_start, less `aside` (a check's own)."""
+        got = {name: c.n - (aside or {}).get(name, 0) for name, c in counters.items()}
         for name, n in got.items():
             main_launches[name] += n
         return got
@@ -2391,6 +2929,18 @@ def main(argv=None) -> int:
     if not (r1.returncode == 0 and r2.returncode == 0 and "resumed at step 10" in r2.stdout
             and after and np.isfinite(final_loss)):
         raise AssertionError("train_cli phase failed")
+
+    # ---- 23. the catalog -> engine -> CLI path at full width ----
+    path_start()
+    cc_checks = catalog_cli(dev, gpu, counters)["check_launches"]
+    path_cc = path_end(aside=cc_checks)
+    emit("catalog_cli", step="window", launches=path_cc, check_launches_taken_out=cc_checks,
+         gpu=gpu)
+    unlaunched = [k for k in ("mips_g_scan", "qknorm_rope_attention", "fused_attn_int8_layer",
+                              "fused_mlp_int8_layer", "ivf_probe_scores", "qknorm_rope_attention_bwd")
+                  if path_cc[k] < 1]
+    if unlaunched:
+        raise AssertionError(f"catalog_cli: kernels never launched in its window: {unlaunched}")
 
     # ---- 13. the times line ----
     emit("times", **times_line, b2_at_train_shape=b2_train, train_step_ms={

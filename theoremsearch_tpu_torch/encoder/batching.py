@@ -76,6 +76,51 @@ class BatchedEncoder:
                 return b
         return self.buckets[-1]
 
+    def encode_long(self, texts: Sequence[str], chunk_tokens: int | None = None,
+                    role: str | None = None) -> np.ndarray:
+        """Long-document encoding: a text longer than `chunk_tokens`
+        (default: the widest bucket less the two specials) is split into
+        chunks, each chunk encoded as usual, and the chunk embeddings
+        mean-pooled and renormalized.
+
+        The role prompt is applied once, before chunking, so it lands in
+        the first chunk (sentence-transformers prompts the full text and
+        then truncates). Words are accumulated greedily by their actual
+        token counts: one token-dense formula "word" can be many tokens,
+        and a chunk past the bucket would be truncated in _prep_batch."""
+        chunk_tokens = chunk_tokens or (self.buckets[-1] - 2)
+        texts = self._apply_prompt(texts, role)
+        pieces: list[str] = []
+        owners: list[int] = []
+        for i, t in enumerate(texts):
+            if len(self.tokenizer.tokenize(t)) <= chunk_tokens:
+                pieces.append(t)
+                owners.append(i)
+                continue
+            cur: list[str] = []
+            cur_tokens = 0
+            for w in t.split() or [t]:
+                wt = len(self.tokenizer.tokenize(w))
+                if cur and cur_tokens + wt > chunk_tokens:
+                    pieces.append(" ".join(cur))
+                    owners.append(i)
+                    cur, cur_tokens = [], 0
+                cur.append(w)
+                cur_tokens += wt
+            if cur:
+                pieces.append(" ".join(cur))
+                owners.append(i)
+        emb = self.encode(pieces)
+        out = np.zeros((len(texts), self.cfg.embedding_dim), np.float32)
+        counts = np.zeros(len(texts))
+        for j, owner in enumerate(owners):
+            out[owner] += emb[j]
+            counts[owner] += 1
+        out /= np.maximum(counts[:, None], 1)
+        if self.cfg.normalize:
+            out /= np.maximum(np.linalg.norm(out, axis=1, keepdims=True), 1e-12)
+        return out
+
     def _apply_prompt(self, texts: Sequence[str], role: str | None) -> list:
         pre = self.prompts.get(role) if role else None
         return [pre + t for t in texts] if pre else list(texts)

@@ -1,7 +1,5 @@
-"""Checkpoint loading for the gemma and BERT towers: HuggingFace
-safetensors -> the port's params (port of the gemma and BERT halves of
-theoremsearch_tpu/encoder/loader.py; the qwen loader comes with the CLI's
---model-dir).
+"""Checkpoint loading for the three towers: HuggingFace safetensors ->
+the port's params (port of theoremsearch_tpu/encoder/loader.py).
 
 `.safetensors` files are read by a short numpy reader (`read_safetensors`:
 an 8-byte little-endian header length, a JSON header, then raw
@@ -11,6 +9,12 @@ rounding. HF stores Linear weights as (out, in); the port stores (in,
 out), as the reference does, hence the transposes. Matrices come out in
 `dtype` (bf16 by default), norms, biases and LayerNorm parameters in f32.
 
+Name mapping, qwen (Qwen3Model or ForCausalLM-style, with or without a
+"model." prefix; lm_head is skipped):
+    embed_tokens.weight -> embed, norm.weight -> final_norm,
+    layers.{i}.{input_layernorm, post_attention_layernorm} -> attn_norm,
+    mlp_norm; self_attn.{q,k,v,o}_proj -> wq/wk/wv/wo, self_attn.{q,k}_norm
+    -> q_norm/k_norm, mlp.{gate,up,down}_proj -> w_gate/w_up/w_down.
 Name mapping, gemma (Gemma3TextModel, with or without a "model." prefix):
     embed_tokens.weight -> embed, norm.weight -> final_norm,
     layers.{i}.{input_layernorm, post_attention_layernorm,
@@ -32,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..core.config import BertEncoderConfig, GemmaEncoderConfig
+from ..core.config import BertEncoderConfig, EncoderConfig, GemmaEncoderConfig
 from ..utils.device import resolve_device
 from .model import _DTYPES
 
@@ -78,6 +82,84 @@ def _to_param(t: torch.Tensor, transpose: bool, norm: bool, pdtype, device) -> t
     if transpose:
         t = t.T
     return t.to(torch.float32 if norm else pdtype).contiguous().to(device)
+
+
+def _load_decoder_tower(model_dir: Path, num_layers: int, mapping: dict, pdtype,
+                        device) -> tuple[dict, list[int]]:
+    """(params, indices of incomplete layers) of a qwen- or gemma-layout
+    tower: embed, final_norm and each layer's `mapping` keys. The caller
+    raises on incomplete layers or a missing embed."""
+    layers: list[dict] = [dict() for _ in range(num_layers)]
+    params: dict = {"layers": layers}
+    for name, t in _iter_safetensors(model_dir):
+        if name.startswith("lm_head."):
+            continue
+        # bare Qwen3Model / Gemma3TextModel keys gain the "model." prefix
+        # that ForCausalLM-style (and the published embedding) checkpoints carry
+        if not name.startswith("model.") and (
+                name in ("embed_tokens.weight", "norm.weight") or name.startswith("layers.")):
+            name = "model." + name
+        if name == "model.embed_tokens.weight":
+            params["embed"] = _to_param(t, False, False, pdtype, device)
+        elif name == "model.norm.weight":
+            params["final_norm"] = _to_param(t, False, True, pdtype, device)
+        elif name.startswith("model.layers."):
+            li, sub = name[len("model.layers."):].split(".", 1)
+            if sub in mapping:
+                key, tr, is_norm = mapping[sub]
+                layers[int(li)][key] = _to_param(t, tr, is_norm, pdtype, device)
+    return params, [i for i, layer in enumerate(layers) if len(layer) != len(mapping)]
+
+
+# ---------------------------------------------------------------------------
+# qwen family
+# ---------------------------------------------------------------------------
+
+
+def config_from_hf(model_dir: str | Path) -> EncoderConfig:
+    """The EncoderConfig of a Qwen3 checkpoint's config.json."""
+    cfg = json.loads((Path(model_dir) / "config.json").read_text())
+    return EncoderConfig(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        num_kv_heads=cfg["num_key_value_heads"],
+        head_dim=cfg.get("head_dim", cfg["hidden_size"] // cfg["num_attention_heads"]),
+        rope_theta=cfg.get("rope_theta", 1_000_000.0),
+        rms_norm_eps=cfg.get("rms_norm_eps", 1e-6),
+        embedding_dim=cfg["hidden_size"],
+    )
+
+
+_QWEN_MAPPING = {
+    "input_layernorm.weight": ("attn_norm", False, True),
+    "self_attn.q_proj.weight": ("wq", True, False),
+    "self_attn.k_proj.weight": ("wk", True, False),
+    "self_attn.v_proj.weight": ("wv", True, False),
+    "self_attn.o_proj.weight": ("wo", True, False),
+    "self_attn.q_norm.weight": ("q_norm", False, True),
+    "self_attn.k_norm.weight": ("k_norm", False, True),
+    "post_attention_layernorm.weight": ("mlp_norm", False, True),
+    "mlp.gate_proj.weight": ("w_gate", True, False),
+    "mlp.up_proj.weight": ("w_up", True, False),
+    "mlp.down_proj.weight": ("w_down", True, False),
+}
+
+
+def load_hf_checkpoint(model_dir: str | Path, dtype: str = "bfloat16",
+                       device=None) -> tuple[dict, EncoderConfig]:
+    """(params, config) of a local HF Qwen3 checkpoint dir, on `device`
+    (default: the card). An incomplete checkpoint raises."""
+    model_dir = Path(model_dir)
+    device = resolve_device(device)
+    cfg = config_from_hf(model_dir)
+    params, missing = _load_decoder_tower(model_dir, cfg.num_layers, _QWEN_MAPPING,
+                                          _DTYPES[dtype], device)
+    if "embed" not in params or missing:
+        raise ValueError(f"incomplete checkpoint: missing layers {missing[:4]}...")
+    return params, cfg
 
 
 # ---------------------------------------------------------------------------
@@ -185,24 +267,8 @@ def load_hf_gemma_checkpoint(model_dir: str | Path, dtype: str = "bfloat16",
     device = resolve_device(device)
     cfg = gemma_config_from_hf(model_dir)
     pdtype = _DTYPES[dtype]
-    layers: list[dict] = [dict() for _ in range(cfg.num_layers)]
-    params: dict = {"layers": layers}
-    for name, t in _iter_safetensors(model_dir):
-        if name.startswith("lm_head."):
-            continue
-        if not name.startswith("model.") and (
-                name in ("embed_tokens.weight", "norm.weight") or name.startswith("layers.")):
-            name = "model." + name
-        if name == "model.embed_tokens.weight":
-            params["embed"] = _to_param(t, False, False, pdtype, device)
-        elif name == "model.norm.weight":
-            params["final_norm"] = _to_param(t, False, True, pdtype, device)
-        elif name.startswith("model.layers."):
-            li, sub = name[len("model.layers."):].split(".", 1)
-            if sub in _GEMMA_MAPPING:
-                key, tr, is_norm = _GEMMA_MAPPING[sub]
-                layers[int(li)][key] = _to_param(t, tr, is_norm, pdtype, device)
-    missing = [i for i, layer in enumerate(layers) if len(layer) != len(_GEMMA_MAPPING)]
+    params, missing = _load_decoder_tower(model_dir, cfg.num_layers, _GEMMA_MAPPING, pdtype,
+                                          device)
     if "embed" not in params or missing:
         raise ValueError(f"incomplete gemma checkpoint: missing layers {missing[:4]}...")
     dense_dirs = sorted(d for d in model_dir.iterdir() if d.is_dir() and d.name.endswith("_Dense"))

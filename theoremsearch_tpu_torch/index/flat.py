@@ -64,6 +64,21 @@ class FlatIndex:
     # them for the two-level rescore (2 bytes/dim in all)
     rescore_residual: tuple[torch.Tensor, torch.Tensor] | None = None
 
+    @property
+    def padded_rows(self) -> int:
+        return int(self.vectors.shape[0])
+
+    @property
+    def dim(self) -> int:
+        return int(self.vectors.shape[1])
+
+    def memory_bytes(self) -> int:
+        """Bytes of the packed arrays: vectors, ids, scales and, unlike the
+        reference's flat index (which stops at the scales), the residual
+        sidecars, as both packages' IVFIndex.memory_bytes count them."""
+        arrays = [self.vectors, self.ids, self.scales, *(self.rescore_residual or ())]
+        return sum(a.numel() * a.element_size() for a in arrays if a is not None)
+
     @classmethod
     def build(
         cls,

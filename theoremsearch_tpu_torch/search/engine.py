@@ -510,7 +510,7 @@ class SearchEngine:
     # compact: fold the delta into the index while queries run
     # ------------------------------------------------------------------
 
-    def compact(self, reclaim: bool = False) -> int:
+    def compact(self, reclaim: bool = False, warm_batches=None) -> int:
         """Fold live delta rows into the packed index (quantized with the
         index's own scheme: the global scale is kept, so scores stay
         comparable) and swap the rebuilt state in without stopping
@@ -529,7 +529,17 @@ class SearchEngine:
         permutation, `last_id_map` gives old id -> new id (-1 = dropped),
         and a remap chain translates the ids of queries dispatched before
         the renumbering. The IVF route survives: folded rows go to their
-        nearest existing centroids (`IVFIndex.with_updates`)."""
+        nearest existing centroids (`IVFIndex.with_updates`).
+
+        warm_batches: the reference's padded batch sizes whose scan
+        programs it compiles before the swap. The port compiles no
+        programs, and what phase 2b builds (the IVF searcher for each k,
+        the grouped pass/fail rows) does not depend on the batch size, so
+        the argument is checked (positive ints or None) and changes
+        nothing else."""
+        if warm_batches is not None and not all(
+                isinstance(b, (int, np.integer)) and b > 0 for b in warm_batches):
+            raise ValueError(f"warm_batches must be positive ints, got {warm_batches!r}")
         result: list = [None]
         error: list = [None]
 

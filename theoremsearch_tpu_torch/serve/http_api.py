@@ -180,6 +180,9 @@ class SearchServer:
     def __init__(self, service: SearchService, host: str = "127.0.0.1", port: int = 0):
         self.httpd = _HTTPServer((host, port), make_handler(service))
         self._thread: threading.Thread | None = None
+        # callables stop() runs after the listener closes (the CLI's
+        # catalog refresh thread registers its own stop here)
+        self.on_stop: list = []
 
     @property
     def port(self) -> int:
@@ -199,4 +202,13 @@ class SearchServer:
         self.httpd.server_close()
         if self._thread:
             self._thread.join(timeout=5)
+        for fn in self.on_stop:
+            fn()
 
+
+def serve(service: SearchService, host: str = "0.0.0.0", port: int = 8080) -> None:
+    """Blocking entry point: serve until interrupted."""
+    server = SearchServer(service, host, port)
+    freeze_permanent()
+    print(f"serving on {host}:{server.port}")
+    server.httpd.serve_forever()
