@@ -147,6 +147,33 @@ exits non-zero (there is no CPU path):
              remap_ids): recall@10 at B=8 >= 0.99 at the calibrated nprobe
              after each step, the IVF route kept, B6 bit-equal to plain on
              the updated slabs.
+16m. mesh_search / mesh_live / mesh_ivf / mesh_serve  the serving paths
+             row-sharded over four shards on the card (make_mesh(
+             MeshConfig(shard=4), devices=[cuda:0] * 4); each shard's
+             kernels run on its slice, the per-shard top-k lists are merged
+             on the first device), held to the single-device engines:
+             mesh_search: phase 6's index, min recall@10 over the 5 draws
+             of 1,024, overlap@10 with the single-device engine >= 0.99 and
+             scores within 5e-3, the year mask and the 36-signature grouped
+             mix (every id passes, recall >= 0.99 per signature), the exact
+             route (B5 a shard) at B=512, k=40 (ids equal where scores are
+             unique, unfiltered and year-filtered), the residual index
+             sharded (recall >= 0.99), mesh vs single batch ms at B=1024;
+             mesh_live: 10,240 adds, 1,100 deletes, an update, compact and
+             reclaim (each while a client queries) on a meshed and a
+             single-device engine over phase 6's index, after each step
+             recall >= 0.99 over the live rows, no deleted id, and no row
+             where the mesh finds fewer true neighbours than the single
+             device (the share of equal ids reported); mesh_ivf: phase
+             15's index behind a meshed engine at the calibrated nprobe,
+             recall@10 at B=8 >= 0.99, held to the single-device searcher
+             the same way; mesh_serve: scheduler + HTTP over the meshed
+             engine with the int8 encoder data-parallel on
+             [cuda:0] * 2, 128 requests (overlap@10 >= 0.9 vs the
+             single-device service; pooled cosine of the dp encode vs the
+             one-device encode >= 0.999 int8, >= 0.9999 bf16). B1, B5 and
+             B6 must run once a shard a batch in each window. On more than
+             one card mesh_search also runs over the distinct cards.
 20. encoder_gemma / encoder_gemma_int8  the embeddinggemma-300m-class
              tower at full width (GemmaEncoderConfig(): 24 layers, d 768,
              3/1 heads of 256, vocab 262,144, the 768 -> 3072 -> 768 head;
@@ -216,7 +243,7 @@ exits non-zero (there is no CPU path):
              "on" and "off", and the script's total seconds.
 
 Each path (phases 5-7, 7b, 9, 11, 11r, 11l, 11c, 11s, 12, 15, 16, 16l,
-18, 18g, 20, 21, 23) runs with every launch counter set to 0 just before it
+16m, 18, 18g, 20, 21, 23) runs with every launch counter set to 0 just before it
 and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
@@ -902,6 +929,344 @@ def catalog_cli(dev, gpu: str, counters: dict, cfg=None, n_papers: int = 20_000,
     return out
 
 
+def rows_equal_or_better(got, ref, oracle) -> tuple[float, int, int]:
+    """(share of equal ids, rows that differ, rows where `got` is worse):
+    two (B, k) id lists held to each other, a differing row counted worse
+    when it finds fewer of the oracle's k neighbours than `ref`'s row."""
+    got, ref, oracle = (np.asarray(a) for a in (got, ref, oracle))
+    differ = (got != ref).any(axis=1)
+    worse = 0
+    for r in np.nonzero(differ)[0]:
+        worse += len(set(got[r]) & set(oracle[r])) < len(set(ref[r]) & set(oracle[r]))
+    return float((got == ref).mean()), int(differ.sum()), int(worse)
+
+
+def mesh_phases(dev, gpu: str, counters: dict, path_start, path_end, *, index, rindex, corpus,
+                corpus_dev, qd, oracle, meta, f3, f36, host_masks, xindex, rescore_bf16, engine, xeng,
+                ivf, ivf_corpus, flat_ivf, draws, nprobe, params, cfg, encoder, encoder8, texts,
+                serve_round, n_add: int = 10_240, n_del: int = 1_000, n_del_delta: int = 100,
+                requests: int = 128) -> dict:
+    """Phases mesh_search, mesh_live, mesh_ivf and mesh_serve: the serving
+    paths row-sharded over four shards of the one card ([dev] * 4), at
+    the main phases' full widths (B=512 where phase 9 and the live phase
+    run it), reusing their
+    indexes, corpora, oracles, filters and encoders; each held to its
+    single-device engine. Every window counts the mesh path alone: the
+    single-device runs and oracles it is held to run outside the windows
+    or are counted apart (`aside`). Returns the launch windows by phase;
+    raises if a gate fails."""
+    import torch
+
+    from theoremsearch_tpu_torch.core.config import MeshConfig
+    from theoremsearch_tpu_torch.core.meshes import make_mesh
+    from theoremsearch_tpu_torch.encoder.batching import BatchedEncoder
+    from theoremsearch_tpu_torch.eval.metrics import recall_vs_exact
+    from theoremsearch_tpu_torch.eval.oracle import exact_topk
+    from theoremsearch_tpu_torch.index.flat import l2_normalize_rows
+    from theoremsearch_tpu_torch.search.engine import SearchEngine
+    from theoremsearch_tpu_torch.serve.app import SearchService
+    from theoremsearch_tpu_torch.serve.scheduler import BatchScheduler
+
+    shards, batch = 4, 512
+    mesh = make_mesh(MeshConfig(shard=shards), devices=[dev] * shards)
+    nc, d = int(index.num_rows), int(corpus_dev.shape[1])
+    windows = {}
+
+    def counted(fn, aside):
+        """fn() with its launches added to `aside` (taken out of the window)."""
+        before = {n: c.n for n, c in counters.items()}
+        out = fn()
+        for n, c in counters.items():
+            aside[n] = aside.get(n, 0) + c.n - before[n]
+        return out
+
+    def wall_ms(eng, qq, n=8):
+        eng.search_vectors(qq, k=10)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.search_vectors(qq, k=10)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def overlap(a, b):
+        return float(np.mean([len(set(x) & set(y)) / a.shape[1] for x, y in zip(a, b)]))
+
+    # ---- mesh_search: phase 6's index on the mesh, B=1024 draws ----
+    t0 = time.perf_counter()
+    meng = SearchEngine(index, meta=meta, rescore_vectors=corpus, mesh=mesh)
+    build_s = time.perf_counter() - t0
+    path_start()
+    got = [meng.search_vectors(qd[s], k=10) for s in range(len(qd))]
+    win_u = path_end()
+    nq = qd[0].shape[0]
+    recalls = [recall_vs_exact(i_, oracle[s * nq : (s + 1) * nq], k=10) for s, (_, i_) in enumerate(got)]
+    single = [engine.search_vectors(qd[s], k=10) for s in range(len(qd))]
+    overlaps = [overlap(g[1], s1[1]) for g, s1 in zip(got, single)]
+    # scores at equal ids within 5e-3 (the reference's bar); rows whose ids
+    # differ must not find fewer true neighbours than the single device's
+    same_id = [g[1] == s1[1] for g, s1 in zip(got, single)]
+    score_diff = max(float(np.abs(g[0] - s1[0])[m_].max(initial=0.0))
+                     for g, s1, m_ in zip(got, single, same_id))
+    score_diff_any = max(float(np.abs(g[0] - s1[0]).max()) for g, s1 in zip(got, single))
+    vs_single = [rows_equal_or_better(g[1], s1[1], oracle[s * nq : (s + 1) * nq])
+                 for s, (g, s1) in enumerate(zip(got, single))]
+    # the year mask (masked route) and the 36-signature mix (grouped, split
+    # 32 + 4): len(f36) batches, row r of batch b under signature (r + b)
+    # mod 36, so each signature sees every query once
+    qf = unit_rows(batch, d, 2000, dev)
+    n_sig = len(f36)
+    r0 = dict(meng.route_counts)
+    path_start()
+    _, yid = meng.search_vectors(qf, k=10, filters=f3[0])
+    gids = [meng.search_vectors(qf, k=10, filters=[f36[(r + b) % n_sig] for r in range(batch)])[1]
+            for b in range(n_sig)]
+    win_f = path_end()
+    routes = {r: c - r0.get(r, 0) for r, c in meng.route_counts.items() if c > r0.get(r, 0)}
+    year_ok = bool(host_masks[0][yid[yid >= 0]].all()) and bool((yid >= 0).all())
+    year_rec = recall_vs_exact(yid, exact_topk(qf, corpus_dev, k=10, device=dev, mask=host_masks[0])[1], k=10)
+    sig_rec, sig_ok = {}, True
+    for s_ in range(n_sig):
+        mk = host_masks[3 + s_]
+        got_s = np.concatenate([gids[b][(s_ - b) % n_sig :: n_sig] for b in range(n_sig)])
+        rows_s = np.concatenate([np.arange(batch)[(s_ - b) % n_sig :: n_sig] for b in range(n_sig)])
+        orc = exact_topk(qf, corpus_dev, k=10, device=dev, mask=mk)[1][rows_s]
+        sig_rec[s_] = recall_vs_exact(got_s, orc, k=10)
+        sig_ok &= bool(mk[got_s[got_s >= 0]].all())
+    # the exact route (B5 a shard) at k=40, unfiltered and year-filtered
+    xm = SearchEngine(xindex, meta=meta, rescore_vectors=rescore_bf16, mesh=mesh)
+    path_start()
+    x_got = [xm.search_vectors(qf, k=40), xm.search_vectors(qf, k=40, filters=f3[0])]
+    win_x = path_end()
+    x_ref = [xeng.search_vectors(qf, k=40), xeng.search_vectors(qf, k=40, filters=f3[0])]
+    exact_equal = [topk_agree(*(torch.from_numpy(np.asarray(a_)) for a_ in (g_[0], g_[1], r_[0], r_[1])),
+                              exact=False)[0] for g_, r_ in zip(x_got, x_ref)]
+    del xm
+    # the residual mode, both levels sharded
+    rm = SearchEngine(rindex, mesh=mesh)
+    path_start()
+    r_got = [rm.search_vectors(qd[s], k=10)[1] for s in range(len(qd))]
+    win_r = path_end()
+    r_rec = [recall_vs_exact(i_, oracle[s * nq : (s + 1) * nq], k=10) for s, i_ in enumerate(r_got)]
+    resid_mode = rm._speed_ok and rm._shards[0]["res_codes"] is not None
+    del rm
+    qpad = qd[0].contiguous()
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        meng._speed_search(qpad, 10, 10)
+        torch.cuda.synchronize()
+    prof_rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:8]
+    mesh_profile = [[e.key[:60], round(e.self_device_time_total, 1), e.count] for e in prof_rows]
+    batch_ms = {"mesh_device": cuda_ms(lambda: meng._speed_search(qpad, 10, 10), 10),
+                "single_device": cuda_ms(lambda: engine._speed_search(qpad, 10, 10), 10),
+                "mesh_wall": wall_ms(meng, qd[0]), "single_wall": wall_ms(engine, qd[0])}
+    cards = None
+    if torch.cuda.device_count() > 1:
+        # the same engine over the distinct cards (not the driver's one-card run)
+        cmesh = make_mesh(MeshConfig(shard=min(shards, torch.cuda.device_count())),
+                          devices=[torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+        ceng = SearchEngine(index, rescore_vectors=corpus, mesh=cmesh)
+        c_got = [ceng.search_vectors(qd[s], k=10)[1] for s in range(len(qd))]
+        cards = {"devices": [str(x) for x in cmesh.shard_devices],
+                 "recall_min": min(recall_vs_exact(i_, oracle[s * nq : (s + 1) * nq], k=10)
+                                   for s, i_ in enumerate(c_got)),
+                 "ids_equal_one_card_mesh": float(np.mean([(a == b[1]).mean() for a, b in zip(c_got, got)]))}
+        del ceng
+    n_q = len(qd)
+    emit("mesh_search", shards=shards, devices=[str(x) for x in mesh.shard_devices], rows=nc,
+         rows_per_shard=meng.rows_per_shard, build_s=round(build_s, 3), recall_draws=recalls,
+         recall_min=min(recalls), overlap10_single_min=min(overlaps),
+         max_score_diff_single_same_id=score_diff, max_score_diff_single_by_position=score_diff_any,
+         rows_differing_single=sum(v[1] for v in vs_single),
+         rows_worse_than_single=sum(v[2] for v in vs_single), profile_b1024_us=mesh_profile,
+         year_recall=year_rec, year_all_pass=year_ok, grouped_recall_min=min(sig_rec.values()),
+         grouped_all_pass=sig_ok, routes=routes, exact_b512_k40_ids_equal_single=exact_equal,
+         residual_recall_min=min(r_rec), batch_ms_b1024=batch_ms, other_cards=cards, gpu=gpu,
+         launches={"unmasked": win_u, "filtered": win_f, "exact": win_x, "residual": win_r})
+    if not (min(recalls) >= 0.99 and min(overlaps) >= 0.99 and score_diff <= 5e-3
+            and sum(v[2] for v in vs_single) == 0 and year_ok
+            and year_rec >= 0.99 and sig_ok and min(sig_rec.values()) >= 0.99 and all(exact_equal)
+            and resid_mode and min(r_rec) >= 0.99 and routes == {"masked": 1, "grouped": 2 * n_sig}
+            and (cards is None or cards["recall_min"] >= 0.99)):
+        raise AssertionError("mesh_search phase failed")
+    if not (win_u["mips_g_scan"] == shards * n_q and win_f["mips_g_scan_mask"] == shards
+            and win_f["mips_g_scan_gmask"] == 2 * shards * n_sig and win_x["mips_topk"] == 2 * shards
+            and win_r["mips_g_scan"] == shards * n_q):
+        raise AssertionError(f"mesh_search: a kernel did not run once a shard a batch: "
+                             f"{win_u}, {win_f}, {win_x}, {win_r}")
+    windows["mesh_search"] = {"unmasked": win_u, "filtered": win_f, "exact": win_x, "residual": win_r}
+
+    # ---- mesh_live: adds, deletes, an update, compact and reclaim on the
+    # meshed engine, each step held to a single-device engine ----
+    lm = SearchEngine(index, rescore_vectors=corpus, mesh=mesh)
+    l1 = SearchEngine(index, rescore_vectors=corpus, device=dev)
+    qlive = [q_[:batch].contiguous() for q_ in qd]
+    add_vecs = l2_normalize_rows(unit_rows(n_add, d, 50_000, dev).cpu())
+    live_rows = torch.cat([corpus_dev, add_vecs.to(dev)])
+    alive = np.zeros(nc + n_add, bool)
+    alive[:nc] = True
+    aside: dict = {}
+    steps = {}
+
+    def check(step):
+        """Mesh vs single-device ids on every draw, against the oracle over
+        the live rows; no dead id returned."""
+        eq, differ, worse, recs, dead_ok = [], 0, 0, [], True
+        for qq in qlive:
+            _, im = lm.search_vectors(qq, k=10)
+            _, i1 = counted(lambda: l1.search_vectors(qq, k=10), aside)
+            orc = counted(lambda: exact_topk(qq, live_rows, k=10, device=dev, mask=alive)[1], aside)
+            e_, d_, w_ = rows_equal_or_better(im, i1, orc)
+            eq.append(e_)
+            differ += d_
+            worse += w_
+            recs.append(recall_vs_exact(im, orc, k=10))
+            dead_ok &= bool(alive[im[im >= 0]].all()) and bool((im >= 0).all())
+        steps[step] = {"ids_equal": min(eq), "rows_differing": differ, "rows_worse": worse,
+                       "recall_min": min(recs), "no_dead_id": dead_ok}
+
+    def compact_under_load(reclaim):
+        lat, stop_ = [], threading.Event()
+        qc = qlive[2][:64].contiguous()
+
+        def client():
+            while not stop_.is_set():
+                t_ = time.perf_counter()
+                lm.search_vectors(qc, k=10)
+                lat.append((t_, time.perf_counter() - t_))
+
+        th = threading.Thread(target=client)
+        th.start()
+        time.sleep(0.3)
+        t_c = time.perf_counter()
+        folded = lm.compact(reclaim=reclaim)
+        t_e = time.perf_counter()
+        time.sleep(0.1)
+        stop_.set()
+        th.join()
+        during = [d_ for t_, d_ in lat if t_ + d_ >= t_c and t_ <= t_e]
+        return folded, {"seconds": round(t_e - t_c, 3), "queries_during": len(during),
+                        "longest_query_ms": round(1e3 * max(during, default=0.0), 1)}
+
+    path_start()
+    check("baseline")
+    t0 = time.perf_counter()
+    for i in range(0, n_add, 1024):
+        ids_m = lm.add_documents(add_vecs[i : i + 1024].numpy(), normalize=False)
+        ids_1 = counted(lambda: l1.add_documents(add_vecs[i : i + 1024].numpy(), normalize=False), aside)
+        if not np.array_equal(ids_m, ids_1):
+            raise AssertionError("mesh_live: the add minted other ids")
+    add_s = time.perf_counter() - t0
+    alive[nc:] = True
+    check("after_add")
+    gdel = np.random.default_rng(60)
+    deleted = np.concatenate([gdel.choice(nc, n_del, replace=False),
+                              nc + gdel.choice(n_add, n_del_delta, replace=False)])
+    if lm.delete_documents(deleted) != deleted.size or l1.delete_documents(deleted) != deleted.size:
+        raise AssertionError("mesh_live: a delete missed a live doc")
+    alive[deleted] = False
+    check("after_delete")
+    upd = int(np.nonzero(alive[:nc])[0][12_345 % int(alive[:nc].sum())])
+    new_vec = l2_normalize_rows(unit_rows(1, d, 50_001, dev).cpu())
+    lm.update_document(upd, new_vec.numpy())
+    l1.update_document(upd, new_vec.numpy())
+    live_rows[upd] = new_vec[0].to(dev)
+    check("after_update")
+    folded, comp = compact_under_load(False)
+    if folded != counted(lambda: l1.compact(), aside):
+        raise AssertionError("mesh_live: compact folded another count")
+    check("after_compact")
+    _, recl = compact_under_load(True)
+    counted(lambda: l1.compact(reclaim=True), aside)
+    map_equal = bool(np.array_equal(lm.last_id_map, l1.last_id_map))
+    keep_old = np.nonzero(lm.last_id_map >= 0)[0]
+    live_rows = live_rows[torch.from_numpy(keep_old).to(dev)]
+    alive = np.ones(keep_old.size, bool)
+    check("after_reclaim")
+    win_l = path_end(aside=aside)
+    emit("mesh_live", shards=shards, batch=batch, added=n_add, add_s=round(add_s, 3),
+         deleted_main=n_del, deleted_delta=n_del_delta, updated=upd, compact=comp, reclaim=recl,
+         id_map_equal_single=map_equal, rows_after=lm.n_valid, steps=steps, gpu=gpu, launches=win_l)
+    if not (map_equal and lm.n_valid == l1.n_valid == nc + n_add - n_del - n_del_delta
+            and all(st_["no_dead_id"] and st_["rows_worse"] == 0 and st_["recall_min"] >= 0.99
+                    for st_ in steps.values())):
+        raise AssertionError("mesh_live phase failed")
+    if win_l["mips_g_scan"] < shards or win_l["mips_g_scan"] % shards:
+        raise AssertionError(f"mesh_live: B1 did not run once a shard: {win_l}")
+    windows["mesh_live"] = win_l
+    del lm, l1, live_rows
+
+    # ---- mesh_ivf: the 1M clustered IVF index, lists sharded over the mesh ----
+    t0 = time.perf_counter()
+    ieng = SearchEngine(flat_ivf, rescore_vectors=ivf_corpus, mesh=mesh, ivf_index=ivf, ivf_nprobe=nprobe)
+    ibuild_s = time.perf_counter() - t0
+    single_fn = ivf.device_searcher(k=10, nprobe=nprobe)
+    r0 = ieng.route_counts.get("ivf", 0)
+    path_start()
+    i_got = [np.concatenate([ieng.search_vectors(qq[j : j + 8], k=10)[1] for j in range(0, qq.shape[0], 8)])
+             for qq, _ in draws]
+    win_i = path_end()
+    n_batches = ieng.route_counts.get("ivf", 0) - r0
+    i_rec = [recall_vs_exact(g_, orc, k=10) for g_, (_, orc) in zip(i_got, draws)]
+    i_cmp = [rows_equal_or_better(g_, torch.cat([single_fn(qq[j : j + 8])[1] for j in range(0, qq.shape[0], 8)])
+                                  .cpu().numpy(), orc) for g_, (qq, orc) in zip(i_got, draws)]
+    qb8 = draws[0][0][:8].contiguous()
+    ivf_ms = {"mesh_device": cuda_ms(lambda: ieng._ivf_fn(10)(qb8), 20),
+              "single_device": cuda_ms(lambda: single_fn(qb8), 20),
+              "mesh_wall": wall_ms(ieng, qb8, n=20)}
+    emit("mesh_ivf", shards=shards, nprobe=nprobe, build_s=round(ibuild_s, 3), recall_b8_draws=i_rec,
+         recall_b8_min=min(i_rec), ids_equal_single=min(c_[0] for c_ in i_cmp),
+         rows_differing=sum(c_[1] for c_ in i_cmp), rows_worse=sum(c_[2] for c_ in i_cmp),
+         ivf_batches=n_batches, batch_ms_b8=ivf_ms, gpu=gpu, launches=win_i)
+    if not (min(i_rec) >= 0.99 and sum(c_[2] for c_ in i_cmp) == 0 and n_batches == sum(
+            -(-qq.shape[0] // 8) for qq, _ in draws)):
+        raise AssertionError("mesh_ivf phase failed")
+    if win_i["ivf_probe_scores"] != shards * n_batches:
+        raise AssertionError(f"mesh_ivf: B6 did not run once a shard a batch: {win_i}")
+    windows["mesh_ivf"] = win_i
+    ieng.ivf._sharded_cache = None
+    del ieng, single_fn
+
+    # ---- mesh_serve: scheduler + HTTP over the meshed engine, the int8
+    # encoder data-parallel over [dev] * 2 ----
+    dmesh = make_mesh(MeshConfig(data=2), devices=[dev] * 2)
+    dp8 = BatchedEncoder(params, cfg, batch_size=512, quant="int8", mesh=dmesh)
+    dp16 = BatchedEncoder(params, cfg, batch_size=512, mesh=dmesh)
+    sample = texts[:512]
+    cos8 = float(np.min(np.sum(dp8.encode(sample) * encoder8.encode(sample), axis=1)))
+    cos16 = float(np.min(np.sum(dp16.encode(sample) * encoder.encode(sample), axis=1)))
+    del dp16
+    sched = BatchScheduler(meng, max_batch=256, encode_fn=dp8.encode_device)
+    service = SearchService(meng, dp8.encode, scheduler=sched)
+    direct = SearchService(engine, encoder8.encode)
+    qtexts = [texts[(37 * i) % len(texts)] for i in range(requests)]
+    r0 = dict(meng.route_counts)
+    path_start()
+    answers, serve_s, st, warm = serve_round(service, [{"query": t_, "top_k": 10} for t_ in qtexts])
+    win_s = path_end()
+    scans = sum(c - r0.get(r, 0) for r, c in meng.route_counts.items())
+    codes_ok = all(code == 200 for code, _ in answers)
+    over = []
+    for text, (_, body) in zip(qtexts, answers):
+        want = {r["doc_id"] for r in direct.search_and_display(text)}
+        over.append(len({r["doc_id"] for r in body["results"]} & want) / 10)
+    nb = st["batches"] - warm["batches"]
+    emit("mesh_serve", shards=shards, data=2, requests=len(answers), all_200=codes_ok,
+         overlap10_single_mean=float(np.mean(over)), overlap10_single_min=float(np.min(over)),
+         cos_dp_vs_one_device_int8_min=cos8, cos_dp_vs_one_device_bf16_min=cos16,
+         wall_s=round(serve_s, 3), batches=nb, scans_in_window=scans,
+         latency_ms=st.get("latency_ms"), stages_ms={
+             k: v for k, v in st.get("stages_ms", {}).items() if k != "worst_batches"},
+         gpu=gpu, launches=win_s)
+    if not (codes_ok and np.mean(over) >= 0.9 and cos8 >= 0.999 and cos16 >= 0.9999
+            and len(answers) == requests):
+        raise AssertionError("mesh_serve phase failed")
+    if not (win_s["mips_g_scan"] == shards * scans and scans >= 1 and win_s["fused_attn_int8_layer"] >= 1
+            and win_s["fused_mlp_int8_layer"] >= 1):
+        raise AssertionError(f"mesh_serve: a kernel of the meshed serving path did not run: {win_s}")
+    windows["mesh_serve"] = win_s
+    return windows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1580,7 +1945,7 @@ def main(argv=None) -> int:
     if not (reng._speed_ok and reng._rescore_device is None and min(rrec) >= 0.99
             and pathr["mips_g_scan"] >= 5):
         raise AssertionError("residual phase failed")
-    del reng, rindex
+    del reng        # rindex serves the mesh phases too
 
     # the reference's capacity rung (bench.py: 6,291,456 rows at 2 bytes/dim),
     # built chunk by chunk on the card; its oracle regenerates the chunks
@@ -2133,6 +2498,16 @@ def main(argv=None) -> int:
             and pathi["ivf_probe_scores"] >= 1):
         raise AssertionError("ivf_live phase failed")
     del ieng, irows, ipa
+    torch.cuda.empty_cache()
+
+    # ---- 16m. the serving paths on a mesh of four shards on the card ----
+    mesh_phases(dev, gpu, counters, path_start, path_end, index=index, rindex=rindex, corpus=corpus,
+                corpus_dev=corpus_dev, qd=qd, oracle=oracle, meta=meta, f3=f3, f36=f36,
+                host_masks=host_masks, xindex=xindex, rescore_bf16=rescore_bf16, engine=engine,
+                xeng=xeng, ivf=ivf, ivf_corpus=ivf_corpus, flat_ivf=flat_ivf, draws=draws,
+                nprobe=int(np_cal), params=params, cfg=cfg, encoder=encoder, encoder8=encoder8,
+                texts=texts, serve_round=serve_round)
+    del rindex
     torch.cuda.empty_cache()
 
     # ---- 20. the gemma tower at full width (embeddinggemma-300m class) ----

@@ -1176,3 +1176,151 @@ def test_device_rescore_residual_on_the_card_matches_plain(cuda):
     near[:, 1:] |= gap
     near[:, :-1] |= gap
     assert torch.equal(ic[~near], ip[~near])
+
+
+# ---------------------------------------------------------------- meshes
+
+
+def _mesh_case(n=65_536, d=256, seed=11):
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((n, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    q = rng.standard_normal((64, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    rows = [{"paper_id": f"p{i}", "link": f"https://arxiv.org/abs/{i}", "year": 1995 + i % 30,
+             "primary_category": ("math.AG", "math.NT", "math.CO")[i % 3], "theorem_name": "Theorem",
+             "slogan": "s", "theorem_body": "b"} for i in range(n)]
+    return emb, q, rows
+
+
+def _mesh_runs(eng, q, filters):
+    """(label, scores, ids, launches) of the speed, masked, grouped and
+    exact-route searches an engine serves, each counted apart."""
+    from theoremsearch_tpu_torch.search.filters import SearchFilters
+
+    year, tag = SearchFilters(year_range=(2000, 2010)), SearchFilters(tags=["math.AG"])
+    runs = [("plain", {}), ("year", {"filters": year}),
+            ("grouped", {"filters": [(year, tag, None, filters)[i % 4] for i in range(len(q))]})]
+    out = []
+    for label, kw in runs:
+        for c in _MESH_COUNTERS.values():
+            c.reset()
+        s, i = eng.search_vectors(q, k=10, **kw)
+        out.append((label, s, i, {n: c.n for n, c in _MESH_COUNTERS.items()}))
+    return out
+
+
+_MESH_COUNTERS = {"b1": mips_g_launches, "b1_mask": mips_g_mask_launches, "b1_gmask": mips_g_gmask_launches,
+                  "b5": mips_topk_launches}
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_meshed_engine_on_one_card_equals_the_cpu_mesh(cuda, residual):
+    """Four shards on one card ([cuda] * 4) against the same engine on a
+    mesh of four "cpu" devices (the plain versions): the speed path, the
+    masked and grouped forms and, on a per-row index, the exact route
+    agree (ids where scores are unique, scores within 1e-5), and each
+    batch launches its kernel once a shard."""
+    from theoremsearch_tpu_torch.core.config import MeshConfig
+    from theoremsearch_tpu_torch.core.meshes import make_mesh
+    from theoremsearch_tpu_torch.search.filters import SearchFilters
+    from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
+    from torch_helpers import ids_agree
+
+    emb, q, rows = _mesh_case()
+    cfg = IndexConfig(dtype="int8", int8_scale="global", residual=residual)
+    kw = {} if residual else {"rescore_vectors": emb}
+    got = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh(MeshConfig(shard=4), devices=[dev] * 4)
+        eng = SearchEngine(FlatIndex.build(emb, config=cfg, normalize=False, device=dev),
+                           meta=CorpusMetadata.from_rows(rows), mesh=mesh, **kw)
+        assert eng._speed_ok and eng.n_shards == 4
+        got[str(dev)] = _mesh_runs(eng, q, SearchFilters(sources=["arXiv"], year_range=(1996, 2020)))
+        if not residual:
+            xeng = SearchEngine(FlatIndex.build(emb, config=IndexConfig(dtype="int8"), normalize=False,
+                                                device=dev),
+                                meta=CorpusMetadata.from_rows(rows), mesh=mesh, rescore_vectors=emb)
+            for c in _MESH_COUNTERS.values():
+                c.reset()
+            s, i = xeng.search_vectors(q, k=40)
+            got[str(dev)].append(("exact", s, i, {n: c.n for n, c in _MESH_COUNTERS.items()}))
+    for (label, sp, ip, _), (_, sk, ik, n) in zip(got["cpu"], got[str(cuda)]):
+        ids_agree(sp, ip, sk, ik, where=label)
+        want = {"plain": "b1", "year": "b1_mask", "grouped": "b1_gmask", "exact": "b5"}[label]
+        assert n[want] == 4, (label, n)
+
+
+def test_meshed_ivf_on_one_card_equals_plain(cuda):
+    """The list-sharded IVF searcher on [cuda] * 4 against the same index
+    searched on a mesh of four "cpu" devices: equal ids where scores are
+    unique, B6 once a shard."""
+    import dataclasses
+
+    from theoremsearch_tpu_torch.core.config import MeshConfig
+    from theoremsearch_tpu_torch.core.meshes import make_mesh
+    from theoremsearch_tpu_torch.index.ivf import IVFIndex
+    from theoremsearch_tpu_torch.kernels.mips import ivf_scores_launches
+    from torch_helpers import ids_agree
+
+    rng = np.random.default_rng(5)
+    cents = rng.standard_normal((64, 256)).astype(np.float32)
+    cents /= np.linalg.norm(cents, axis=1, keepdims=True)
+    pts = cents[rng.integers(0, 64, 32_768)] + 0.05 * rng.standard_normal((32_768, 256)).astype(np.float32)
+    q = cents[rng.integers(0, 64, 8)] + 0.05 * rng.standard_normal((8, 256)).astype(np.float32)
+    idx = IVFIndex.build(pts, config=IndexConfig(ivf_nlist=64, dtype="int8"), device=cuda)
+    cpu_idx = dataclasses.replace(idx, device=torch.device("cpu"), _dev_cache=None, _sharded_cache=None)
+    sp, ip = cpu_idx.sharded_searcher(make_mesh(MeshConfig(shard=4), devices=["cpu"] * 4), k=10, nprobe=8)(q)
+    n0 = ivf_scores_launches.n
+    sk, ik = idx.sharded_searcher(make_mesh(MeshConfig(shard=4), devices=[cuda] * 4), k=10, nprobe=8)(q)
+    assert ivf_scores_launches.n - n0 == 4
+    ids_agree(sp, ip, sk, ik, where="sharded IVF")
+
+
+def test_two_cards_launch_each_shard_on_its_own_card(cuda):
+    """A mesh over two cards: every kernel launches on its tensors' card
+    (the launch guards), so the sharded speed path, its masked form, the
+    exact route, the sharded IVF and a data-parallel encode on
+    [cuda:0, cuda:1] equal their one-card runs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from theoremsearch_tpu_torch.core.config import MeshConfig
+    from theoremsearch_tpu_torch.core.meshes import make_mesh
+    from theoremsearch_tpu_torch.encoder.batching import BatchedEncoder
+    from theoremsearch_tpu_torch.index.ivf import IVFIndex
+    from theoremsearch_tpu_torch.search.filters import SearchFilters
+    from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
+    from torch_helpers import ids_agree
+
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    # a kernel called on cuda:1 while cuda:0 is current
+    with torch.cuda.device(c0):
+        g = torch.Generator(device=c1).manual_seed(1)
+        x = torch.randn((16_384, 256), generator=g, device=c1)
+        codes, _ = quantize_global_int8(x / x.norm(dim=1, keepdim=True))
+        q8, _ = quantize_queries(torch.randn((64, 256), generator=g, device=c1))
+        assert torch.equal(mips_g_scan(q8, codes, 16_000, 512, 1), mips_g_scan_plain(q8, codes, 16_000, 512, 1))
+    emb, q, rows = _mesh_case(n=32_768)
+    results = {}
+    for devs in ([c0, c0], [c0, c1]):
+        mesh = make_mesh(MeshConfig(shard=2), devices=devs)
+        eng = SearchEngine(FlatIndex.build(emb, config=IndexConfig(dtype="int8", int8_scale="global"),
+                                           normalize=False, device=c0),
+                           meta=CorpusMetadata.from_rows(rows), mesh=mesh, rescore_vectors=emb)
+        xeng = SearchEngine(FlatIndex.build(emb, config=IndexConfig(dtype="int8"), normalize=False, device=c0),
+                            mesh=mesh, rescore_vectors=emb)
+        ivf = IVFIndex.build(emb, config=IndexConfig(ivf_nlist=32, dtype="int8"), device=c0)
+        results[str(devs)] = [eng.search_vectors(q, k=10),
+                              eng.search_vectors(q, k=10, filters=SearchFilters(year_range=(2000, 2010))),
+                              xeng.search_vectors(q, k=40),
+                              ivf.sharded_searcher(mesh, k=10, nprobe=8)(q[:8])]
+    for (sa, ia), (sb, ib) in zip(*results.values()):
+        ids_agree(sa, ia, sb, ib, where="two cards")
+    cfg = EncoderConfig(max_seq_len=128)
+    params = init_params(cfg, torch.Generator(device=c0).manual_seed(0), device=c0)
+    texts = [f"every group of order {i} is solvable" for i in range(16)]
+    for quant in ("none", "int8"):
+        one = BatchedEncoder(params, cfg, quant=quant, device=c0).encode(texts)
+        two = BatchedEncoder(params, cfg, quant=quant,
+                             mesh=make_mesh(MeshConfig(data=2), devices=[c0, c1])).encode(texts)
+        assert (one * two).sum(axis=1).min() >= 0.9999

@@ -24,6 +24,8 @@ from theoremsearch_tpu_torch.encoder.model import (
 from theoremsearch_tpu_torch.kernels.attention import attention_launches
 from theoremsearch_tpu_torch.kernels.layer_int8 import attn_int8_launches, mlp_int8_launches
 
+from torch_helpers import cpu_mesh
+
 torch.set_num_threads(1)
 
 # head_dim 128 reaches the fused attention path (EncoderConfig.tiny() has
@@ -99,13 +101,15 @@ def test_batched_encoder_matches_jax(n):
 
 
 def test_unported_modes_raise():
-    """A mesh is not ported yet; an unknown quant mode is refused."""
+    """A tensor-parallel mesh (shard > 1) is not ported yet; an unknown
+    quant mode is refused. A data-parallel mesh encodes
+    (tests/test_torch_mesh_serve.py)."""
     cfg = EncoderConfig.tiny()
     _, tp = _carry(JEncoderConfig.tiny())
     with pytest.raises(ValueError, match="quant"):
         BatchedEncoder(tp, cfg, quant="int4")
-    with pytest.raises(NotImplementedError):
-        BatchedEncoder(tp, cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        BatchedEncoder(tp, cfg, mesh=cpu_mesh(2))
 
 
 def test_cpu_forward_launches_no_kernel():

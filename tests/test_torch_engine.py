@@ -19,7 +19,11 @@ from theoremsearch_tpu_torch.search.engine import SearchEngine
 from theoremsearch_tpu_torch.search.filters import SearchFilters
 from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
 
+from torch_helpers import cpu_mesh, serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 N, D = 8192, 128
 CFG = dict(dtype="int8", int8_scale="global")
@@ -116,14 +120,16 @@ def test_trivial_filter_served_and_excluding_filter_not_ported(data, engines):
 
 
 def test_unported_configurations_raise(data):
-    """A mesh still raises; live adds and deletes now run and hold the
-    JAX engine's ids; a bf16 index and a global int8 index without a
-    rescore copy build on the exact route."""
+    """A mesh now builds the row-sharded engine (tests/test_torch_mesh.py
+    holds it to the JAX mesh engine); live adds and deletes now run and
+    hold the JAX engine's ids; a bf16 index and a global int8 index
+    without a rescore copy build on the exact route."""
     emb, q, _ = data
     idx = FlatIndex.build(emb[:2048], config=IndexConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError):
-        SearchEngine(idx, device="cpu", mesh=object())
+    meng = SearchEngine(idx, mesh=cpu_mesh(2))
+    assert meng.n_shards == 2 and not meng._speed_ok
     eng = SearchEngine(idx, device="cpu")                # no rescore copy
+    np.testing.assert_array_equal(meng.search_vectors(q, k=10)[1], eng.search_vectors(q, k=10)[1])
     assert not eng._speed_ok
     jeng = JSearchEngine(JFlatIndex.build(emb[:2048], config=JIndexConfig(**CFG)),
                          use_pallas=True, pallas_interpret=True)

@@ -23,7 +23,11 @@ from theoremsearch_tpu_torch.search.filters import SearchFilters, compile_filter
 from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
 from theoremsearch_tpu_torch.serve.scheduler import BatchScheduler
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 N, D = 4096, 64
 CATS = [f"math.{c}" for c in "AG AT AP CA CO CT DG DS FA GM GN GR GT HO KT LO MG NT OA PR RA RT".split()]

@@ -25,7 +25,11 @@ from theoremsearch_tpu_torch.search.filters import SearchFilters
 from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
 from theoremsearch_tpu_torch.search.engine import SearchEngine
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(2)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 CPU = "cpu"
 
 

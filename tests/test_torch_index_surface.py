@@ -13,7 +13,11 @@ from theoremsearch_tpu_torch.core.config import IndexConfig
 from theoremsearch_tpu_torch.index.flat import FlatIndex
 from theoremsearch_tpu_torch.search.engine import SearchEngine
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 LAYOUTS = {
     "bfloat16": {"dtype": "bfloat16"},

@@ -30,7 +30,11 @@ from theoremsearch_tpu_torch.index import ivf as ivf_mod
 from theoremsearch_tpu_torch.index.builder import IndexBuilder
 from theoremsearch_tpu_torch.index.ivf import IVFIndex, calibrate_nprobe, train_kmeans
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(2)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 CPU = "cpu"
 
 

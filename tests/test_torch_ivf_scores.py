@@ -19,7 +19,11 @@ from theoremsearch_tpu_torch.index.quant import (
 )
 from theoremsearch_tpu_torch.kernels.mips import ivf_probe_scores, ivf_probe_scores_plain, ivf_scores_launches
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 
 def _case(b, c, r, d, uids, seed):

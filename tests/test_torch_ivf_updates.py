@@ -22,7 +22,11 @@ from theoremsearch_tpu_torch.index.flat import FlatIndex
 from theoremsearch_tpu_torch.index.ivf import IVFIndex
 from theoremsearch_tpu_torch.search.engine import SearchEngine
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(2)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 CPU = "cpu"
 FIELDS = ("slabs", "slab_scales", "slab_ids", "spill", "spill_scales", "spill_ids",
           "raw_flat", "res_flat", "res_scales_flat")

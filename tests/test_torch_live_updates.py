@@ -34,7 +34,11 @@ from theoremsearch_tpu_torch.search.engine import SearchEngine
 from theoremsearch_tpu_torch.search.filters import SearchFilters
 from theoremsearch_tpu_torch.search.metadata import CorpusMetadata
 
+from torch_helpers import ids_agree, serialize_reference_native
+
 torch.set_num_threads(2)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 TOL = 1e-5
 
 
@@ -159,24 +163,17 @@ class Pkg:
 
 
 def _agree(sj, ij, st, it, where):
-    assert ij.shape == it.shape, where
-    fin = np.isfinite(sj)
-    np.testing.assert_array_equal(fin, np.isfinite(st), err_msg=where)
-    np.testing.assert_allclose(st[fin], sj[fin], atol=TOL, err_msg=where)
-    near = np.zeros(sj.shape, bool)
-    gap = np.abs(np.diff(np.where(fin, sj, -9.0), axis=1)) <= TOL
-    near[:, 1:] |= gap
-    near[:, :-1] |= gap
-    np.testing.assert_array_equal(it[~near], ij[~near], err_msg=where)
+    ids_agree(sj, ij, st, it, TOL, where)
 
 
-def twin(scenario, *args):
+def twin(scenario, *args, pkg=None):
     """Run `scenario(pkg, *args)` on both packages; their logged searches
-    must agree."""
+    must agree. `pkg`: the package-namespace class (default `Pkg`)."""
+    pkg = pkg or Pkg
     logs = {}
     for name in ("jax", "torch"):
         logs[name] = []
-        scenario(Pkg(name, logs[name]), *args)
+        scenario(pkg(name, logs[name]), *args)
     assert len(logs["jax"]) == len(logs["torch"]) > 0
     for n, ((sj, ij), (st, it)) in enumerate(zip(logs["jax"], logs["torch"])):
         _agree(sj, ij, st, it, f"search {n} of {scenario.__name__}")

@@ -22,7 +22,11 @@ from theoremsearch_tpu_torch.kernels.mips import (
     quantize_queries,
 )
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 
 def _corpus(n, d, seed, negate=False):

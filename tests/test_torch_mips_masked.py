@@ -17,7 +17,11 @@ from theoremsearch_tpu_torch.kernels.mips import (
     quantize_queries,
 )
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 N, D, RB = 8192, 128, 512
 

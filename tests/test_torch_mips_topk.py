@@ -18,7 +18,11 @@ from theoremsearch_tpu.kernels.mips import fused_mips_topk as j_fused
 from theoremsearch_tpu.kernels.mips import xla_mips_topk as j_xla
 from theoremsearch_tpu_torch.kernels.mips import TOPK_MAX_K, fused_mips_topk, mips_topk, mips_topk_plain
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 N, D, RB, B = 4096, 64, 512, 12
 

@@ -48,7 +48,11 @@ from theoremsearch_tpu_torch.kernels.mips import (
 )
 from theoremsearch_tpu_torch.utils.device import tf32_off
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 CB = 32                                  # candidate slots a (warpgroup, query)
 EMPTY = int(_pack_keys(torch.tensor([[float("-inf")]]), torch.tensor([-1]))[0, 0])

@@ -57,12 +57,40 @@ def test_module_list_covers_the_slice():
                  "serve.http_api", "index.flat", "index.quant", "index.ivf", "index.builder",
                  "eval.oracle", "train.contrastive", "train.lora", "train.checkpoint", "train.data",
                  "eval.harness", "cli", "encoder.gemma", "encoder.bert", "encoder.families",
-                 "encoder.loader"):
+                 "encoder.loader", "core.meshes"):
         assert f"theoremsearch_tpu_torch.{want}" in MODULES
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
         "mips_g.cu", "mips_topk.cu", "attention.cu", "attention_bwd.cu", "layer_int8.cu",
         "ivf_scores.cu", "int8_mma.cuh"}
     importlib.import_module("theoremsearch_tpu_torch.kernels._build")
+
+
+def test_test_helpers_and_meshes_need_no_jax():
+    """tests/torch_helpers.py (which the card tests import, on a machine
+    without jax) and a CPU mesh engine import and run with jax blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import numpy as np\n"
+        "from torch_helpers import cpu_mesh, ids_agree\n"
+        "from theoremsearch_tpu_torch.core import make_mesh, shard_axis_size\n"
+        "from theoremsearch_tpu_torch.index.flat import FlatIndex\n"
+        "from theoremsearch_tpu_torch.search.engine import SearchEngine\n"
+        "x = np.random.default_rng(0).standard_normal((600, 32)).astype(np.float32)\n"
+        "m = cpu_mesh(4)\n"
+        "assert shard_axis_size(m) == 4\n"
+        "e = SearchEngine(FlatIndex.build(x, device='cpu'), mesh=m, row_block=128)\n"
+        "s, i = e.search_vectors(x[:3], k=5)\n"
+        "ids_agree(s, i, s, i)\n"
+        "assert (i[:, 0] == np.arange(3)).all()\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'theoremsearch_tpu.'))"
+        " or k == 'theoremsearch_tpu' for k in sys.modules if sys.modules[k] is not None)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
 
 
 # the jax-free reference modules the port carries as copies, because

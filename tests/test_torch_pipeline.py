@@ -44,7 +44,11 @@ from theoremsearch_tpu_torch.search.filters import SearchFilters
 from theoremsearch_tpu_torch.search.metadata import _LIST_COLUMNS, _NUM_COLUMNS
 from theoremsearch_tpu_torch.serve.app import SearchService
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 TOPICS = ["prime numbers", "graph colorings", "elliptic curves", "banach spaces", "random walks"]
 WORDS = ("compact normal finite smooth abelian proper flat simple bounded dense exact free "

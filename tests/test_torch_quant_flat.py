@@ -13,7 +13,11 @@ from theoremsearch_tpu_torch.core.config import IndexConfig
 from theoremsearch_tpu_torch.index.flat import FlatIndex
 from theoremsearch_tpu_torch.index.quant import dequantize_int8, quantize_global_int8, quantize_int8
 
+from torch_helpers import serialize_reference_native
+
 torch.set_num_threads(1)
+# the reference normalizes through its native library in every worker
+serialize_reference_native()
 
 
 def _ties(scale: float) -> np.ndarray:

@@ -32,6 +32,8 @@ from theoremsearch_tpu_torch.train.contrastive import (
 )
 from theoremsearch_tpu_torch.train.lora import lora_from_jax, lora_merge
 
+from torch_helpers import cpu_mesh
+
 torch.set_num_threads(2)
 
 CFG = dict(vocab_size=1024, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=2,
@@ -284,7 +286,7 @@ def test_multi_device_and_unported_towers_raise():
     with pytest.raises(NotImplementedError, match="A.10"):
         PC.init_sharded_train_state(cfg, tcfg, mesh=object())
     _, tp = _params()
-    with pytest.raises(NotImplementedError):
-        BatchedEncoder(tp, cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        BatchedEncoder(tp, cfg, mesh=cpu_mesh(2))
     with pytest.raises(ValueError, match="fused"):
         make_train_step(cfg, tcfg, fused="interpret")

@@ -1,7 +1,14 @@
-"""Batched, padding-bucketed encoder inference on one device (port of
+"""Batched, padding-bucketed encoder inference (port of
 theoremsearch_tpu/encoder/batching.py), for the three towers: the config's
 type picks the model module (`families.family_module`: qwen, gemma or
 BERT).
+
+On a data-parallel mesh (`mesh=`, `shard` == 1; the reference shards the
+batch over its `data` axis) the parameters, and in int8 mode the codes
+quantized once, are copied once to every distinct data device; each
+sub-batch is padded to a multiple of the data axis, split over it, run
+on each device and the pooled rows are gathered in order on the mesh's
+first device. A mesh with `shard` > 1 (tensor parallelism) raises.
 
 Texts are bucketed by token length into a few padded widths and batches
 pad to power-of-two sizes, so the forward sees a bounded set of shapes;
@@ -20,7 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..utils.device import upload
+from ..utils.device import resolve_device, upload
 from ..utils.shapes import pow2_bucket
 from ..kernels.layer_int8 import kernel_layout
 from .families import family_module
@@ -28,6 +35,18 @@ from .model import Params
 from .tokenizer import SimpleTokenizer
 
 DEFAULT_BUCKETS = (64, 128, 256, 512)
+
+
+def _to_device(tree, dev: torch.device):
+    """A copy of a nested dict / list / tuple of tensors on `dev` (a
+    tensor already there is shared)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, dev) for v in tree)
+    return tree
 
 
 class BatchedEncoder:
@@ -45,12 +64,21 @@ class BatchedEncoder:
     ):
         if quant not in ("none", "int8"):
             raise ValueError(f"unknown quant mode {quant!r}")
-        if mesh is not None:
-            raise NotImplementedError("multi-device encoding is not ported yet")
-        self.params = params
+        if mesh is not None and mesh.shape.get("shard", 1) > 1:
+            raise NotImplementedError(
+                "tensor-parallel encoding (a mesh with shard > 1) is not ported yet: it comes "
+                "with the training half of ROADMAP A.10 (param_sharding_rules, tp encode)")
+        self.mesh = mesh
         self.cfg = cfg
         self._mod = family_module(cfg)
-        self.device = torch.device(device) if device is not None else params["embed"].device
+        if mesh is not None:
+            self.device = mesh.first_device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device={device} disagrees with the mesh's first device {self.device}")
+            params = _to_device(params, self.device)
+        else:
+            self.device = torch.device(device) if device is not None else params["embed"].device
+        self.params = params
         # int8 (w8a8) serving mode, qwen and gemma towers: weights quantized
         # once here; each (batch, width) bucket whose shapes qualify runs
         # the whole-layer kernels B3 and B4 (the tower's `_fused_layer_ok`),
@@ -63,6 +91,13 @@ class BatchedEncoder:
             self.qlayers = self._mod.quantize_params_int8(params)
             if self.device.type == "cuda":
                 self.qlayers = kernel_layout(self.qlayers)
+        # the devices of the data axis, and one copy of the weights on each
+        # distinct one (a device repeated on the axis shares its copy)
+        self._data_devices = mesh.data_devices if mesh is not None else [self.device]
+        self._replicas = {self.device: (self.params, self.qlayers)}
+        for dev in self._data_devices:
+            if dev not in self._replicas:
+                self._replicas[dev] = (_to_device(self.params, dev), _to_device(self.qlayers, dev))
         self.tokenizer = tokenizer or SimpleTokenizer(vocab_size=cfg.vocab_size)
         self.prompts = dict(prompts or {})
         self.batch_size = batch_size
@@ -131,9 +166,18 @@ class BatchedEncoder:
 
     @torch.inference_mode()
     def _forward(self, ids_mask: np.ndarray) -> torch.Tensor:
-        t = upload(ids_mask, self.device)
-        kw = {} if self.qlayers is None else {"qlayers": self.qlayers, "fused_layers": True}
-        return self._mod.encode_pooled(self.params, t[0], t[1], self.cfg, **kw)
+        """Pooled rows of one padded sub-batch (2, B, W), on self.device:
+        split over the data axis (B is a multiple of its size), one
+        forward a data device, gathered in order."""
+        parts = np.split(ids_mask, len(self._data_devices), axis=1)
+        outs = []
+        for dev, part in zip(self._data_devices, parts):
+            params, qlayers = self._replicas[dev]
+            t = upload(part, dev)
+            kw = {} if qlayers is None else {"qlayers": qlayers, "fused_layers": True}
+            outs.append(self._mod.encode_pooled(params, t[0], t[1], self.cfg, **kw)
+                        .to(self.device, non_blocking=True))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _prep_batch(self, texts, tokenized, idx):
         """Pad one sub-batch to its (batch-bucket, width-bucket) shape:
@@ -146,6 +190,9 @@ class BatchedEncoder:
             enc = self.tokenizer([texts[i] for i in idx], max_length=width, pad_to=width)
         ids, mask = enc.input_ids, enc.attention_mask
         b_pad = min(pow2_bucket(len(idx)), self.batch_size)
+        # the data axis splits the batch: round the bucket up to its size
+        n_data = len(self._data_devices)
+        b_pad = -(-max(b_pad, len(idx)) // n_data) * n_data
         if len(idx) < b_pad:
             pad = b_pad - len(idx)
             ids = np.concatenate([ids, np.zeros((pad, width), np.int32)])

@@ -30,7 +30,16 @@ format is the reference's (`ivf.npz` with `raw_flat` as uint16, and
 Live updates: `with_updates` places added rows in their nearest existing
 lists and kills removed ones, `remap_ids` renumbers (the engine's compact
 and reclaim); both return a new index whose device copies are uploaded
-afresh, through a side stream. The sharded searcher is not ported yet.
+afresh, through a side stream.
+
+Under a mesh (`sharded_searcher`, the reference's `ivf.py:830-960`): shard
+s owns lists [s * L_per, (s + 1) * L_per) and spill chunks s::n_shards,
+re-indexed into a local chunk space of L_per + sp_per + 1 chunks (the
+last one empty), on its device. A batch's probes are computed once; each
+shard scans the probed lists it owns and its spill chunks (kernel B6),
+selects and rescores locally; the per-shard top-k lists are merged on
+the mesh's first device with a cross-shard dedupe (a dual-assignment copy
+and its primary can live on different shards).
 """
 
 from __future__ import annotations
@@ -247,6 +256,7 @@ class IVFIndex:
     # where searches run and the device copies live (None: the card)
     device: torch.device | None = None
     _dev_cache: dict | None = field(default=None, repr=False, compare=False)
+    _sharded_cache: tuple | None = field(default=None, repr=False, compare=False)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -692,6 +702,116 @@ class IVFIndex:
 
         return fn
 
+    # ---------------- multi-device ----------------
+
+    def _sharded_arrays(self, n_shards: int) -> dict:
+        """Partition the lists and spill chunks over shards (host side):
+        shard s owns lists [s * L_per, (s + 1) * L_per) and spill chunks
+        s::n_shards, re-indexed into a local chunk space of C_local =
+        L_per + sp_per + 1 chunks (the last one empty). Global list g maps
+        to (owner g // L_per, local g % L_per) with no lookup table. Per
+        shard: slabs (C_local, R, D), flat ids (C_local * R,) and the
+        rescore rows at the same flat positions."""
+        L, R, D = self.slabs.shape
+        L_per = (L + n_shards - 1) // n_shards
+        spill_chunks = self.spill.reshape(-1, R, D)
+        spill_ids_c = self.spill_ids.reshape(-1, R)
+        n_sp = spill_chunks.shape[0]
+        sp_per = (n_sp + n_shards - 1) // n_shards
+        C_local = L_per + sp_per + 1
+        flat_rows = {"raw": self.raw_flat, "res": self.res_flat, "res_scales": self.res_scales_flat}
+        shards = []
+        for s in range(n_shards):
+            lists = torch.arange(L)[s * L_per : (s + 1) * L_per]
+            spills = torch.arange(n_sp)[s::n_shards]
+            slabs = torch.zeros((C_local, R, D), dtype=self.slabs.dtype)
+            ids = torch.full((C_local, R), PAD_ID, dtype=torch.int32)
+            slabs[: len(lists)] = self.slabs[lists]
+            ids[: len(lists)] = self.slab_ids[lists]
+            slabs[L_per : L_per + len(spills)] = spill_chunks[spills]
+            ids[L_per : L_per + len(spills)] = spill_ids_c[spills]
+            # flat positions of the owned chunks in the global [slabs, spill] order
+            src = torch.cat([lists, L + spills])
+            dst = torch.cat([torch.arange(len(lists)), L_per + torch.arange(len(spills))])
+            src_rows = (src[:, None] * R + torch.arange(R)).reshape(-1)
+            dst_rows = (dst[:, None] * R + torch.arange(R)).reshape(-1)
+            sh = {"slabs": slabs, "ids": ids.reshape(-1)}
+            for name, t in flat_rows.items():
+                if t is not None:
+                    out = torch.zeros((C_local * R, *t.shape[1:]), dtype=t.dtype)
+                    out[dst_rows] = t[src_rows]
+                    sh[name] = out
+                else:
+                    sh[name] = None
+            shards.append(sh)
+        return {"shards": shards, "L_per": L_per, "sp_per": sp_per, "C_local": C_local}
+
+    def sharded_searcher(self, mesh, k: int = 10, nprobe: int | None = None,
+                         rescore_factor: int = 4):
+        """Search closure over a mesh's shard axis: ``(B, D) f32 ->
+        (scores (B, k), doc_ids (B, k))`` tensors on the mesh's first
+        device. The probes are computed once; every shard scans the probed
+        lists it owns plus its spill chunks with kernel B6, selects its
+        c_rescore best candidates exactly, rescores them against its own
+        rescore rows and keeps its k best; the per-shard lists are merged
+        with a cross-shard dedupe. The device arrays are placed once per
+        mesh layout and shared by the searchers of every k."""
+        if not self.probe_major_ok:
+            raise ValueError("sharded IVF needs int8 + rescore data + slab_rows % 128 == 0")
+        from ..kernels.mips import merge_topk
+
+        R = self.slabs.shape[1]
+        devs = mesh.shard_devices
+        dev0 = mesh.first_device
+        nprobe = min(int(nprobe or self.config.ivf_nprobe), self.centroids.shape[0])
+        key = (tuple(str(d) for d in mesh.devices.flat), tuple(mesh.shape.items()))
+        if self._sharded_cache is None or self._sharded_cache[0] != key:
+            sa = self._sharded_arrays(len(devs))
+
+            def put(t, dev):
+                if t is None:
+                    return None
+                return upload_into(torch.empty(tuple(t.shape), dtype=t.dtype, device=dev), t)
+
+            placed = [{name: put(t, dev) for name, t in sh.items()}
+                      for sh, dev in zip(sa["shards"], devs)]
+            cents = upload_into(torch.empty(tuple(self.centroids.shape), device=dev0),
+                                self.centroids.float())
+            self._sharded_cache = (key, {"shards": placed, "cents": cents, "L_per": sa["L_per"],
+                                         "sp_per": sa["sp_per"], "C_local": sa["C_local"]})
+        dc = self._sharded_cache[1]
+        L_per, sp_per, C_local = dc["L_per"], dc["sp_per"], dc["C_local"]
+        gscale = self.global_scale
+        c_rescore = max(k, min(rescore_factor * k, nprobe * R))
+
+        def fn(q):
+            q = self._queries(q).to(dev0)
+            b = q.shape[0]
+            with tf32_off():
+                _, probe = _topk_stable(q @ dc["cents"].T, nprobe)            # global list ids
+            owner, local = probe // L_per, probe % L_per
+            p_max = min(b * nprobe, L_per) + sp_per + 1                       # +1: the empty chunk
+            parts_s, parts_i = [], []
+            for s, (dev, sh) in enumerate(zip(devs, dc["shards"])):
+                flat = torch.where(owner == s, local, C_local - 1).reshape(-1)
+                always = torch.arange(L_per, L_per + sp_per, device=dev0)
+                uids = unique_fixed(torch.cat([flat, always]), p_max, C_local - 1).to(torch.int32)
+                top_s, top_i = _probe_major_tail(
+                    q.to(dev, non_blocking=True), uids.to(dev, non_blocking=True), sh["slabs"],
+                    sh["ids"], sh["raw"], sh["res"], sh["res_scales"], gscale,
+                    k=k, c_rescore=c_rescore)
+                parts_s.append(top_s.to(dev0, non_blocking=True))
+                parts_i.append(top_i.to(dev0, non_blocking=True))
+            # the merge, with the cross-shard dedupe of dual-assignment copies
+            all_s, all_i = torch.cat(parts_s, dim=1), torch.cat(parts_i, dim=1)
+            s2, sel = _topk_stable(all_s, all_s.shape[1])
+            i2 = torch.gather(all_i, 1, sel)
+            s2 = torch.where((i2 >= 0) & ~_first_dup(i2), s2, NEG_INF)
+            top_s, top_i = merge_topk(s2, torch.where(torch.isfinite(s2), i2, PAD_ID), k)
+            return top_s, torch.where(torch.isfinite(top_s), top_i, PAD_ID)
+
+        return fn
+
     # ---------------- persistence ----------------
 
     def save(self, path: str | Path) -> None:
@@ -957,8 +1077,7 @@ def _ivf_search_probe_major(
     -> rescore. Scoring a unique chunk serves every query of the batch (a
     query can receive candidates from chunks it did not probe itself)."""
     b = q.shape[0]
-    c_total, r = slabs_all.shape[:2]
-    empty_idx = c_total - 1
+    empty_idx = slabs_all.shape[0] - 1
 
     # 1. coarse quantizer (full f32) + always-probed spill chunks
     with tf32_off():
@@ -971,6 +1090,16 @@ def _ivf_search_probe_major(
     p_max = min(b * nprobe, n_lists) + n_spill_chunks
     uids = unique_fixed(flat, p_max, empty_idx).to(torch.int32)
 
+    return _probe_major_tail(q, uids, slabs_all, ids_flat, raw_flat, res_flat, res_scales_flat,
+                             global_scale, k=k, c_rescore=c_rescore)
+
+
+def _probe_major_tail(q, uids, slabs_all, ids_flat, raw_flat, res_flat, res_scales_flat,
+                      global_scale, *, k, c_rescore):
+    """Steps 3-6 of the probe-major search, on the chunks `uids` of one
+    chunk space (the whole index, or one shard's): B6, exact selection,
+    dedupe, rescore -> (scores (B, k), doc ids (B, k))."""
+    r = slabs_all.shape[1]
     # 3. stream each unique chunk once: raw int32 scores (lossless)
     cand, _ = ivf_probe_scores(q, slabs_all, uids)
 

@@ -125,12 +125,14 @@ def fused_qknorm_rope_attention(
         raise ValueError("cos/sin must be (B, S, Dh/2) and mask (B, S)")
     out = torch.empty_like(q)
     lib = load()
-    err = lib.ts_qknorm_rope_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(), kw_.data_ptr(),
-        cs.data_ptr(), sn.data_ptr(), m.data_ptr(), out.data_ptr(),
-        b, s, num_heads, num_kv_heads, head_dim, float(eps), float(scale), int(causal),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
+    # the launch and cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(dev):
+        err = lib.ts_qknorm_rope_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(), kw_.data_ptr(),
+            cs.data_ptr(), sn.data_ptr(), m.data_ptr(), out.data_ptr(),
+            b, s, num_heads, num_kv_heads, head_dim, float(eps), float(scale), int(causal),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        )
     check(lib, err, "fused_qknorm_rope_attention")
     (attention_gemma_launches if head_dim == 256 else attention_launches).bump()
     return out
@@ -264,14 +266,16 @@ def fused_qknorm_rope_attention_bwd(
     dqw = torch.empty((head_dim,), dtype=torch.float32, device=dev)
     dkw = torch.empty((head_dim,), dtype=torch.float32, device=dev)
     lib = load()
-    err = lib.ts_qknorm_rope_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(), kw_.data_ptr(),
-        cs.data_ptr(), sn.data_ptr(), m.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),
-        dqw.data_ptr(), dkw.data_ptr(),
-        b, s, num_heads, num_kv_heads, head_dim, float(eps), float(scale), int(causal),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
+    # the launch and cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(dev):
+        err = lib.ts_qknorm_rope_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(), kw_.data_ptr(),
+            cs.data_ptr(), sn.data_ptr(), m.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),
+            dqw.data_ptr(), dkw.data_ptr(),
+            b, s, num_heads, num_kv_heads, head_dim, float(eps), float(scale), int(causal),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        )
     check(lib, err, "fused_qknorm_rope_attention_bwd")
     attention_bwd_launches.bump()
     return dq, dk, dv, dqw, dkw

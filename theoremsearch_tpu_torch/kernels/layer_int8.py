@@ -325,11 +325,13 @@ def fused_mlp_int8_layer(
     hq = torch.empty((t, i), dtype=torch.int8, device=dev)
     sh = torch.empty((t,), dtype=torch.float32, device=dev)
     lib = load()
-    err = lib.ts_mlp_int8_layer(
-        x.data_ptr(), nw.data_ptr(), wg_t.data_ptr(), wu_t.data_ptr(), wd_t.data_ptr(),
-        sg.data_ptr(), su.data_ptr(), sd.data_ptr(), _ptr(pw), out.data_ptr(), xq.data_ptr(),
-        sx.data_ptr(), h.data_ptr(), hq.data_ptr(), sh.data_ptr(), _ptr(y), t, d, i,
-        int(act == "gelu_tanh"), float(eps), _stream(dev))
+    # the launch and cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(dev):
+        err = lib.ts_mlp_int8_layer(
+            x.data_ptr(), nw.data_ptr(), wg_t.data_ptr(), wu_t.data_ptr(), wd_t.data_ptr(),
+            sg.data_ptr(), su.data_ptr(), sd.data_ptr(), _ptr(pw), out.data_ptr(), xq.data_ptr(),
+            sx.data_ptr(), h.data_ptr(), hq.data_ptr(), sh.data_ptr(), _ptr(y), t, d, i,
+            int(act == "gelu_tanh"), float(eps), _stream(dev))
     check(lib, err, "fused_mlp_int8_layer")
     gemma = act == "gelu_tanh" or post_w is not None
     (mlp_int8_gemma_launches if gemma else mlp_int8_launches).bump()
@@ -364,10 +366,12 @@ def _attn_layer(x, norm_w, q_norm_w, k_norm_w, lq: dict, attention_mask, rope_cs
     v = torch.empty((b, s, hk_d), dtype=torch.bfloat16, device=dev)
     eps = float(cfg.rms_norm_eps)
     lib = load()
-    err = lib.ts_attn_int8_qkv(
-        x.data_ptr(), nw.data_ptr(), wq_t.data_ptr(), wk_t.data_ptr(), wv_t.data_ptr(),
-        sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        xq.data_ptr(), sx.data_ptr(), t, d, hq_d, hk_d, eps, _stream(dev))
+    # the launch and cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(dev):
+        err = lib.ts_attn_int8_qkv(
+            x.data_ptr(), nw.data_ptr(), wq_t.data_ptr(), wk_t.data_ptr(), wv_t.data_ptr(),
+            sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), t, d, hq_d, hk_d, eps, _stream(dev))
     check(lib, err, f"{what} (norm, quant, q/k/v)")
     ao = fused_qknorm_rope_attention(
         q, k, v, q_norm_w, k_norm_w, rope_cs[0], rope_cs[1],
@@ -377,9 +381,11 @@ def _attn_layer(x, norm_w, q_norm_w, k_norm_w, lq: dict, attention_mask, rope_cs
     out = torch.empty_like(x)
     aq = torch.empty((t, hq_d), dtype=torch.int8, device=dev)
     sa = torch.empty((t,), dtype=torch.float32, device=dev)
-    err = lib.ts_attn_int8_out(
-        ao.data_ptr(), wo_t.data_ptr(), so.data_ptr(), x.data_ptr(), _ptr(pw), out.data_ptr(),
-        aq.data_ptr(), sa.data_ptr(), _ptr(y), t, hq_d, d, eps, _stream(dev))
+    # the launch and cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(dev):
+        err = lib.ts_attn_int8_out(
+            ao.data_ptr(), wo_t.data_ptr(), so.data_ptr(), x.data_ptr(), _ptr(pw), out.data_ptr(),
+            aq.data_ptr(), sa.data_ptr(), _ptr(y), t, hq_d, d, eps, _stream(dev))
     check(lib, err, f"{what} (requant, o)")
     if stages is not None:
         stages.update(xq=xq, sx=sx, q=q, k=k, v=v, ao=ao, aq=aq, sa=sa)

@@ -58,9 +58,13 @@ def quantize_queries(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
 def merge_topk(
     scores_list: torch.Tensor, ids_list: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Merge partial top-k lists: (B, P*k) -> (B, k), exact, sorted desc."""
-    s, i = torch.topk(scores_list, k, dim=1)
-    return s, torch.gather(ids_list, 1, i)
+    """Merge partial top-k lists: (B, P*k) -> (B, k), exact, sorted desc,
+    equal scores in column order (the reference's `lax.top_k`: a list
+    gathered shard-major keeps the lower shard, then the lower slot). The
+    selection runs on int64 keys of (score, column)."""
+    cols = torch.arange(scores_list.shape[1], device=scores_list.device)
+    s, pos = _unpack_keys(torch.topk(_pack_keys(scores_list.float(), cols), k, dim=1).values)
+    return s, torch.gather(ids_list, 1, pos.clamp(min=0).long())
 
 
 def _int_dot(qf: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -259,14 +263,16 @@ def mips_g_scan(
     out = (torch.full(shape, INT32_MIN, dtype=torch.int32, device=q8.device) if splits > 1
            else torch.empty(shape, dtype=torch.int32, device=q8.device))
     lib = load()
-    err = lib.ts_mips_g_scan(
-        q8.data_ptr(), codes.data_ptr(), out.data_ptr(), b, d, n_pad, int(n_valid),
-        row_block, merge_tiles,
-        None if masks is None else masks.data_ptr(), None if ids is None else ids.data_ptr(),
-        n_masks, None if need is None else need.data_ptr(),
-        None if rows is None else rows.data_ptr(), splits,
-        ctypes.c_void_p(torch.cuda.current_stream(q8.device).cuda_stream),
-    )
+    # the launch and cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(q8.device):
+        err = lib.ts_mips_g_scan(
+            q8.data_ptr(), codes.data_ptr(), out.data_ptr(), b, d, n_pad, int(n_valid),
+            row_block, merge_tiles,
+            None if masks is None else masks.data_ptr(), None if ids is None else ids.data_ptr(),
+            n_masks, None if need is None else need.data_ptr(),
+            None if rows is None else rows.data_ptr(), splits,
+            ctypes.c_void_p(torch.cuda.current_stream(q8.device).cuda_stream),
+        )
     check(lib, err, "mips_g_scan")
     counter.bump()
     return out
@@ -545,13 +551,15 @@ def mips_topk(
     n_spans = mips_topk_spans(b, n_pad // MIPS_TOPK_GROUP, k, sms)
     part = torch.empty((b, n_spans * k), dtype=torch.int64, device=qk.device)
     lib = load()
-    err = lib.ts_mips_topk(
-        qk.data_ptr(), corpus.data_ptr(),
-        None if scales is None else scales.data_ptr(), None if bias is None else bias.data_ptr(),
-        None if glist is None else glist.data_ptr(), None if count is None else count.data_ptr(),
-        part.data_ptr(), kind, b, d, n_pad, n_valid, k, n_spans,
-        ctypes.c_void_p(torch.cuda.current_stream(qk.device).cuda_stream),
-    )
+    # the launch and cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(qk.device):
+        err = lib.ts_mips_topk(
+            qk.data_ptr(), corpus.data_ptr(),
+            None if scales is None else scales.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if glist is None else glist.data_ptr(), None if count is None else count.data_ptr(),
+            part.data_ptr(), kind, b, d, n_pad, n_valid, k, n_spans,
+            ctypes.c_void_p(torch.cuda.current_stream(qk.device).cuda_stream),
+        )
     check(lib, err, "mips_topk")
     mips_topk_launches.bump()
     return _unpack_keys(torch.topk(part, k, dim=1).values)
@@ -647,10 +655,12 @@ def ivf_probe_scores(
         raise ValueError(f"ivf_probe_scores: D={d} must be a multiple of 16 and 1 <= P*R/128 <= 65535")
     cand = torch.empty((b, p * r), dtype=torch.int32, device=q8.device)
     lib = load()
-    err = lib.ts_ivf_scores(
-        q8.data_ptr(), slabs.data_ptr(), uids.data_ptr(), cand.data_ptr(), b, d, c, r, p,
-        ctypes.c_void_p(torch.cuda.current_stream(q8.device).cuda_stream),
-    )
+    # the launch and cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(q8.device):
+        err = lib.ts_ivf_scores(
+            q8.data_ptr(), slabs.data_ptr(), uids.data_ptr(), cand.data_ptr(), b, d, c, r, p,
+            ctypes.c_void_p(torch.cuda.current_stream(q8.device).cuda_stream),
+        )
     check(lib, err, "ivf_probe_scores")
     ivf_scores_launches.bump()
     return cand, qscales

@@ -207,10 +207,11 @@ def build_engine_from_catalog(
     device=None,
 ) -> SearchEngine:
     """One-call path: embed whatever is missing, pack the index on
-    `device` (default: the card), join the metadata, return a ready
-    SearchEngine on the same device."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device search is not ported yet (ROADMAP A.10)")
+    `device` (default: the card, or the mesh's first device), join the
+    metadata, return a ready SearchEngine on the same device, row-sharded
+    over `mesh` when one is given."""
+    if mesh is not None and device is None:
+        device = mesh.first_device
     builder = IndexBuilder(spool_dir, index_config)
     embed_missing_slogans(catalog, encode_fn, builder, embedder)
     index = builder.finalize(device=device)
@@ -242,4 +243,4 @@ def build_engine_from_catalog(
     kept_ids = real_ids[keep]
     meta = corpus_metadata_from_catalog(catalog, np.sort(kept_ids))
     sel = torch.from_numpy(np.flatnonzero(keep)[np.argsort(kept_ids, kind="stable")])
-    return SearchEngine(_latest_rows_index(index, sel), meta=meta, device=device)
+    return SearchEngine(_latest_rows_index(index, sel), meta=meta, device=device, mesh=mesh)

@@ -1,5 +1,7 @@
 """Live-update delta buffer: new documents are searchable by the next query
-(port of theoremsearch_tpu/search/delta.py, single device).
+(port of theoremsearch_tpu/search/delta.py). The buffer lives on one
+device: under a mesh the engine keeps it on the mesh's first device and
+merges it after the shard gather (the reference replicates it, P()).
 
 New vectors land in a small append-only buffer beside the packed index,
 with a power-of-two capacity; every query runs the main scan and an exact

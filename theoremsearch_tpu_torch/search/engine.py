@@ -30,8 +30,23 @@ unfiltered routes and folded into the filter masks on the masked ones;
 run, and `compact(reclaim=True)` also drops the tombstoned rows and
 renumbers the ids. Broad filters (at least half the rows pass) stay on
 the unfiltered flat route the same way. Then row -> doc-id map, optional
-citation-weighted rerank, metadata join. A mesh raises
-NotImplementedError; it comes with a later slice of the port.
+citation-weighted rerank, metadata join.
+
+Under a mesh (`core/meshes.py`; the reference's `shard_map` programs,
+`engine.py:1943-2200`) the rows are sharded over the mesh's shard axis,
+padded so that each shard holds `rows_per_shard` rows, a multiple of
+`row_block`. Each shard's codes, ids, scales and rescore data live on its
+device; every route runs once a shard (the speed path's scan and local
+rescore, the masked and grouped forms with the masks sharded like the
+rows, the exact route's kernel) with the shard's own valid row count, and
+the per-shard top-k lists are copied to the mesh's first device in shard
+order and merged there (`kernels/mips.py:merge_topk`, the reference's
+`all_gather` + `lax.top_k`). The speed path's per-shard candidate width
+is the reference's sharded one, `min(max(k, rescore_factor * k),
+rows_per_shard)`. The delta, the tombstones and the host-side steps live
+once, on the first device; the IVF route takes the list-sharded searcher
+(`IVFIndex.sharded_searcher`); compact rebuilds the shards from the
+folded host arrays, as the reference does under a mesh.
 
 Streams: queries, the delta and compact's device fold run on the current
 (default) stream, so their order is the stream's; only multi-GB host
@@ -56,7 +71,7 @@ from ..index.flat import PAD_ID, FlatIndex
 from ..kernels._build import load as _load_kernels
 from ..kernels.mips import (
     NEG_INF, device_rescore, device_rescore_residual, fused_mips_topk, fused_mips_topk_g,
-    residual_rows,
+    merge_topk, residual_rows,
 )
 from ..utils.device import resolve_device, upload, upload_into
 from ..utils.shapes import pow2_bucket, round_up as _round_up
@@ -130,6 +145,9 @@ class SearchEngine:
     device: where the index lives and the scans run. Default: the card
         (RuntimeError without CUDA); "cpu" runs the kernels' plain
         versions.
+    mesh: a `core/meshes.py` Mesh: the rows are sharded over its shard
+        axis (see the module docstring); `device`, if given, must be the
+        mesh's first device, where results are merged.
     ivf_index: optional IVFIndex on the same device, the low-latency
         route for small unfiltered batches (at most `ivf_max_batch` real
         queries). ivf_nprobe: an explicit value wins; else a calibrated
@@ -162,11 +180,17 @@ class SearchEngine:
         ivf_max_batch: int = 16,
         device_init: dict | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-device search is not ported yet (ROADMAP A.10)")
         self.meta = meta
         self.config = config or SearchConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            first = mesh.first_device
+            if device is not None and resolve_device(device) != first:
+                raise ValueError(f"device={device} disagrees with the mesh's first device {first}")
+            self.device = first
+        else:
+            self.device = resolve_device(device)
+        self.n_shards = mesh.shape["shard"] if mesh is not None else 1
         self.rescore_factor = rescore_factor
         self._global_scale = float(getattr(index, "global_scale", 0.0) or 0.0)
 
@@ -213,7 +237,7 @@ class SearchEngine:
 
         vecs, scales = index.vectors, index.scales
         ids = torch.as_tensor(ids_all)
-        target = _round_up(vecs.shape[0], row_block)
+        target = _round_up(vecs.shape[0], self.n_shards * row_block)
         extra = target - vecs.shape[0]
         if extra:
             vecs = torch.cat([vecs, torch.zeros((extra, vecs.shape[1]), dtype=vecs.dtype,
@@ -224,6 +248,7 @@ class SearchEngine:
                                                         device=scales.device)])
         self.n_valid = index.num_rows
         self.padded_rows = target
+        self.rows_per_shard = target // self.n_shards
         self.dim = vecs.shape[1]
         self._host_ids = ids.numpy()
         ids_h = self._host_ids[: self.n_valid]
@@ -266,25 +291,32 @@ class SearchEngine:
                                  f"{arr.device}, the engine needs {dtype}{tuple(shape)}")
             return arr
 
-        self.vectors = _di("vectors", tuple(vecs.shape), vecs.dtype)
-        if self.vectors is None:
-            self.vectors = self._upload_rows(vecs)
-        self.ids = ids.to(torch.int32).to(self.device)
-        self.scales = None if scales is None else scales.float().to(self.device).contiguous()
         self._rescore_device = None
         self._res_codes_device = None
         self._res_scales_device = None
-        if self._speed_ok and rescore_residual is not None:
-            rc, rs = rescore_residual
-            self._res_codes_device = _di("res_codes", tuple(rc.shape), torch.int8)
-            if self._res_codes_device is None:
-                self._res_codes_device = self._upload_rows(rc)
-            self._res_scales_device = rs.to(self.device).contiguous()
-        elif self._speed_ok:
-            rv = self.rescore_vectors
-            self._rescore_device = _di("rescore", tuple(rv.shape), torch.bfloat16)
-            if self._rescore_device is None:
-                self._rescore_device = self._upload_rows(rv, torch.bfloat16)
+        self._shards = None
+        if mesh is not None:
+            if device_init:
+                raise ValueError("device_init is single-device only")
+            self.vectors = self.ids = self.scales = None
+            self._shards = self._shard_arrays(vecs, ids, scales, rescore_residual)
+        else:
+            self.vectors = _di("vectors", tuple(vecs.shape), vecs.dtype)
+            if self.vectors is None:
+                self.vectors = self._upload_rows(vecs)
+            self.ids = ids.to(torch.int32).to(self.device)
+            self.scales = None if scales is None else scales.float().to(self.device).contiguous()
+            if self._speed_ok and rescore_residual is not None:
+                rc, rs = rescore_residual
+                self._res_codes_device = _di("res_codes", tuple(rc.shape), torch.int8)
+                if self._res_codes_device is None:
+                    self._res_codes_device = self._upload_rows(rc)
+                self._res_scales_device = rs.to(self.device).contiguous()
+            elif self._speed_ok:
+                rv = self.rescore_vectors
+                self._rescore_device = _di("rescore", tuple(rv.shape), torch.bfloat16)
+                if self._rescore_device is None:
+                    self._rescore_device = self._upload_rows(rv, torch.bfloat16)
 
         # per-filter-signature (np mask, device mask | bias, pass rate),
         # bounded; the lock also guards the mask-build counters, which
@@ -355,21 +387,61 @@ class SearchEngine:
         self._next_doc_id = int(ids_h.max()) + 1 if self.n_valid else 0
         # compact() builds its new engine with these
         self._ctor = dict(meta=meta, config=config, row_block=row_block,
-                          rescore_factor=rescore_factor, device=self.device,
+                          rescore_factor=rescore_factor, device=self.device, mesh=mesh,
                           ivf_max_batch=ivf_max_batch)
 
-    def _upload_rows(self, rows: torch.Tensor, dtype=None) -> torch.Tensor:
-        """A (rows, D) array on the engine's device in `dtype`: a device
-        tensor is taken as it is; host rows go through the side stream in
-        64k-row chunks, converted on the way (a whole f32 upload would
-        double the device footprint while it converts)."""
+    def _upload_rows(self, rows: torch.Tensor, dtype=None, device=None,
+                     n_rows: int | None = None) -> torch.Tensor:
+        """A (n_rows, ...) array on `device` (default: the engine's) in
+        `dtype`: `rows` zero-padded to n_rows (default: its own length). A
+        device tensor of the right device, dtype and length is taken as it
+        is; host rows go through the side stream in 64k-row chunks,
+        converted on the way (a whole f32 upload would double the device
+        footprint while it converts)."""
         dtype = dtype or rows.dtype
-        if rows.device == self.device and rows.dtype == dtype:
+        device = device or self.device
+        n = int(rows.shape[0])
+        n_rows = n if n_rows is None else n_rows
+        if rows.device == device and rows.dtype == dtype and n == n_rows:
             return rows.contiguous()
-        out = torch.empty(tuple(rows.shape), dtype=dtype, device=self.device)
-        for i in range(0, rows.shape[0], 65_536):
-            upload_into(out[i : i + 65_536], rows[i : i + 65_536].to(dtype))
+        out = torch.zeros((n_rows, *rows.shape[1:]), dtype=dtype, device=device)
+        for i in range(0, n, 65_536):
+            upload_into(out[i : min(i + 65_536, n)], rows[i : i + 65_536].to(dtype))
         return out
+
+    def _shard_arrays(self, vecs, ids, scales, rescore_residual) -> list[dict]:
+        """Per shard: its device, its first row, its valid row count
+        (`clip(n_valid - s * rows_per_shard, 0, rows_per_shard)`, the
+        reference's `local_valid`) and its slices of the padded codes, ids
+        and scales and of the rescore data, on its device."""
+        rps = self.rows_per_shard
+        shards = []
+        for s, dev in enumerate(self.mesh.shard_devices):
+            lo = s * rps
+            sh = {"device": dev, "lo": lo,
+                  "valid": int(min(max(self.n_valid - lo, 0), rps)),
+                  "vectors": self._upload_rows(vecs[lo : lo + rps], device=dev),
+                  "ids": ids[lo : lo + rps].to(torch.int32).to(dev),
+                  "scales": None if scales is None
+                  else scales[lo : lo + rps].float().to(dev).contiguous(),
+                  "rescore": None, "res_codes": None, "res_scales": None}
+            if self._speed_ok and rescore_residual is not None:
+                rc, rs = rescore_residual
+                sh["res_codes"] = self._upload_rows(rc[lo : lo + rps], device=dev, n_rows=rps)
+                sh["res_scales"] = self._upload_rows(rs[lo : lo + rps], device=dev, n_rows=rps)
+            elif self._speed_ok:
+                sh["rescore"] = self._upload_rows(self.rescore_vectors[lo : lo + rps],
+                                                  torch.bfloat16, dev, rps)
+            shards.append(sh)
+        return shards
+
+    def _put_rows(self, host_rows: np.ndarray):
+        """A padded (padded_rows,) host row array on the device: one tensor,
+        or under a mesh one slice a shard on its device."""
+        if self._shards is None:
+            return upload(host_rows, self.device)
+        rps = self.rows_per_shard
+        return [upload(host_rows[sh["lo"] : sh["lo"] + rps], sh["device"]) for sh in self._shards]
 
     # ------------------------------------------------------------------
     # live updates (upsert -> searchable, the reference's pgvector
@@ -783,12 +855,14 @@ class SearchEngine:
                 meta_built = self._meta_subset(self.meta, keep)
             if ivf2 is not None:
                 ivf2 = ivf2.remap_ids(id_map)
-            keep_dev = upload(np.nonzero(keep)[0], self.device)
+            if self._shards is None:
+                keep_dev = upload(np.nonzero(keep)[0], self.device)
         ivf_s = time.monotonic() - t_ivf
 
         # ---- the device fold: the new device arrays from the old device
         # copies plus delta-sized uploads (reclaim gathers the kept rows
-        # on the device) ----
+        # on the device). Under a mesh the new engine re-shards the folded
+        # host arrays instead, as the reference's does ----
         t_f = time.monotonic()
         n_fold, n_rows = old_n + m, int(vecs_cat.shape[0])
         upd = upd_rows or None
@@ -797,6 +871,8 @@ class SearchEngine:
                  "res_codes": (self._res_codes_device, n_rows, rc_new, rc_u)}
         device_init, bytes_h2d = {}, 0
         for key, (old_dev, target, new_rows, upd_vals) in folds.items():
+            if self._shards is not None:
+                break
             if old_dev is not None:
                 device_init[key] = _fold_device_rows(old_dev, n_fold, target, new_rows, old_n,
                                                      upd, upd_vals, keep_dev)
@@ -969,10 +1045,10 @@ class SearchEngine:
         if self._speed_ok:
             mask_host = np.zeros(self.padded_rows, np.int8)
             mask_host[: mask.shape[0]] = mask
-            return mask, upload(mask_host, self.device), pass_rate
+            return mask, self._put_rows(mask_host), pass_rate
         bias_host = np.full(self.padded_rows, NEG_INF, np.float32)
         bias_host[: mask.shape[0]] = np.where(mask, 0.0, NEG_INF)
-        return mask, upload(bias_host, self.device), pass_rate
+        return mask, self._put_rows(bias_host), pass_rate
 
     def _cache_put(self, cache: dict, key, entry, t0: float) -> None:
         with self._filter_cache_lock:
@@ -1047,19 +1123,19 @@ class SearchEngine:
         """Cached (all-pass, all-excluded) int8 device rows of the grouped
         scan's mask stack."""
         if self._pass_fail_cache is None:
-            ones = torch.zeros(self.padded_rows, dtype=torch.int8)
+            ones = np.zeros(self.padded_rows, np.int8)
             ones[: self.n_valid] = 1
-            self._pass_fail_cache = (ones.to(self.device),
-                                     torch.zeros(self.padded_rows, dtype=torch.int8,
-                                                 device=self.device))
+            self._pass_fail_cache = (self._put_rows(ones),
+                                     self._put_rows(np.zeros(self.padded_rows, np.int8)))
         return self._pass_fail_cache
 
     def _grouped_device_masks(self, ordered_keys, reps) -> torch.Tensor:
         """(G_pad, padded_rows) int8 device stack, row g = signature g's
-        mask with the tombstones, pad rows all excluded. Stacked on the
-        device per dispatch from the per-signature cached rows: a
-        set-level cache would miss nearly always under a rotating mix
-        while pinning dead stacks."""
+        mask with the tombstones, pad rows all excluded (under a mesh, one
+        (G_pad, rows_per_shard) stack a shard). Stacked on the device per
+        dispatch from the per-signature cached rows: a set-level cache
+        would miss nearly always under a rotating mix while pinning dead
+        stacks."""
         g_pad = max(8, pow2_bucket(len(ordered_keys)))
         pass_row, fail_row = self._pass_fail_rows()
         rows = []
@@ -1070,6 +1146,8 @@ class SearchEngine:
             mask, dev, _ = self._combined_mask_inputs(f if fk != () else None)
             rows.append(pass_row if mask is None else dev)
         rows.extend([fail_row] * (g_pad - len(rows)))
+        if self._shards is not None:
+            return [torch.stack([r[s] for r in rows]) for s in range(self.n_shards)]
         return torch.stack(rows)
 
     def _tomb_ids_snapshot(self) -> np.ndarray:
@@ -1196,8 +1274,59 @@ class SearchEngine:
         with self._filter_cache_lock:
             self.route_counts[route] = self.route_counts.get(route, 0) + 1
 
-    def _to_doc_ids(self, li: torch.Tensor) -> torch.Tensor:
-        return torch.where(li >= 0, self.ids[li.clamp(min=0).long()], PAD_ID)
+    @staticmethod
+    def _to_doc_ids(li: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return torch.where(li >= 0, ids[li.clamp(min=0).long()], PAD_ID)
+
+    def _over_shards(self, q, k: int, run, *sharded):
+        """Run `run(shard, q_s, *args_s) -> (scores, doc ids) (B, k)` on
+        every shard, with q and each per-shard argument (a list of one
+        tensor a shard, or one tensor copied to every shard) on the
+        shard's device; copy the results to the first device in shard
+        order and merge them (`merge_topk`: ties to the lower shard, then
+        the lower slot, as the reference's all_gather + lax.top_k). A
+        shard without valid rows contributes nothing, as its -inf slots
+        would."""
+        parts_s, parts_i = [], []
+        for s, sh in enumerate(self._shards):
+            if sh["valid"] == 0:
+                continue
+            dev = sh["device"]
+            args = [a[s] if isinstance(a, list)
+                    else None if a is None else a.to(dev, non_blocking=True) for a in sharded]
+            out_s, out_i = run(sh, q.to(dev, non_blocking=True), *args)
+            parts_s.append(out_s.to(self.device, non_blocking=True))
+            parts_i.append(out_i.to(self.device, non_blocking=True))
+        b = q.shape[0]
+        if not parts_s:
+            return (torch.full((b, k), NEG_INF, device=self.device),
+                    torch.full((b, k), PAD_ID, dtype=torch.int32, device=self.device))
+        all_s, all_i = torch.cat(parts_s, dim=1), torch.cat(parts_i, dim=1)
+        if all_s.shape[1] < k:
+            pad = k - all_s.shape[1]
+            all_s = torch.nn.functional.pad(all_s, (0, pad), value=NEG_INF)
+            all_i = torch.nn.functional.pad(all_i, (0, pad), value=PAD_ID)
+        return merge_topk(all_s, torch.where(all_i < 0, PAD_ID, all_i), k)
+
+    def _sharded_speed_search(self, q, k: int, mask=None, gmasks=None, mask_ids=None):
+        """The speed route once a shard: scan, local rescore to k, doc ids;
+        merged. Candidates a shard: the reference's sharded width,
+        min(max(k, rescore_factor * k), rows_per_shard)."""
+        kr = min(max(k, self.rescore_factor * k), self.rows_per_shard)
+        k_loc = min(k, kr)
+        gs = self._global_scale
+
+        def run(sh, qs, m, gm, mid):
+            _, li = fused_mips_topk_g(qs, sh["vectors"], gs, sh["valid"], m, k=kr,
+                                      row_block=self.row_block, gmasks=gm, mask_ids=mid)
+            if sh["res_codes"] is not None:
+                s_, li = device_rescore_residual(qs, li, sh["vectors"], gs, sh["res_codes"],
+                                                 sh["res_scales"], sh["valid"], k=k_loc)
+            else:
+                s_, li = device_rescore(qs, li, sh["rescore"], sh["valid"], k=k_loc)
+            return s_, self._to_doc_ids(li, sh["ids"])
+
+        return self._over_shards(q, k, run, mask, gmasks, mask_ids)
 
     def _speed_search(self, q, k_q: int, base_k: int, mask=None, gmasks=None, mask_ids=None):
         """The speed route: (B_pad, D) f32 device queries -> (scores, doc
@@ -1205,6 +1334,8 @@ class SearchEngine:
         plus the oversampling tail from the quasi-exact int32 scan (masked
         or grouped when given masks), rescores exactly against the bf16
         copy or the residual reconstruction and maps rows -> doc ids."""
+        if self._shards is not None:
+            return self._sharded_speed_search(q, k_q, mask, gmasks, mask_ids)
         kr = min(self._candidate_width(k_q, base_k), self.padded_rows)
         _, li = fused_mips_topk_g(q, self.vectors, self._global_scale, self.n_valid, mask,
                                   k=kr, row_block=self.row_block, gmasks=gmasks,
@@ -1215,20 +1346,33 @@ class SearchEngine:
                                             self.n_valid, k=k_q)
         else:
             s, li = device_rescore(q, li, self._rescore_device, self.n_valid, k=k_q)
-        return s, self._to_doc_ids(li)
+        return s, self._to_doc_ids(li, self.ids)
 
     def _ivf_fn(self, k: int):
-        """The IVF route's searcher for k, built once per k."""
+        """The IVF route's searcher for k, built once per k (the list-
+        sharded searcher under a mesh)."""
         if k not in self._ivf_fns:
-            self._ivf_fns[k] = self.ivf.device_searcher(
-                k=k, nprobe=self.ivf_nprobe, rescore_factor=self.rescore_factor)
+            if self.mesh is not None:
+                self._ivf_fns[k] = self.ivf.sharded_searcher(
+                    self.mesh, k=k, nprobe=self.ivf_nprobe, rescore_factor=self.rescore_factor)
+            else:
+                self._ivf_fns[k] = self.ivf.device_searcher(
+                    k=k, nprobe=self.ivf_nprobe, rescore_factor=self.rescore_factor)
         return self._ivf_fns[k]
 
     def _exact_search(self, q, k_dev: int, bias=None):
-        """The exact route (kernel B5): (scores, doc ids) (B_pad, k_dev)."""
+        """The exact route (kernel B5): (scores, doc ids) (B_pad, k_dev);
+        once a shard under a mesh (the reference's `_local_topk`)."""
+        if self._shards is not None:
+            def run(sh, qs, b_s):
+                s_, li = fused_mips_topk(qs, sh["vectors"], sh["scales"], sh["valid"], b_s,
+                                         k=k_dev, row_block=self.row_block)
+                return s_, self._to_doc_ids(li, sh["ids"])
+
+            return self._over_shards(q, k_dev, run, bias)
         s, li = fused_mips_topk(q, self.vectors, self.scales, self.n_valid, bias,
                                 k=k_dev, row_block=self.row_block)
-        return s, self._to_doc_ids(li)
+        return s, self._to_doc_ids(li, self.ids)
 
     def _pad_queries(self, query_vecs) -> tuple[torch.Tensor, int]:
         """(padded device queries, real batch): batches pad to the next
@@ -1263,7 +1407,7 @@ class SearchEngine:
             h.copy_(t, non_blocking=True)
             out.append(h)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(live[0].device))
         return tuple(out), done
 
     @staticmethod
@@ -1330,7 +1474,7 @@ class SearchEngine:
                 k_q = k + margin
                 mask = dev = None
         k_fetch = self._candidate_width(k_q, k) if do_rescore else k_q
-        k_dev = min(max(k_fetch, 1), self.padded_rows)
+        k_dev = min(max(k_fetch, 1), self.rows_per_shard)
         q, b = self._pad_queries(query_vecs)
 
         delta_run = delta_bias = None

@@ -1,7 +1,6 @@
 """HTTP JSON API for the search service (port of
 theoremsearch_tpu/serve/http_api.py: the same routes, request and
-response JSON; an engine feature that is not ported yet, such as a
-mesh, answers 501).
+response JSON; an engine feature that is not ported yet answers 501).
 
 The reference serves only through Streamlit widgets; a production
 deployment needs a programmatic surface. Stdlib-only (no extra deps):
