@@ -14,7 +14,9 @@ exits non-zero (there is no CPU path):
              decoded (scores, ids).
  4. b2       fused attention kernel vs its plain version, H=16/8,
              Dh=128, S in {32, 64, 128} at B=64 and the encoder's
-             (B, S) = (512, 64), ragged masks.
+             (B, S) = (512, 64), ragged masks; and the heads a shard of
+             the tensor-parallel phases: 4/2 at (512, 64) (mesh_encode_tp)
+             and 8/4 at (32, 64) (mesh_train's data rows).
  4g. b2g     B2's gemma form vs plain: H=3/1, Dh=256, bidirectional, scale
              256^-1/2, S in {32, 64, 128} at B=64 and (512, 64), ragged masks.
  4b. b3b4    the whole-layer int8 kernels B4 (MLP block) and B3
@@ -174,6 +176,18 @@ exits non-zero (there is no CPU path):
              one-device encode >= 0.999 int8, >= 0.9999 bf16). B1, B5 and
              B6 must run once a shard a batch in each window. On more than
              one card mesh_search also runs over the distinct cards.
+16t. mesh_encode_tp  tensor-parallel encoding at full width (`shard_params`
+             + BatchedEncoder(mesh=)): qwen bf16 with vocab 151,936 (the
+             Qwen3 family's padded vocabulary: the reference's vocab
+             sharding refuses the odd 151,669) on (1, 4) over [cuda:0] * 4,
+             head-local at 4/2 heads a shard; gemma (3/1 heads, gathered on
+             the first device) and BERT-base (no kernel) on (1, 2); 4,096
+             slogans each against the single-device encoder: pooled cosine
+             >= 0.999; the same tower in f32 throughout on 512 slogans at
+             a pooled row distance <= 1e-4 from one device (f32 rounding:
+             the same function); int8 on the tp mesh refused ("dp-only"), B2 4 a
+             layer a batch (qwen), B2's gemma form once a layer a batch;
+             tp and one-device encode seconds.
 20. encoder_gemma / encoder_gemma_int8  the embeddinggemma-300m-class
              tower at full width (GemmaEncoderConfig(): 24 layers, d 768,
              3/1 heads of 256, vocab 262,144, the 768 -> 3072 -> 768 head;
@@ -192,8 +206,10 @@ exits non-zero (there is no CPU path):
 17. b7       the fused attention backward kernel vs its plain version,
              H=16/8, Dh=128, (B, S) = (64, 32), (64, 64), (64, 128) with
              ragged masks (mask[:, 0] = 1, g zero on padded rows) and the
-             training shape (64, 64) with full masks; a second launch
-             bit-equal to the first. (The 1M engines are freed first.)
+             training shape (64, 64) with full masks, and mesh_train's
+             8/4 heads a shard at a data row's (32, 64) with full masks; a
+             second launch bit-equal to the first. (The 1M engines are
+             freed first.)
 18. train    contrastive fine-tuning at full width (EncoderConfig(
              max_seq_len=64), 64 pairs x 64 tokens, lr 2e-5, temperature
              0.05, tools/train_bench.py's synthetic task from numpy seed 0):
@@ -209,6 +225,19 @@ exits non-zero (there is no CPU path):
              (cosine >= 0.999, a nonzero gradient on wq through the fused
              core), 8 steps "on" (loss finite and falling, step ms, peak
              memory, B2's gemma form 48 launches a step).
+18m. mesh_train  the dp + tp train step at full width on a (data=2,
+             shard=2) mesh over [cuda:0] * 4 (dryrun_multichip(4)'s mesh),
+             fused "on": the qwen tower with vocab 151,936, 64 pairs x 64
+             tokens of phase 18's batches (32 if 64 runs out of memory);
+             weights from one generator in a single-device state and,
+             through shard_train_state, in the sharded one: one batch's loss
+             within 2e-2 and every logical leaf's gradient at cosine >=
+             0.999 against the single device; 6 steps, each loss finite and
+             within 2e-2 of the single-device trajectory; B2 and B7 224
+             times a step each (2 data rows x 2 shards x (q, p) x 28
+             layers, head-local at 8/4 heads); step ms and tokens/s beside
+             the single device's, peak memory. It runs here, after the
+             engines are freed, for the memory the 64 x 64 step needs.
 19. train_cli  `python -m theoremsearch_tpu_torch train` on the card over
              data/validation_set.csv: 10 steps with --eval and checkpoints
              every 5, then --steps 20 on the same directory (resumed at
@@ -243,7 +272,7 @@ exits non-zero (there is no CPU path):
              "on" and "off", and the script's total seconds.
 
 Each path (phases 5-7, 7b, 9, 11, 11r, 11l, 11c, 11s, 12, 15, 16, 16l,
-16m, 18, 18g, 20, 21, 23) runs with every launch counter set to 0 just before it
+16m, 16t, 18, 18m, 18g, 20, 21, 23) runs with every launch counter set to 0 just before it
 and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
@@ -1267,6 +1296,243 @@ def mesh_phases(dev, gpu: str, counters: dict, path_start, path_end, *, index, r
     return windows
 
 
+# mesh_encode_tp's towers: (name, config overrides, shards, seed)
+TP_TOWERS = (("qwen", dict(vocab_size=151_936, max_seq_len=128), 4, 61),
+             ("gemma", dict(max_seq_len=128), 2, 62),
+             ("bert", dict(max_seq_len=128), 2, 63))
+# mesh_train's tower (config overrides), its steps, and the global
+# batches (pairs) it tries in turn
+MESH_TRAIN_CFG = dict(vocab_size=151_936, max_seq_len=64)
+MESH_TRAIN_STEPS = 6
+MESH_TRAIN_PAIRS = (64, 32)
+
+
+def tp_f32_distance(mod, params, cfg, mesh, texts, dev) -> float:
+    """The same tower in f32 throughout (params, activations, the reference
+    composition, TF32 off) on `texts` padded to 64 tokens, through its tp
+    forward on `mesh` and unsharded: the largest row distance of the two
+    sets of pooled unit rows. f32 rounding keeps it near 1e-6 at full
+    depth; a head, block or sum misplaced in the tp forward shows at any
+    precision, where bf16's own rounding (the 0.999 gate) might hide it."""
+    import torch
+
+    from theoremsearch_tpu_torch.encoder.tokenizer import SimpleTokenizer
+    from theoremsearch_tpu_torch.utils.device import tf32_off
+
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = {k: v.float() for k, v in params.items() if k != "layers"}
+    p32["layers"] = [{k: v.float() for k, v in layer.items()} for layer in params["layers"]]
+    enc = SimpleTokenizer(vocab_size=cfg.vocab_size)(texts, max_length=64, pad_to=64)
+    ids = torch.from_numpy(enc.input_ids).to(dev)
+    am = torch.from_numpy(enc.attention_mask).to(dev)
+    with torch.inference_mode(), tf32_off():
+        one = mod.encode_pooled(p32, ids, am, cfg32, fused="off")
+        tp = mod.encode_pooled(mod.shard_params(p32, mesh), ids, am, cfg32, fused="off")
+    return float((tp.double() - one.double()).norm(dim=1).max())
+
+
+def mesh_encode_tp(dev, gpu: str, counters: dict, path_start, path_end, *, texts,
+                   batch_size=512) -> dict:
+    """Phase mesh_encode_tp: tensor-parallel encoding at full width on
+    repeated entries of one card. Each tower's params placed by its
+    `shard_params` go through `BatchedEncoder(mesh=)` against the same
+    params on one device: qwen bf16 (vocab 151,936: the Qwen3 family's
+    padded vocabulary, since the reference's vocab sharding refuses the
+    odd 151,669) on (1, 4), its 16/8 heads head-local at 4/2 a shard (B2
+    once a shard a layer a batch); gemma on (1, 2), its 3/1 heads gathered
+    on the first device (B2's gemma form once a layer a batch); BERT-base
+    on (1, 2), no kernel. Gates: the pooled cosine >= 0.999 (the
+    reference's tp gate), the same tower in f32 on the first batch's
+    texts at a row distance <= 1e-4 from one device (`tp_f32_distance`,
+    outside the launch window), int8 on the tp mesh refused ("dp-only"),
+    the launch counts exact. The towers are `TP_TOWERS`. Returns the
+    windows."""
+    import torch
+
+    from theoremsearch_tpu_torch.core.config import (
+        BertEncoderConfig, EncoderConfig, GemmaEncoderConfig, MeshConfig,
+    )
+    from theoremsearch_tpu_torch.core.meshes import make_mesh
+    from theoremsearch_tpu_torch.encoder import bert as bert_mod
+    from theoremsearch_tpu_torch.encoder import gemma as gemma_mod
+    from theoremsearch_tpu_torch.encoder import model as qwen_mod
+    from theoremsearch_tpu_torch.encoder.batching import BatchedEncoder
+
+    family = {"qwen": (qwen_mod, EncoderConfig), "gemma": (gemma_mod, GemmaEncoderConfig),
+              "bert": (bert_mod, BertEncoderConfig)}
+    windows = {}
+    n_batches = -(-len(texts) // batch_size)
+    for name, overrides, shards, seed in TP_TOWERS:
+        mod, cfg = family[name][0], family[name][1](**overrides)
+        params = mod.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        if mod is gemma_mod:      # the (1 + w) norm weights off zero
+            gn = torch.Generator(device=dev).manual_seed(seed + 100)
+            for layer_ in params["layers"]:
+                for t_ in layer_.values():
+                    if t_.ndim == 1:
+                        t_ += 0.1 * torch.randn(t_.shape, generator=gn, device=dev)
+        mesh = make_mesh(MeshConfig(data=1, shard=shards), devices=[dev] * shards)
+        one = BatchedEncoder(params, cfg, batch_size=batch_size, device=dev)
+        tp = BatchedEncoder(mod.shard_params(params, mesh), cfg, batch_size=batch_size, mesh=mesh)
+        refused = None
+        if hasattr(mod, "quantize_params_int8"):
+            try:
+                BatchedEncoder(params, cfg, batch_size=batch_size, mesh=mesh, quant="int8")
+            except ValueError as e:
+                refused = str(e)
+        t0 = time.perf_counter()
+        e_one = one.encode(texts)
+        one_s = time.perf_counter() - t0
+        path_start()
+        t0 = time.perf_counter()
+        e_tp = tp.encode(texts)
+        tp_s = time.perf_counter() - t0
+        win = path_end()
+        cos = float(np.min(np.sum(e_tp.astype(np.float64) * e_one, axis=1)))
+        dist32 = tp_f32_distance(mod, params, cfg, mesh, texts[:batch_size], dev)
+        # the attention core's heads a call (q, kv) and the launches the
+        # encode must make: once a shard a layer a batch where the kv heads
+        # divide over the shards, else once a layer a batch, gathered
+        if mod is bert_mod:
+            layout, heads, want = "no kernel", None, {}
+        elif cfg.num_kv_heads % shards == 0:
+            layout, heads = "head-local", [cfg.num_heads // shards, cfg.num_kv_heads // shards]
+            want = {"qknorm_rope_attention": shards * cfg.num_layers * n_batches}
+        else:
+            layout, heads = "gathered", [cfg.num_heads, cfg.num_kv_heads]
+            kernel = "qknorm_rope_attention_gemma" if mod is gemma_mod else "qknorm_rope_attention"
+            want = {kernel: cfg.num_layers * n_batches}
+        want = {k: want.get(k, 0) for k in counters}
+        emit("mesh_encode_tp", tower=name, shards=shards, layout=layout, heads_a_call=heads,
+             vocab=cfg.vocab_size, texts=len(texts), batches=n_batches, cos_tp_vs_one_device_min=cos,
+             f32_row_distance_max=dist32,
+             encode_s={"tp": round(tp_s, 3), "one_device": round(one_s, 3)},
+             int8_refused=refused, finite=bool(np.isfinite(e_tp).all()), launches=win, gpu=gpu)
+        if not (cos >= 0.999 and dist32 <= 1e-4 and np.isfinite(e_tp).all() and e_tp.shape == e_one.shape
+                and (refused is not None and "dp-only" in refused
+                     or not hasattr(mod, "quantize_params_int8"))):
+            raise AssertionError(f"mesh_encode_tp ({name}) failed")
+        if win != want:
+            raise AssertionError(f"mesh_encode_tp ({name}): launches {win}, want {want}")
+        windows[name] = win
+        del params, one, tp, e_one, e_tp
+        torch.cuda.empty_cache()
+    return windows
+
+
+def mesh_train(dev, gpu: str, counters: dict, path_start, path_end, *, tq, tp, tmask) -> dict:
+    """Phase mesh_train: the dp + tp train step at full width on a (data=2,
+    shard=2) mesh over [cuda:0] * 4 (the mesh `dryrun_multichip(4)`
+    builds), fused "on": the qwen tower (vocab 151,936, see
+    `mesh_encode_tp`), its 16/8 heads head-local at 8/4 a shard, so B2 and
+    B7 run once a shard a layer for each encode (q and p) of each data row:
+    224 launches each a step. Weights from one generator go into a
+    single-device state and, through `shard_train_state`, into the sharded
+    one. Gates: one batch's loss within 2e-2 of the single device's and
+    every logical leaf's gradient at cosine >= 0.999; `MESH_TRAIN_STEPS`
+    mesh steps with finite losses, each within 2e-2 of the single-device
+    trajectory on the same batches (tq[i], tp[i]); the launch counts
+    exact. The global batch is `MESH_TRAIN_PAIRS[0]` pairs, or the next
+    if the step runs out of memory. Returns the window."""
+    import gc
+
+    import torch
+
+    from theoremsearch_tpu_torch.core.config import EncoderConfig, MeshConfig, TrainConfig
+    from theoremsearch_tpu_torch.core.meshes import make_mesh
+    from theoremsearch_tpu_torch.train.contrastive import (
+        info_nce_loss, init_train_state, logical_grads, make_train_step, piece_leaves,
+        shard_train_state,
+    )
+
+    cfg, steps, pairs = EncoderConfig(**MESH_TRAIN_CFG), MESH_TRAIN_STEPS, MESH_TRAIN_PAIRS
+    mesh = make_mesh(MeshConfig(data=2, shard=2), devices=[dev] * 4)
+    n_shard = mesh.shape["shard"]
+
+    def run(nb: int):
+        tc = TrainConfig(batch_size=nb, seq_len=tq.shape[-1], learning_rate=2e-5, temperature=0.05)
+        one = init_train_state(cfg, tc, generator=torch.Generator(device=dev).manual_seed(71),
+                               device=dev)
+        sharded = shard_train_state(one, mesh, cfg)
+        batches = [(tq[i][:nb], tmask[:nb], tp[i][:nb], tmask[:nb]) for i in range(steps)]
+
+        def grads(state, m):
+            pcs = piece_leaves(state.params)
+            for t_ in pcs:
+                t_.requires_grad_(True)
+            try:
+                loss_ = info_nce_loss(state.params, *batches[0], cfg, tc.temperature, "on", mesh=m)
+                g_ = torch.autograd.grad(loss_, pcs)
+            finally:
+                for t_ in pcs:
+                    t_.requires_grad_(False)
+            return float(loss_.detach()), logical_grads(state.params, list(g_))
+
+        l_one, g_one = grads(one, None)
+        l_mesh, g_mesh = grads(sharded, mesh)
+        cos = [agreement(a_, b_)[0] for a_, b_ in zip(g_mesh, g_one)]
+        del g_one, g_mesh
+
+        def trajectory(state, step_fn, window: bool):
+            ls_, ev = [], [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            if window:
+                path_start()
+            for i_, b_ in enumerate(batches):
+                if i_ == 1:
+                    ev[0].record()
+                state, l_ = step_fn(state, *b_)
+                ls_.append(l_)
+            ev[1].record()
+            ev[1].synchronize()
+            win_ = path_end() if window else None
+            return [float(l_) for l_ in ls_], ev[0].elapsed_time(ev[1]) / (steps - 1), win_
+
+        losses_one, ms_one, _ = trajectory(one, make_train_step(cfg, tc, fused="on"), False)
+        losses_mesh, ms_mesh, win_ = trajectory(sharded, make_train_step(cfg, tc, mesh=mesh, fused="on"),
+                                                True)
+        return l_one, l_mesh, cos, losses_one, ms_one, losses_mesh, ms_mesh, win_
+
+    start_gb = torch.cuda.memory_allocated() / 2**30   # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    result = None
+    for nb in pairs:
+        try:
+            result = run(nb)
+        except torch.cuda.OutOfMemoryError:
+            if nb == pairs[-1]:
+                raise
+        if result is not None:
+            break
+        # out of the handler, so the failed step's tensors are unreferenced
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("mesh_train", step="out of memory", batch_pairs=nb, gpu=gpu)
+    l_one, l_mesh, cos, losses_one, ms_one, losses_mesh, ms_mesh, win = result
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    layers = cfg.num_layers
+    per_step = {k_: v_ / steps for k_, v_ in win.items()}
+    want = 2 * n_shard * 2 * layers     # data rows x shards x (q, p) x layers
+    drift = max(abs(a_ - b_) for a_, b_ in zip(losses_mesh, losses_one))
+    tokens = 2 * nb * tq.shape[-1]
+    emit("mesh_train", mesh=[2, n_shard], layers=layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+         heads_a_shard=[cfg.num_heads // n_shard, cfg.num_kv_heads // n_shard], batch_pairs=nb,
+         seq_len=int(tq.shape[-1]), steps=steps,
+         loss_one_batch={"mesh": l_mesh, "one_device": l_one},
+         grad_cos_min=min(cos), grad_leaves=len(cos), losses_mesh=losses_mesh,
+         losses_one_device=losses_one, max_abs_dloss=drift,
+         step_ms={"mesh": ms_mesh, "one_device": ms_one},
+         tokens_per_s={"mesh": tokens / ms_mesh * 1e3, "one_device": tokens / ms_one * 1e3},
+         peak_mem_gb=peak_gb, mem_at_start_gb=start_gb, launches=win, launches_per_step=per_step,
+         gpu=gpu)
+    if not (abs(l_mesh - l_one) <= 2e-2 and min(cos) >= 0.999 and all(np.isfinite(losses_mesh))
+            and drift <= 2e-2):
+        raise AssertionError("mesh_train phase failed")
+    if not (win["qknorm_rope_attention"] == steps * want
+            and win["qknorm_rope_attention_bwd"] == steps * want):
+        raise AssertionError(f"mesh_train: B2 / B7 not once a shard a layer: {per_step}, want {want}")
+    return win
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1436,20 +1702,26 @@ def main(argv=None) -> int:
 
     # ---- 4. B2 vs plain ----
     H, HK, DH = 16, 8, 128
-    # B=64 over the kernel's S range, and the encoder's (512, 64) batches
-    for BB, S in ((64, 32), (64, 64), (64, 128), (512, 64)):
-        qa = (torch.randn((BB, S, H * DH), generator=g, device=dev) * 2).to(torch.bfloat16)
-        ka = (torch.randn((BB, S, HK * DH), generator=g, device=dev) * 2).to(torch.bfloat16)
-        va = torch.randn((BB, S, HK * DH), generator=g, device=dev).to(torch.bfloat16)
-        qw = 1.0 + 0.1 * torch.randn((DH,), generator=g, device=dev)
-        kw = 1.0 + 0.1 * torch.randn((DH,), generator=g, device=dev)
-        lens = torch.randint(1, S + 1, (BB,), generator=g, device=dev)
+    # B=64 over the kernel's S range and the encoder's (512, 64) batches at
+    # the tower's 16/8 heads; then the heads a shard of the tensor-parallel
+    # phases: mesh_encode_tp's 4/2 at (512, 64) and mesh_train's 8/4 at a
+    # data row's (32, 64), drawn from a generator of their own
+    g_tp = torch.Generator(device=dev).manual_seed(44)
+    for BB, S, H2, HK2 in ((64, 32, H, HK), (64, 64, H, HK), (64, 128, H, HK), (512, 64, H, HK),
+                           (512, 64, H // 4, HK // 4), (32, 64, H // 2, HK // 2)):
+        gb = g if H2 == H else g_tp
+        qa = (torch.randn((BB, S, H2 * DH), generator=gb, device=dev) * 2).to(torch.bfloat16)
+        ka = (torch.randn((BB, S, HK2 * DH), generator=gb, device=dev) * 2).to(torch.bfloat16)
+        va = torch.randn((BB, S, HK2 * DH), generator=gb, device=dev).to(torch.bfloat16)
+        qw = 1.0 + 0.1 * torch.randn((DH,), generator=gb, device=dev)
+        kw = 1.0 + 0.1 * torch.randn((DH,), generator=gb, device=dev)
+        lens = torch.randint(1, S + 1, (BB,), generator=gb, device=dev)
         mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]).to(torch.int32)
         pos = torch.clamp(mask.cumsum(1) - 1, min=0).float()
         inv = 1.0 / (1e6 ** (torch.arange(0, DH, 2, device=dev).float() / DH))
         ang = pos[..., None] * inv
         cos, sin = torch.cos(ang), torch.sin(ang)
-        kwargs = dict(num_heads=H, num_kv_heads=HK, head_dim=DH, eps=1e-6, causal=True)
+        kwargs = dict(num_heads=H2, num_kv_heads=HK2, head_dim=DH, eps=1e-6, causal=True)
         ok_ = fused_qknorm_rope_attention(qa, ka, va, qw, kw, cos, sin, mask, **kwargs).float()
         op = fused_qknorm_rope_attention_plain(
             qa, ka, va, qw, kw, cos, sin, mask, scale=1.0 / np.sqrt(DH), **kwargs).float()
@@ -1459,9 +1731,10 @@ def main(argv=None) -> int:
         a, b = ok_.double().flatten(), op.double().flatten()
         cosv = float((a @ b) / (a.norm() * b.norm()))
         err_of["qknorm_rope_attention"] = max(err_of["qknorm_rope_attention"], err)
-        emit("b2", S=S, B=BB, cosine=cosv, max_abs_err=err, max_abs_plain=ref)
+        emit("b2", S=S, B=BB, heads=[H2, HK2, DH], cosine=cosv, max_abs_err=err, max_abs_plain=ref)
         if not (cosv > 0.9999 and err <= 2e-2 * ref):
-            raise AssertionError(f"B2 kernel disagrees with its plain version at S={S}")
+            raise AssertionError(f"B2 kernel disagrees with its plain version at (B, S) = ({BB}, {S}), "
+                                 f"heads {H2}/{HK2}")
 
     # ---- 4g. B2's gemma form vs plain: head_dim 256, bidirectional ----
     GH, GHK, GDH = 3, 1, 256
@@ -2510,6 +2783,9 @@ def main(argv=None) -> int:
     del rindex
     torch.cuda.empty_cache()
 
+    # ---- 16t. tensor-parallel encoding of the three towers ----
+    mesh_encode_tp(dev, gpu, counters, path_start, path_end, texts=texts)
+
     # ---- 20. the gemma tower at full width (embeddinggemma-300m class) ----
     gparams = gemma_mod.init_params(gcfg, torch.Generator(device=dev).manual_seed(31), device=dev)
     gnorm = torch.Generator(device=dev).manual_seed(32)
@@ -3024,11 +3300,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    def attn_bwd_inputs(bb, s_, full, seed):
+    def attn_bwd_inputs(bb, s_, full, seed, h=H, hk=HK):
         gb = torch.Generator(device=dev).manual_seed(seed)
-        qa_ = (torch.randn((bb, s_, H * DH), generator=gb, device=dev) * 0.5).to(torch.bfloat16)
-        ka_ = (torch.randn((bb, s_, HK * DH), generator=gb, device=dev) * 0.5).to(torch.bfloat16)
-        va_ = (torch.randn((bb, s_, HK * DH), generator=gb, device=dev) * 0.5).to(torch.bfloat16)
+        qa_ = (torch.randn((bb, s_, h * DH), generator=gb, device=dev) * 0.5).to(torch.bfloat16)
+        ka_ = (torch.randn((bb, s_, hk * DH), generator=gb, device=dev) * 0.5).to(torch.bfloat16)
+        va_ = (torch.randn((bb, s_, hk * DH), generator=gb, device=dev) * 0.5).to(torch.bfloat16)
         w_ = 1.0 + 0.1 * torch.randn((2, DH), generator=gb, device=dev)
         lens_ = torch.full((bb,), s_, device=dev) if full else torch.randint(
             1, s_ + 1, (bb,), generator=gb, device=dev)
@@ -3036,17 +3312,22 @@ def main(argv=None) -> int:
         m_[:, 0] = 1
         pos_ = torch.clamp(m_.cumsum(1) - 1, min=0).float()
         ang_ = pos_[..., None] * (1.0 / (1e6 ** (torch.arange(0, DH, 2, device=dev).float() / DH)))
-        g_ = (torch.randn((bb, s_, H * DH), generator=gb, device=dev) * m_[..., None]).to(torch.bfloat16)
+        g_ = (torch.randn((bb, s_, h * DH), generator=gb, device=dev) * m_[..., None]).to(torch.bfloat16)
         return (qa_, ka_, va_, w_[0].contiguous(), w_[1].contiguous(), torch.cos(ang_),
                 torch.sin(ang_), m_, g_)
 
     bwd_kw = dict(num_heads=H, num_kv_heads=HK, head_dim=DH, eps=1e-6, causal=True)
     err_of["qknorm_rope_attention_bwd"] = 0.0
-    for bb, s_, full in ((64, 32, False), (64, 64, False), (64, 128, False), (64, 64, True)):
-        args7 = attn_bwd_inputs(bb, s_, full, 700 + s_ + full)
-        outk = fused_qknorm_rope_attention_bwd(*args7, **bwd_kw)
-        outk2 = fused_qknorm_rope_attention_bwd(*args7, **bwd_kw)
-        outp = fused_qknorm_rope_attention_bwd_plain(*args7, scale=1.0 / np.sqrt(DH), **bwd_kw)
+    # the tower's 16/8 heads, then mesh_train's 8/4 a shard at a data row's
+    # (32, 64), full masks as its batches have
+    for bb, s_, full, h7, hk7, seed7 in ((64, 32, False, H, HK, 732), (64, 64, False, H, HK, 764),
+                                         (64, 128, False, H, HK, 828), (64, 64, True, H, HK, 765),
+                                         (32, 64, True, H // 2, HK // 2, 766)):
+        args7 = attn_bwd_inputs(bb, s_, full, seed7, h7, hk7)
+        kw7 = {**bwd_kw, "num_heads": h7, "num_kv_heads": hk7}
+        outk = fused_qknorm_rope_attention_bwd(*args7, **kw7)
+        outk2 = fused_qknorm_rope_attention_bwd(*args7, **kw7)
+        outp = fused_qknorm_rope_attention_bwd_plain(*args7, scale=1.0 / np.sqrt(DH), **kw7)
         torch.cuda.synchronize()
         repeat_equal = all(torch.equal(a_, b_) for a_, b_ in zip(outk, outk2))
         rows, ok7 = {}, repeat_equal
@@ -3057,10 +3338,11 @@ def main(argv=None) -> int:
             ok7 &= cosv > 0.9999 and err <= tol * ref_max
             if name in ("dq", "dk", "dv"):
                 err_of["qknorm_rope_attention_bwd"] = max(err_of["qknorm_rope_attention_bwd"], err)
-        emit("b7", B=bb, S=s_, masks="full" if full else "ragged", repeat_bit_equal=repeat_equal,
-             **rows)
+        emit("b7", B=bb, S=s_, heads=[h7, hk7, DH], masks="full" if full else "ragged",
+             repeat_bit_equal=repeat_equal, **rows)
         if not ok7:
-            raise AssertionError(f"B7 kernel disagrees with its plain version at (B, S) = ({bb}, {s_})")
+            raise AssertionError(f"B7 kernel disagrees with its plain version at (B, S) = ({bb}, {s_}), "
+                                 f"heads {h7}/{hk7}")
     del args7, outk, outk2, outp
 
     # B7 and B2 times at the training shape, full masks
@@ -3203,6 +3485,9 @@ def main(argv=None) -> int:
         raise AssertionError("LoRA train phase failed")
     del base, base_copy, lstate
 
+    # ---- 18m. the dp + tp train step on a (2, 2) mesh of the card ----
+    mesh_train(dev, gpu, counters, path_start, path_end, tq=tq_dev, tp=tp_dev, tmask=tmask)
+
     # ---- 18g. the gemma tower trains at full width through its fused core ----
     gtr_cfg = GemmaEncoderConfig(max_seq_len=64)
     GSTEPS = 8
@@ -3273,6 +3558,10 @@ def main(argv=None) -> int:
             == GSTEPS * 2 * gtr_cfg.num_layers):
         raise AssertionError("train_gemma phase failed")
     del gst, gstep, gtq_dev, gtp_dev
+    # the train CLI runs in another process: hand back the blocks this one
+    # keeps cached (the train phases leave up to the whole card reserved)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 19. the train entry point, with a checkpoint and a resume ----
     import shutil

@@ -1324,3 +1324,49 @@ def test_two_cards_launch_each_shard_on_its_own_card(cuda):
         two = BatchedEncoder(params, cfg, quant=quant,
                              mesh=make_mesh(MeshConfig(data=2), devices=[c0, c1])).encode(texts)
         assert (one * two).sum(axis=1).min() >= 0.9999
+
+
+@pytest.mark.parametrize("kv", [2, 1])
+def test_tp_attention_launches_b2_and_b7_once_a_shard(cuda, kv):
+    """Tensor-parallel forward and backward on [cuda:0] * 2 with sharded
+    params: head-local (4/2 heads, each shard its own 2/1) launches B2 and
+    B7 once a shard a layer, gathered (4/1 heads) once a layer; pooled
+    rows and every logical leaf's gradient equal the same sharded run
+    through the kernels' plain versions (fused="plain")."""
+    from theoremsearch_tpu_torch.core.config import MeshConfig
+    from theoremsearch_tpu_torch.core.meshes import make_mesh
+    from theoremsearch_tpu_torch.encoder.model import shard_params
+    from theoremsearch_tpu_torch.kernels.attention import attention_bwd_launches
+    from theoremsearch_tpu_torch.train.contrastive import logical_grads, piece_leaves
+
+    cfg = EncoderConfig(vocab_size=2048, hidden_size=512, intermediate_size=1024, num_layers=2,
+                        num_heads=4, num_kv_heads=kv, head_dim=128, max_seq_len=64,
+                        embedding_dim=512)
+    mesh = make_mesh(MeshConfig(shard=2), devices=[cuda] * 2)
+    params = shard_params(init_params(cfg, torch.Generator(device=cuda).manual_seed(3), device=cuda),
+                          mesh)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    ids = torch.randint(3, cfg.vocab_size, (16, 64), generator=g, device=cuda)
+    mask = (torch.arange(64, device=cuda)[None] < torch.randint(8, 65, (16, 1), generator=g,
+                                                                 device=cuda)).to(torch.int32)
+    pieces = piece_leaves(params)
+    out = {}
+    for fused in ("on", "plain"):
+        for p in pieces:
+            p.requires_grad_(True)
+        try:
+            f0, b0 = attention_launches.n, attention_bwd_launches.n
+            pooled = encode_pooled(params, ids, mask, cfg, fused=fused)
+            grads = torch.autograd.grad((pooled * pooled.roll(1, 0)).sum(), pieces)
+            torch.cuda.synchronize()
+            want = 2 * (2 if kv == 2 else 1) if fused == "on" else 0
+            assert (attention_launches.n - f0, attention_bwd_launches.n - b0) == (want, want)
+        finally:
+            for p in pieces:
+                p.requires_grad_(False)
+        out[fused] = (pooled.detach(), logical_grads(params, list(grads)))
+    (pk, gk), (pp, gp) = out["on"], out["plain"]
+    assert torch.nn.functional.cosine_similarity(pk, pp).min() >= 0.9999
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        cos = torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0)
+        assert cos >= 0.999, i

@@ -101,15 +101,21 @@ def test_batched_encoder_matches_jax(n):
 
 
 def test_unported_modes_raise():
-    """A tensor-parallel mesh (shard > 1) is not ported yet; an unknown
-    quant mode is refused. A data-parallel mesh encodes
-    (tests/test_torch_mesh_serve.py)."""
+    """An unknown quant mode is refused, and so is int8 on a tensor-parallel
+    mesh (shard > 1; "dp-only", as the reference). A tp mesh encodes, with
+    full params (data parallel: the shard axis computes nothing new) and
+    with sharded ones (tests/test_torch_tp_encode.py)."""
     cfg = EncoderConfig.tiny()
     _, tp = _carry(JEncoderConfig.tiny())
     with pytest.raises(ValueError, match="quant"):
         BatchedEncoder(tp, cfg, quant="int4")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        BatchedEncoder(tp, cfg, mesh=cpu_mesh(2))
+    with pytest.raises(ValueError, match="dp-only"):
+        BatchedEncoder(tp, cfg, mesh=cpu_mesh(2), quant="int8")
+    texts = ["a theorem on primes", "a lemma"]
+    one = BatchedEncoder(tp, cfg, device="cpu").encode(texts)
+    for params in (tp, M.shard_params(tp, cpu_mesh(2))):
+        out = BatchedEncoder(params, cfg, mesh=cpu_mesh(2)).encode(texts)
+        assert (_cos(out, one) > 0.9999).all()
 
 
 def test_cpu_forward_launches_no_kernel():

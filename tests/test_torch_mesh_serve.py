@@ -242,11 +242,22 @@ def test_data_parallel_encode_matches_one_device(tower, quant, data):
 
 
 def test_tensor_parallel_encode_raises():
+    """int8 on a mesh with shard > 1 raises ("dp-only", the reference's
+    rule: the tp rules have no int8 form); bf16 encodes there, with full
+    params data-parallel and with sharded ones tensor-parallel, equal to
+    the one-device encoder."""
+    from theoremsearch_tpu_torch.encoder.model import shard_params
+
     cfg = EncoderConfig.tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    for quant in ("none", "int8"):
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            BatchedEncoder(params, cfg, mesh=cpu_mesh(2), quant=quant)
+    mesh = cpu_mesh(2, data=2)
+    with pytest.raises(ValueError, match="dp-only"):
+        BatchedEncoder(params, cfg, mesh=mesh, quant="int8")
+    texts = [f"theorem {i} on {'graded ' * (i % 5)}modules" for i in range(9)]
+    one = BatchedEncoder(params, cfg, device="cpu", batch_size=8).encode(texts)
+    for p in (params, shard_params(params, mesh)):
+        out = BatchedEncoder(p, cfg, mesh=mesh, batch_size=8).encode(texts)
+        assert (out * one).sum(axis=1).min() >= 0.9999
 
 
 # ------------------------------------------ the catalog path, the dry run
@@ -275,10 +286,11 @@ def _hash_encode_128(texts):
 
 
 def test_dryrun_multichip_on_the_cpu():
-    """The serving half of the reference's multi-device dry run, on a
-    (2, 4) mesh of repeated "cpu" devices; the line names each item."""
+    """The reference's multi-device dry run, on a (2, 4) mesh of repeated
+    "cpu" devices; the line names each item (the train step's loss first;
+    its parity with the reference: tests/test_torch_tp_train.py)."""
     line = dryrun_multichip(8, device="cpu")
     assert line.startswith("dryrun_multichip ok: mesh=(2x4)")
-    for item in ("speed_path", "filtered_speed_path", "residual_capacity_path", "live_updates",
+    for item in ("loss=", "speed_path", "filtered_speed_path", "residual_capacity_path", "live_updates",
                  "scheduler", "sharded_ivf_top1"):
         assert item in line

@@ -279,14 +279,26 @@ def test_optimizer_update_matches_optax(scale):
 
 
 def test_multi_device_and_unported_towers_raise():
-    cfg, tcfg = EncoderConfig(**CFG), TrainConfig()
-    for fn in (make_train_step, make_lora_train_step):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            fn(cfg, tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.10"):
-        PC.init_sharded_train_state(cfg, tcfg, mesh=object())
+    """A mesh trains and encodes (the dp + tp step, tests/test_torch_tp_train.py);
+    the int8 encoder refuses a tp mesh ("dp-only", as the reference) and the
+    steps refuse an unknown fused mode."""
+    from theoremsearch_tpu_torch.encoder.sharding import ShardedTensor
+
+    cfg, tcfg = EncoderConfig(**CFG), TrainConfig(batch_size=4, seq_len=16)
+    mesh = cpu_mesh(2, data=2)
+    state = PC.init_sharded_train_state(cfg, tcfg, mesh)
+    assert isinstance(state.params["layers"][0]["wq"], ShardedTensor)
+    assert isinstance(tree_leaves(state.opt_state.mu)[0], ShardedTensor)
+    ids = np.arange(3, 3 + 4 * 16, dtype=np.int32).reshape(4, 16)
+    mask = np.ones((4, 16), np.int32)
+    state, loss = make_train_step(cfg, tcfg, mesh=mesh)(state, ids, mask, ids[::-1].copy(), mask)
+    assert np.isfinite(float(loss)) and state.step == 1
+    assert callable(make_lora_train_step(cfg, tcfg, mesh=mesh))
     _, tp = _params()
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        BatchedEncoder(tp, cfg, mesh=cpu_mesh(2))
-    with pytest.raises(ValueError, match="fused"):
-        make_train_step(cfg, tcfg, fused="interpret")
+    out = BatchedEncoder(tp, cfg, mesh=cpu_mesh(2)).encode(["a theorem", "a lemma"])
+    assert out.shape == (2, cfg.embedding_dim)
+    with pytest.raises(ValueError, match="dp-only"):
+        BatchedEncoder(tp, cfg, mesh=cpu_mesh(2), quant="int8")
+    for fn in (make_train_step, make_lora_train_step):
+        with pytest.raises(ValueError, match="fused"):
+            fn(cfg, tcfg, mesh=mesh, fused="interpret")

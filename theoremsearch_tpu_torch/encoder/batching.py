@@ -3,12 +3,18 @@ theoremsearch_tpu/encoder/batching.py), for the three towers: the config's
 type picks the model module (`families.family_module`: qwen, gemma or
 BERT).
 
-On a data-parallel mesh (`mesh=`, `shard` == 1; the reference shards the
-batch over its `data` axis) the parameters, and in int8 mode the codes
-quantized once, are copied once to every distinct data device; each
-sub-batch is padded to a multiple of the data axis, split over it, run
-on each device and the pooled rows are gathered in order on the mesh's
-first device. A mesh with `shard` > 1 (tensor parallelism) raises.
+On a mesh (`mesh=`; the reference shards the batch over its `data` axis)
+each sub-batch is padded to a multiple of the data axis, split over it,
+run on each data row and the pooled rows are gathered in order on the
+mesh's first device. With full params (the reference's GSPMD replicates
+them, so the `shard` axis computes nothing new) the parameters, and in
+int8 mode the codes quantized once, are copied once to every distinct
+data device. With params placed by the tower's `shard_params` each data
+row runs the tensor-parallel forward over its shard devices
+(`encoder/sharding.py`). int8 on a mesh with `shard` > 1 raises, as the
+reference's does: the tp rules have no int8 form. A mesh spans the
+devices of one process; a mesh across processes (ROADMAP A.10 item 6)
+is not ported yet.
 
 Texts are bucketed by token length into a few padded widths and batches
 pad to power-of-two sizes, so the forward sees a bounded set of shapes;
@@ -32,6 +38,7 @@ from ..utils.shapes import pow2_bucket
 from ..kernels.layer_int8 import kernel_layout
 from .families import family_module
 from .model import Params
+from .sharding import is_sharded, row_params, unshard_params
 from .tokenizer import SimpleTokenizer
 
 DEFAULT_BUCKETS = (64, 128, 256, 512)
@@ -64,10 +71,14 @@ class BatchedEncoder:
     ):
         if quant not in ("none", "int8"):
             raise ValueError(f"unknown quant mode {quant!r}")
-        if mesh is not None and mesh.shape.get("shard", 1) > 1:
-            raise NotImplementedError(
-                "tensor-parallel encoding (a mesh with shard > 1) is not ported yet: it comes "
-                "with the training half of ROADMAP A.10 (param_sharding_rules, tp encode)")
+        sharded = is_sharded(params)
+        if mesh is None and sharded:
+            mesh = params["embed"].mesh
+        if mesh is not None and quant == "int8" and mesh.shape.get("shard", 1) > 1:
+            raise ValueError("quant='int8' supports single-chip or dp-only meshes "
+                             "(no tp sharding rules for the int8 weights)")
+        if sharded and quant == "int8":     # a one-shard placement: the full params
+            params, sharded = unshard_params(params), False
         self.mesh = mesh
         self.cfg = cfg
         self._mod = family_module(cfg)
@@ -75,7 +86,11 @@ class BatchedEncoder:
             self.device = mesh.first_device
             if device is not None and resolve_device(device) != self.device:
                 raise ValueError(f"device={device} disagrees with the mesh's first device {self.device}")
-            params = _to_device(params, self.device)
+            if sharded and len(params["embed"].pieces) != mesh.shape[mesh.axis_names[1]]:
+                raise ValueError(f"params sharded {len(params['embed'].pieces)} ways do not fit "
+                                 f"the mesh {mesh.shape}")
+            if not sharded:
+                params = _to_device(params, self.device)
         else:
             self.device = torch.device(device) if device is not None else params["embed"].device
         self.params = params
@@ -91,13 +106,19 @@ class BatchedEncoder:
             self.qlayers = self._mod.quantize_params_int8(params)
             if self.device.type == "cuda":
                 self.qlayers = kernel_layout(self.qlayers)
-        # the devices of the data axis, and one copy of the weights on each
-        # distinct one (a device repeated on the axis shares its copy)
-        self._data_devices = mesh.data_devices if mesh is not None else [self.device]
-        self._replicas = {self.device: (self.params, self.qlayers)}
-        for dev in self._data_devices:
-            if dev not in self._replicas:
-                self._replicas[dev] = (_to_device(self.params, dev), _to_device(self.qlayers, dev))
+        # one (device, params, qlayers) a data row: sharded params as the
+        # row reads them; full params copied once to each distinct device
+        # (a device repeated on the axis shares its copy)
+        data_devices = mesh.data_devices if mesh is not None else [self.device]
+        if sharded:
+            self._rows = [(dev, row_params(params, mesh, r), None)
+                          for r, dev in enumerate(data_devices)]
+        else:
+            copies = {self.device: (self.params, self.qlayers)}
+            for dev in data_devices:
+                if dev not in copies:
+                    copies[dev] = (_to_device(self.params, dev), _to_device(self.qlayers, dev))
+            self._rows = [(dev, *copies[dev]) for dev in data_devices]
         self.tokenizer = tokenizer or SimpleTokenizer(vocab_size=cfg.vocab_size)
         self.prompts = dict(prompts or {})
         self.batch_size = batch_size
@@ -168,11 +189,10 @@ class BatchedEncoder:
     def _forward(self, ids_mask: np.ndarray) -> torch.Tensor:
         """Pooled rows of one padded sub-batch (2, B, W), on self.device:
         split over the data axis (B is a multiple of its size), one
-        forward a data device, gathered in order."""
-        parts = np.split(ids_mask, len(self._data_devices), axis=1)
+        forward a data row, gathered in order."""
+        parts = np.split(ids_mask, len(self._rows), axis=1)
         outs = []
-        for dev, part in zip(self._data_devices, parts):
-            params, qlayers = self._replicas[dev]
+        for (dev, params, qlayers), part in zip(self._rows, parts):
             t = upload(part, dev)
             kw = {} if qlayers is None else {"qlayers": qlayers, "fused_layers": True}
             outs.append(self._mod.encode_pooled(params, t[0], t[1], self.cfg, **kw)
@@ -191,7 +211,7 @@ class BatchedEncoder:
         ids, mask = enc.input_ids, enc.attention_mask
         b_pad = min(pow2_bucket(len(idx)), self.batch_size)
         # the data axis splits the batch: round the bucket up to its size
-        n_data = len(self._data_devices)
+        n_data = len(self._rows)
         b_pad = -(-max(b_pad, len(idx)) // n_data) * n_data
         if len(idx) < b_pad:
             pad = b_pad - len(idx)

@@ -28,6 +28,11 @@ it: there is no gemma form of the fused backward kernel B7.
 int8 (w8a8) serving mode shares the qwen tower's quantizer; with
 `fused_layers=True` each sandwich sub-block whose shapes qualify is one
 whole-layer call in its gemma form (kernels B3 and B4 on the card).
+
+Tensor parallelism as the qwen tower's (`encoder/model.py`): the
+reference's rules with the ST head's head_w1 column- and head_w2
+row-sharded; with the full model's 3/1 heads the core runs gathered on
+the first device (one kv head does not divide over the shards).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..kernels.layer_int8 import (
 from ..utils.device import resolve_device, tf32_off
 from .model import (  # the shared int8 machinery and the JAX carry-over
     _DTYPES,
+    _INT8_TP,
     _q_matmul,
     _quant_act,
     _rmsnorm_quant_act,
@@ -57,11 +63,12 @@ from .model import (  # the shared int8 machinery and the JAX carry-over
     params_from_jax,
     quantize_params_int8,
 )
+from .sharding import TP, is_sharded, place_params
 
 Params = dict[str, Any]
 
 __all__ = ["init_params", "params_from_jax", "quantize_params_int8", "forward", "encode_pooled",
-           "is_global_layer", "GemmaAttentionCore"]
+           "is_global_layer", "GemmaAttentionCore", "param_sharding_rules", "shard_params"]
 
 
 def is_global_layer(cfg: GemmaEncoderConfig, li: int) -> bool:
@@ -319,6 +326,10 @@ def forward(
     their plain versions for fused="plain" or CPU tensors)."""
     if fused not in ("on", "plain", "off"):
         raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
+    if is_sharded(params):
+        if qlayers is not None:
+            raise ValueError(_INT8_TP)
+        return _forward_tp(params, input_ids, attention_mask, cfg, fused)
     dtype = _DTYPES[cfg.dtype]
     eps = cfg.rms_norm_eps
     # the sqrt(hidden) scale lives in the model dtype (HF rounds it so)
@@ -369,6 +380,66 @@ def forward(
     return _gemma_rms_norm(x, params["final_norm"], eps)
 
 
+def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                cfg: GemmaEncoderConfig, fused: str) -> torch.Tensor:
+    """`forward` over sharded params, as the qwen tower's `_forward_tp`:
+    the sandwich norms, residuals and masks on the first device, the
+    projections and GeGLU on each shard's blocks, the core head-local or
+    gathered (`sharding.TP.attention`)."""
+    tp = TP(params["embed"].devices)
+    ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
+    dtype = _DTYPES[cfg.dtype]
+    eps = cfg.rms_norm_eps
+    embed_scale = float(torch.tensor(np.sqrt(cfg.hidden_size), dtype=dtype))
+    x = (tp.embed(params["embed"], ids).float() * embed_scale).to(dtype)
+    positions = torch.clamp(torch.cumsum(am.to(torch.int32), dim=1) - 1, min=0)
+    mask = am.bool()
+    rope_global = _rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_factor)
+    rope_local = _rope_tables(positions, cfg.head_dim, cfg.rope_local_theta)
+    b, s = ids.shape
+    use_fused = fused != "off" and _fused_ok(cfg, s, b)
+    plain = fused == "plain"
+    valid_full = mask[:, None, None, :].expand(b, 1, s, s)
+    dist = (positions[:, :, None] - positions[:, None, :]).abs()
+    valid_sliding = valid_full & (dist < cfg.sliding_window // 2 + 1)[:, None]
+    # each device's copies: the mask, and (rope tables, pair mask) by layer kind
+    on = {d: (am.to(d), {True: ([t.to(d) for t in rope_global], valid_full.to(d)),
+                         False: ([t.to(d) for t in rope_local], valid_sliding.to(d))})
+          for d in set(tp.devices)}
+    for li, layer in enumerate(params["layers"]):
+        glob = is_global_layer(cfg, li)
+
+        def core(q, k, v, dev, div):
+            lcfg = cfg.replace(num_heads=cfg.num_heads // div, num_kv_heads=cfg.num_kv_heads // div)
+            norms = {"q_norm": layer["q_norm"].to(dev), "k_norm": layer["k_norm"].to(dev)}
+            am_d, kinds = on[dev]
+            rope_cs, valid = kinds[glob]
+            if use_fused:
+                return _attention_core(norms, q, k, v, am_d, rope_cs, lcfg, plain).to(q.dtype)
+            return _attention_math(norms, q, k, v, valid, rope_cs, lcfg)
+
+        xs = tp.bcast(_gemma_rms_norm(x, layer["attn_norm"], eps))
+        attn = tp.attention(tp.col(xs, layer["wq"]), tp.col(xs, layer["wk"]), tp.col(xs, layer["wv"]),
+                            cfg.num_kv_heads, core)
+        x = x + _gemma_rms_norm(tp.row(attn, layer["wo"]), layer["post_attn_norm"], eps)
+        xs = tp.bcast(_gemma_rms_norm(x, layer["pre_mlp_norm"], eps))
+        h = [gelu_tanh(g.float()).to(x.dtype) * u
+             for g, u in zip(tp.col(xs, layer["w_gate"]), tp.col(xs, layer["w_up"]))]
+        x = x + _gemma_rms_norm(tp.row(h, layer["w_down"]), layer["post_mlp_norm"], eps)
+    return _gemma_rms_norm(x, params["final_norm"], eps)
+
+
+def _head_tp(params: Params, pooled: torch.Tensor) -> torch.Tensor:
+    """The ST head over sharded params: head_w1's column blocks (with the
+    matching blocks of the replicated head_b1), head_w2's row blocks, the
+    partials summed on the first device; f32 with TF32 off."""
+    tp = TP(params["head_w1"].devices)
+    hs = [x @ w.float() for x, w in zip(tp.bcast(pooled), params["head_w1"].pieces)]
+    hs = [h + b1 for h, b1 in zip(hs, tp.scatter(params["head_b1"].float().to(tp.first)))]
+    return tp.reduce([h @ w.float() for h, w in zip(hs, params["head_w2"].pieces)]) + \
+        params["head_b2"].float().to(tp.first)
+
+
 def encode_pooled(
     params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
     cfg: GemmaEncoderConfig, fused: str = "on", qlayers: list | None = None,
@@ -382,10 +453,53 @@ def encode_pooled(
                      fused_layers=fused_layers)
     m = attention_mask[:, :, None].float()
     pooled = (hidden.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1e-9)
-    if "head_w1" in params:
+    if "head_w1" in params and is_sharded(params):
+        with tf32_off():
+            pooled = _head_tp(params, pooled)
+    elif "head_w1" in params:
         with tf32_off():
             pooled = pooled @ params["head_w1"].float() + params["head_b1"].float()
             pooled = pooled @ params["head_w2"].float() + params["head_b2"].float()
     if cfg.normalize:
         pooled = pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
     return pooled
+
+
+# ---------------------------------------------------------------------------
+# sharding rules (dp over 'data', tp over 'shard'): the qwen tower's layout
+# with the sandwich norms, and the ST head column- then row-sharded
+# ---------------------------------------------------------------------------
+
+
+def param_sharding_rules(mesh, tp_axis: str = "shard") -> Params:
+    """The reference's spec tree (gemma.py:param_sharding_rules)."""
+    t = tp_axis
+    layer_rules = {
+        "attn_norm": (None,),
+        "post_attn_norm": (None,),
+        "wq": (None, t),
+        "wk": (None, t),
+        "wv": (None, t),
+        "wo": (t, None),
+        "q_norm": (None,),
+        "k_norm": (None,),
+        "pre_mlp_norm": (None,),
+        "post_mlp_norm": (None,),
+        "w_gate": (None, t),
+        "w_up": (None, t),
+        "w_down": (t, None),
+    }
+    return {
+        "embed": (t, None),
+        "final_norm": (None,),
+        "layers": layer_rules,
+        "head_w1": (None, t),
+        "head_b1": (None,),
+        "head_w2": (t, None),
+        "head_b2": (None,),
+    }
+
+
+def shard_params(params: Params, mesh, tp_axis: str = "shard") -> Params:
+    """Params placed on the mesh by the tp rules (fresh copies)."""
+    return place_params(params, param_sharding_rules(mesh, tp_axis), mesh)

@@ -20,6 +20,15 @@ projection as an exact int8 product with per-token activation scales.
 With `fused_layers=True` each sub-block whose shapes qualify
 (`_fused_layer_ok`) is one whole-layer call (`kernels/layer_int8.py`,
 kernels B3 and B4 on the card); the rest run the int8 op-chain.
+
+Tensor parallelism: `shard_params` places the params by the reference's
+rules (`param_sharding_rules`: q/k/v and gate/up column-sharded, wo and
+w_down row-sharded, the embedding vocab-sharded; `encoder/sharding.py`)
+and `forward` on such params runs `_forward_tp`: each shard multiplies
+the replicated activation by its column blocks, runs the attention core
+on its own heads where the kv heads divide over the shards (kernel B2
+forward and B7 backward once a shard), else on all heads gathered on the
+first device, and the row-sharded products are summed there.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ..kernels.layer_int8 import (
     rmsnorm_quant_plain,
 )
 from ..utils.device import resolve_device, tf32_off
+from .sharding import TP, is_sharded, place_params
 
 Params = dict[str, Any]
 
@@ -298,6 +308,10 @@ def forward(
     fused="plain" or CPU tensors)."""
     if fused not in ("on", "plain", "off"):
         raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
+    if is_sharded(params):
+        if qlayers is not None:
+            raise ValueError(_INT8_TP)
+        return _forward_tp(params, input_ids, attention_mask, cfg, fused)
     x = params["embed"][input_ids.long()].to(_DTYPES[cfg.dtype])
     positions = torch.clamp(torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1, min=0)
     mask = attention_mask.bool()
@@ -328,6 +342,44 @@ def forward(
     return _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
+def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                cfg: EncoderConfig, fused: str) -> torch.Tensor:
+    """`forward` over sharded params (`shard_params`, or a data row's view
+    of them, `sharding.row_params`), on the devices of their shards; the
+    hidden states come back on the first. The same attention dispatch as
+    the unsharded path (`_fused_ok` on the whole batch), with the core on
+    each shard's heads where the kv heads divide over the shards."""
+    tp = TP(params["embed"].devices)
+    ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
+    x = tp.embed(params["embed"], ids).to(_DTYPES[cfg.dtype])
+    positions = torch.clamp(torch.cumsum(am.to(torch.int32), dim=1) - 1, min=0)
+    rope_cs = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    b, s = ids.shape
+    use_fused = fused != "off" and _fused_ok(cfg, s, b)
+    plain = fused == "plain"
+    eps = cfg.rms_norm_eps
+    on = {d: (rope_cs[0].to(d), rope_cs[1].to(d), am.to(d), am.bool().to(d)) for d in set(tp.devices)}
+    for layer in params["layers"]:
+
+        def core(q, k, v, dev, div):
+            lcfg = cfg.replace(num_heads=cfg.num_heads // div, num_kv_heads=cfg.num_kv_heads // div)
+            norms = {"q_norm": layer["q_norm"].to(dev), "k_norm": layer["k_norm"].to(dev)}
+            cos, sin, am_d, mask_d = on[dev]
+            if use_fused:
+                return _attention_core(norms, q, k, v, am_d, (cos, sin), lcfg, plain).to(q.dtype)
+            return _attention_math(norms, q, k, v, mask_d, (cos, sin), lcfg)
+
+        xs = tp.bcast(_rms_norm(x, layer["attn_norm"], eps))
+        attn = tp.attention(tp.col(xs, layer["wq"]), tp.col(xs, layer["wk"]), tp.col(xs, layer["wv"]),
+                            cfg.num_kv_heads, core)
+        x = x + tp.row(attn, layer["wo"])
+        xs = tp.bcast(_rms_norm(x, layer["mlp_norm"], eps))
+        h = [F.silu(g.float()).to(x.dtype) * u
+             for g, u in zip(tp.col(xs, layer["w_gate"]), tp.col(xs, layer["w_up"]))]
+        x = x + tp.row(h, layer["w_down"])
+    return _rms_norm(x, params["final_norm"], eps)
+
+
 def encode_pooled(
     params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
     cfg: EncoderConfig, fused: str = "on", qlayers: list | None = None,
@@ -351,3 +403,38 @@ def encode_pooled(
     if cfg.normalize:
         pooled = pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
     return pooled
+
+
+# ---------------------------------------------------------------------------
+# sharding rules (dp over 'data', tp over 'shard')
+# ---------------------------------------------------------------------------
+
+_INT8_TP = ("int8 (w8a8) runs on one device or a dp-only mesh: the tp sharding rules have "
+            "no int8 form")
+
+
+def param_sharding_rules(mesh, tp_axis: str = "shard") -> Params:
+    """The reference's spec tree (model.py:param_sharding_rules): q/k/v and
+    gate/up column-sharded over the head / intermediate dimension, wo and
+    w_down row-sharded (one reduction a matmul pair), the embedding
+    vocab-sharded, the norms replicated."""
+    t = tp_axis
+    layer_rules = {
+        "attn_norm": (None,),
+        "wq": (None, t),
+        "wk": (None, t),
+        "wv": (None, t),
+        "wo": (t, None),
+        "q_norm": (None,),
+        "k_norm": (None,),
+        "mlp_norm": (None,),
+        "w_gate": (None, t),
+        "w_up": (None, t),
+        "w_down": (t, None),
+    }
+    return {"embed": (t, None), "final_norm": (None,), "layers": layer_rules}
+
+
+def shard_params(params: Params, mesh, tp_axis: str = "shard") -> Params:
+    """Params placed on the mesh by the tp rules (fresh copies)."""
+    return place_params(params, param_sharding_rules(mesh, tp_axis), mesh)

@@ -8,12 +8,13 @@ On the card: the Qwen3-Embedding-0.6B-class `EncoderConfig(max_seq_len=128)`
 with random weights, its attention through kernel B2. With device="cpu":
 the tiny config on the plain path.
 
-`dryrun_multichip(n_devices)` is the serving half of the reference's
-multi-device dry run (`__graft_entry__.dryrun_multichip`): the sharded
-speed path, the filtered and residual forms, live updates with compact
-and reclaim, the scheduler and the list-sharded IVF over a mesh, each
-held to the single-device engine. Its training step comes with the
-training half of ROADMAP A.10.
+`dryrun_multichip(n_devices)` is the reference's multi-device dry run
+(`__graft_entry__.dryrun_multichip`) on one process: the full training
+step (dp batches + tp params, a finite loss), then the sharded speed
+path, the filtered and residual forms, live updates with compact and
+reclaim, the scheduler and the list-sharded IVF over a mesh, each held
+to the single-device engine. The run across processes
+(`tests/test_multihost.py`, ROADMAP A.10 item 6) is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,12 +53,33 @@ def _mesh_devices(n_devices: int, device) -> list:
     return [dev] * n_devices
 
 
+def _train_item(mesh, state) -> float:
+    """The dry run's first item, the full training step (dp batches + tp
+    params): one step of `EncoderConfig.tiny()` from `state` (sharded on
+    `mesh`) on 2 pairs a data row of 16 tokens; returns the loss, raising
+    if it is not finite."""
+    from .core.config import TrainConfig
+    from .train.contrastive import make_train_step
+
+    enc_cfg = EncoderConfig.tiny()
+    tcfg = TrainConfig(batch_size=2 * mesh.shape["data"], seq_len=16)
+    tok = SimpleTokenizer(vocab_size=enc_cfg.vocab_size)
+    q = tok([f"query {i}" for i in range(tcfg.batch_size)], pad_to=tcfg.seq_len)
+    p = tok([f"positive {i}" for i in range(tcfg.batch_size)], pad_to=tcfg.seq_len)
+    _, loss = make_train_step(enc_cfg, tcfg, mesh=mesh)(
+        state, q.input_ids, q.attention_mask, p.input_ids, p.attention_mask)
+    loss = float(loss)
+    if not np.isfinite(loss):
+        raise AssertionError("training loss not finite")
+    return loss
+
+
 def dryrun_multichip(n_devices: int, device=None) -> str:
-    """The serving items of the reference's multi-device dry run over a
-    (data, shard) mesh of `n_devices` entries (`_mesh_devices`), each
-    held to the single-device engine; raises on a mismatch, prints and
-    returns one summary line."""
-    from .core.config import IndexConfig, MeshConfig
+    """The reference's multi-device dry run over a (data, shard) mesh of
+    `n_devices` entries (`_mesh_devices`): one dp + tp train step of the
+    tiny encoder, then the serving items, each held to the single-device
+    engine; raises on a mismatch, prints and returns one summary line."""
+    from .core.config import IndexConfig, MeshConfig, TrainConfig
     from .core.meshes import make_mesh
     from .index.flat import FlatIndex
     from .index.ivf import IVFIndex
@@ -65,12 +87,16 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     from .search.filters import SearchFilters
     from .search.metadata import CorpusMetadata
     from .serve.scheduler import BatchScheduler
+    from .train.contrastive import init_sharded_train_state
 
     devices = _mesh_devices(n_devices, device)
     dev = devices[0]
     data = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
     shard = n_devices // data
     mesh = make_mesh(MeshConfig(data=data, shard=shard), devices=devices)
+
+    # ---- the full training step: dp batches + tp params ----
+    loss = _train_item(mesh, init_sharded_train_state(EncoderConfig.tiny(), TrainConfig(), mesh))
 
     def same(got, want, what):
         if not np.array_equal(np.asarray(got), np.asarray(want)):
@@ -180,6 +206,7 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     if i_ei.shape != (8, 5) or not (i_ei[:, 0] >= 0).all() or eng_ivf.route_counts.get("ivf", 0) < 1:
         raise AssertionError("engine-integrated meshed IVF: bad result or route")
     line = (f"dryrun_multichip ok: mesh=({data}x{shard}) on {sorted({str(d) for d in devices})}, "
+            f"loss={loss:.4f}, "
             f"speed_path=sharded-maxima-scan+local-rescore (ids == single-dev), "
             f"filtered_speed_path=sharded-masked-scan (ids == single-dev), "
             f"residual_capacity_path=sharded-two-level-int8 (ids == single-dev), "

@@ -8,6 +8,7 @@ from .contrastive import (
     init_train_state,
     make_lora_train_step,
     make_train_step,
+    shard_train_state,
 )
 from .lora import lora_init, lora_merge, lora_num_params
 
@@ -21,4 +22,5 @@ __all__ = [
     "lora_num_params",
     "make_lora_train_step",
     "make_train_step",
+    "shard_train_state",
 ]

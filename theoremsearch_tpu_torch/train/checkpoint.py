@@ -5,6 +5,11 @@ One format, the reference's npz fallback: `step_{n}.npz` holding
 first and second moments, then the step; `contrastive.tree_leaves`).
 bf16 leaves are stored as their int16 bit pattern, as `FlatIndex` stores
 bf16 rows, since numpy has no bf16 of its own. There is no orbax.
+
+A state on a mesh (`contrastive.init_sharded_train_state`) is saved as
+its full logical leaves, the file a single-device run writes; restoring
+into a sharded template splits each leaf as the template's. So a
+checkpoint moves between a mesh and one device either way.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.config import EncoderConfig, TrainConfig
+from ..encoder.sharding import ShardedTensor
 from .contrastive import AdamWState, TrainState, tree_leaves, tree_unflatten
 
 
@@ -25,6 +31,8 @@ def _state_leaves(state: TrainState) -> list:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full("cpu")
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf, np.int32)
     t = leaf.detach().cpu()
@@ -63,8 +71,9 @@ def restore_checkpoint(
 ) -> TrainState | None:
     """Restore the given (or latest) step; None when nothing is saved.
 
-    `template` supplies the structure, dtypes and device (a LoRA adapter
-    state from init_lora_train_state, or any full state); without it the
+    `template` supplies the structure, dtypes and devices (a LoRA adapter
+    state from init_lora_train_state, any full state, or a sharded one,
+    whose leaves are split as its own); without it the
     default full-fine-tune state (`init_train_state`, on the card)."""
     from .contrastive import init_train_state
 
@@ -82,7 +91,7 @@ def restore_checkpoint(
     leaves = []
     for i, l in enumerate(tl):
         a = data[f"leaf_{i}"]
-        if not isinstance(l, torch.Tensor):
+        if not isinstance(l, (torch.Tensor, ShardedTensor)):
             leaves.append(int(a))
             continue
         t = torch.from_numpy(np.array(a))
@@ -91,7 +100,7 @@ def restore_checkpoint(
         if t.dtype != l.dtype or t.shape != l.shape:
             raise ValueError(f"checkpoint leaf {i}: {t.dtype} {tuple(t.shape)} does not fit "
                              f"the template's {l.dtype} {tuple(l.shape)}")
-        leaves.append(t.to(l.device))
+        leaves.append(l.split(t) if isinstance(l, ShardedTensor) else t.to(l.device))
     n = len(tree_leaves(template.params))
     params = tree_unflatten(template.params, leaves[:n])
     mu = tree_unflatten(template.opt_state.mu, leaves[n + 1 : 2 * n + 1])

@@ -22,6 +22,21 @@ Trees (params, LoRA adapters, moments) are nested dicts and lists of
 tensors, flattened in JAX's order (dict keys sorted, lists in order), so
 checkpoints and `train_state_from_jax` line up leaf for leaf with the
 reference's pytrees.
+
+On a (data, shard) mesh (`make_train_step(mesh=)`, ROADMAP A.10 items
+1-5) the params follow the tower's tp rules (`init_sharded_train_state`,
+`shard_train_state`; a sharded leaf is an `encoder.sharding.ShardedTensor`
+and its moments are split alike), the batch is split over `data`, each
+data row runs the tp forward over its shard devices, and the pooled
+embeddings of every row are gathered on the mesh's first device, where
+the InfoNCE loss is taken over the global batch as the reference's GSPMD
+program takes it. Every copy between devices is a differentiable `.to`,
+so autograd builds the backward collectives: the gradient sum over
+`data` and over the shards that read a replicated leaf. Two orders of
+leaves stay apart: `tree_leaves` yields logical leaves in JAX's order
+(checkpoints, `train_state_from_jax`), `piece_leaves` their tensors, a
+sharded leaf's pieces in shard order (autograd and the optimizer). The
+`torch.distributed` form across processes (item 6) is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,9 +50,8 @@ import torch.nn.functional as F
 from ..core.config import EncoderConfig, TrainConfig
 from ..encoder.families import family_module
 from ..encoder.model import Params, params_from_jax
+from ..encoder.sharding import ShardedTensor, row_params
 from ..utils.device import resolve_device, tf32_off
-
-_MULTI_GPU = "multi-GPU training (dp + tp over a mesh) is not ported yet: ROADMAP A.10"
 
 
 def tree_leaves(tree) -> list:
@@ -47,6 +61,30 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for x in tree for leaf in tree_leaves(x)]
     return [tree]
+
+
+def piece_leaves(tree) -> list:
+    """The tensors of `tree_leaves(tree)`, each ShardedTensor replaced by
+    its pieces in shard order: what autograd and the optimizer iterate."""
+    out = []
+    for leaf in tree_leaves(tree):
+        out.extend(leaf.pieces if isinstance(leaf, ShardedTensor) else [leaf])
+    return out
+
+
+def logical_grads(params, grads: list) -> list:
+    """Per-piece gradients (in `piece_leaves(params)` order) joined into one
+    tensor a logical leaf (in `tree_leaves` order), a sharded leaf's pieces
+    concatenated on its first shard's device."""
+    it = iter(grads)
+    out = []
+    for leaf in tree_leaves(params):
+        if isinstance(leaf, ShardedTensor):
+            parts = [next(it) for _ in leaf.pieces]
+            out.append(torch.cat([g.to(leaf.device) for g in parts], dim=leaf.dim))
+        else:
+            out.append(next(it))
+    return out
 
 
 def tree_unflatten(template, leaves):
@@ -112,7 +150,11 @@ class AdamW:
     another function (another clip rule, lerp moments, f32 constants).
 
     `update` changes the params and the moments in place; the multi-tensor
-    `torch._foreach_*` ops keep it to a few launches per dtype."""
+    `torch._foreach_*` ops keep it to a few launches per dtype and device.
+    It takes the tensors of a tree (`piece_leaves`): a sharded leaf's
+    pieces are updated where they live, each by the same elementwise rule,
+    and the clip reads the norm of the whole gradient tree, every piece's
+    sum of squares added before the square root."""
 
     def __init__(self, learning_rate: float, weight_decay: float, max_norm: float = 1.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -120,7 +162,8 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params) -> AdamWState:
-        zeros = lambda t: torch.zeros_like(t)  # noqa: E731
+        def zeros(t):
+            return t.map(torch.zeros_like) if isinstance(t, ShardedTensor) else torch.zeros_like(t)
         return AdamWState(0, tree_unflatten(params, [zeros(t) for t in tree_leaves(params)]),
                           tree_unflatten(params, [zeros(t) for t in tree_leaves(params)]))
 
@@ -134,25 +177,30 @@ class AdamW:
     def global_norm(self, grads: list) -> torch.Tensor:
         """optax.global_norm: each leaf's sum of squares in its own dtype,
         added in leaf order (the first leaf's bf16 sum promoted to f32 at
-        the first f32 leaf, as Python's `sum` over JAX arrays does), sqrt."""
-        sums = [(g * g).sum().float() for g in grads]
+        the first f32 leaf, as Python's `sum` over JAX arrays does), sqrt. A
+        sharded leaf adds its pieces' sums, each in the leaf's dtype, in f32
+        (they round apart from the whole leaf's sum). On the first
+        gradient's device."""
+        dev = grads[0].device
+        sums = [(g * g).sum().float().to(dev) for g in grads]
         return torch.stack(sums).cumsum(0)[-1].sqrt()
 
     @torch.no_grad()
     def update(self, grads: list, state: AdamWState, params: list) -> AdamWState:
-        """One step on matching leaf lists (tree_leaves order); params and
-        the moments change in place. Returns the new state."""
+        """One step on matching tensor lists (`piece_leaves` order); params
+        and the moments change in place. Returns the new state."""
         count = state.count + 1
-        mus, nus = tree_leaves(state.mu), tree_leaves(state.nu)
-        norm = self.global_norm(grads)
-        clip = ~(norm < self.max_norm)   # optax: select(norm < max_norm, g, clipped)
+        mus, nus = piece_leaves(state.mu), piece_leaves(state.nu)
+        norm_all = self.global_norm(grads)
         bc1 = self._bias_correction(self.b1, count)
         bc2 = self._bias_correction(self.b2, count)
-        groups: dict[torch.dtype, list[int]] = {}
+        groups: dict[tuple, list[int]] = {}
         for i, p in enumerate(params):
-            groups.setdefault(p.dtype, []).append(i)
-        for dtype, idx in groups.items():
+            groups.setdefault((p.dtype, p.device), []).append(i)
+        for (dtype, dev), idx in groups.items():
             r = lambda x: _round_to(x, dtype)  # noqa: E731
+            norm = norm_all.to(dev)
+            clip = ~(norm < self.max_norm)   # optax: select(norm < max_norm, g, clipped)
             g = [grads[i].to(dtype) for i in idx]
             p = [params[i] for i in idx]
             mu = [mus[i] for i in idx]
@@ -196,8 +244,35 @@ def init_train_state(enc_cfg: EncoderConfig, train_cfg: TrainConfig,
     return TrainState(params, make_optimizer(train_cfg).init(params), 0)
 
 
-def init_sharded_train_state(enc_cfg, train_cfg, mesh, key=None) -> TrainState:
-    raise NotImplementedError(_MULTI_GPU)
+def init_sharded_train_state(enc_cfg: EncoderConfig, train_cfg: TrainConfig, mesh,
+                             generator: torch.Generator | None = None) -> TrainState:
+    """The reference's init_sharded_train_state: the tower's random params
+    (drawn on the mesh's first device, seeded by train_cfg.seed unless a
+    generator is given) placed by its tp rules (`shard_params`), and zero
+    moments split as their params."""
+    device = mesh.first_device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
+    mod = family_module(enc_cfg)
+    params = mod.shard_params(mod.init_params(enc_cfg, generator, device=device), mesh)
+    return TrainState(params, make_optimizer(train_cfg).init(params), 0)
+
+
+def shard_train_state(state: TrainState, mesh, enc_cfg: EncoderConfig) -> TrainState:
+    """A full-params state (`init_train_state`, `train_state_from_jax`)
+    placed on the mesh: the params by the tower's tp rules, each moment
+    split as its param (a replicated one copied to the mesh's first
+    device), the count and step kept. The input state is left as it was."""
+    params = family_module(enc_cfg).shard_params(state.params, mesh)
+    first = mesh.first_device
+
+    def like(tree):
+        return tree_unflatten(params, [
+            p.split(m) if isinstance(p, ShardedTensor) else m.detach().to(first, copy=True)
+            for p, m in zip(tree_leaves(params), tree_leaves(tree))])
+
+    opt = state.opt_state
+    return TrainState(params, AdamWState(opt.count, like(opt.mu), like(opt.nu)), state.step)
 
 
 def train_state_from_jax(np_state, device=None) -> TrainState:
@@ -225,14 +300,24 @@ def info_nce_loss(
     fused: str = "on",
     n_ids: torch.Tensor | None = None,
     n_mask: torch.Tensor | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """In-batch-negatives InfoNCE, symmetric; optional explicit hard
     negatives (n_ids/n_mask, (M, S)) are appended as extra columns of the
     query -> positive direction, shared by every query. The f32 logits
-    product runs with TF32 off."""
+    product runs with TF32 off.
+
+    mesh: the batch is split over its data axis (`_encode_rows`) and the
+    loss taken over the gathered global batch on the first device; the
+    negatives, replicated in the reference, are encoded once, by the first
+    data row."""
     encode_pooled = family_module(enc_cfg).encode_pooled
-    q = encode_pooled(params, q_ids, q_mask, enc_cfg, fused=fused)   # (B, D) f32, normalized
-    p = encode_pooled(params, p_ids, p_mask, enc_cfg, fused=fused)
+    if mesh is None:
+        q = encode_pooled(params, q_ids, q_mask, enc_cfg, fused=fused)   # (B, D) f32, normalized
+        p = encode_pooled(params, p_ids, p_mask, enc_cfg, fused=fused)
+    else:
+        q = _encode_rows(params, q_ids, q_mask, enc_cfg, fused, mesh)
+        p = _encode_rows(params, p_ids, p_mask, enc_cfg, fused, mesh)
     labels = torch.arange(q.shape[0], device=q.device)
     with tf32_off():
         logits = (q @ p.T) / temperature
@@ -243,6 +328,24 @@ def info_nce_loss(
     return 0.5 * (F.cross_entropy(logits_qp, labels) + F.cross_entropy(logits.T, labels))
 
 
+def _encode_rows(params, ids: torch.Tensor, mask: torch.Tensor, enc_cfg, fused: str,
+                 mesh) -> torch.Tensor:
+    """Pooled embeddings of a batch split over the mesh's data axis: row r
+    encodes its slice with the params as it reads them
+    (`sharding.row_params`: tp over its shard devices for sharded params),
+    and the rows are gathered in order on the first device."""
+    n = mesh.shape[mesh.axis_names[0]]
+    if ids.shape[0] % n:
+        raise ValueError(f"a batch of {ids.shape[0]} does not split over the {n}-way data axis")
+    encode_pooled = family_module(enc_cfg).encode_pooled
+    outs = []
+    for r, (i, m) in enumerate(zip(torch.tensor_split(ids, n), torch.tensor_split(mask, n))):
+        dev = mesh.devices[r, 0]
+        outs.append(encode_pooled(row_params(params, mesh, r), i.to(dev), m.to(dev), enc_cfg,
+                                  fused=fused).to(mesh.first_device))
+    return torch.cat(outs)
+
+
 def _on(x, device) -> torch.Tensor | None:
     """A token array (numpy or tensor) on `device`."""
     if x is None:
@@ -250,16 +353,14 @@ def _on(x, device) -> torch.Tensor | None:
     return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).to(device)
 
 
-def _check_step_args(mesh, fused) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_GPU)
+def _check_fused(fused) -> None:
     if fused not in ("on", "plain", "off"):
         raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
 
 
 def _grad_step(opt: AdamW, state: TrainState, loss_fn) -> tuple[TrainState, torch.Tensor]:
     """loss and gradients of state.params, then the in-place update."""
-    leaves = tree_leaves(state.params)
+    leaves = piece_leaves(state.params)
     for t in leaves:
         t.requires_grad_(True)
     try:
@@ -290,16 +391,24 @@ def make_train_step(
     CPU tensors;
     "plain" = the plain versions on any device; "off" = the reference's
     composition, through autograd. The port's default is "on"; the
-    reference's is "off", chosen for its TPU. A mesh raises: multi-GPU
-    training is ROADMAP A.10."""
-    _check_step_args(mesh, fused)
+    reference's is "off", chosen for its TPU (under a mesh the reference
+    keeps XLA too: its Pallas kernels are opaque to GSPMD).
+
+    mesh: the dp + tp step. `state` comes from `init_sharded_train_state`
+    or `shard_train_state` (or holds full params on the mesh's first
+    device: data parallel alone); the batch (a multiple of the data axis)
+    is split over `data`, explicit negatives replicated; every piece is
+    updated in place. With fused "on" the qwen core runs kernel B2 forward
+    and B7 backward once a shard a layer (head-local) or on the gathered
+    heads."""
+    _check_fused(fused)
     opt = make_optimizer(train_cfg)
 
     def step(state: TrainState, q_ids, q_mask, p_ids, p_mask, n_ids=None, n_mask=None):
-        dev = state.params["embed"].device
+        dev = mesh.first_device if mesh is not None else state.params["embed"].device
         batch = [_on(x, dev) for x in (q_ids, q_mask, p_ids, p_mask, n_ids, n_mask)]
         return _grad_step(opt, state, lambda params: info_nce_loss(
-            params, *batch[:4], enc_cfg, train_cfg.temperature, fused, *batch[4:]))
+            params, *batch[:4], enc_cfg, train_cfg.temperature, fused, *batch[4:], mesh=mesh))
 
     return step
 
@@ -314,20 +423,25 @@ def make_lora_train_step(
     -> (state, loss), where state.params is the LoRA adapter tree
     (train/lora.py) and base_params stay frozen: gradients flow only to
     the adapters, through the merged encoder built inside the step. The
-    adapters and their moments are updated in place."""
+    adapters and their moments are updated in place.
+
+    mesh: as `make_train_step`'s; the adapters are replicated (one leaf on
+    the mesh's first device, `init_lora_train_state` over the base params
+    placed there or sharded) and the base may be full or sharded
+    (`lora_merge` splits each delta as its matrix)."""
     from .lora import lora_merge
 
-    _check_step_args(mesh, fused)
+    _check_fused(fused)
     opt = make_optimizer(train_cfg)
     alpha = train_cfg.lora_alpha
 
     def step(state: TrainState, base_params, q_ids, q_mask, p_ids, p_mask,
              n_ids=None, n_mask=None):
-        dev = base_params["embed"].device
+        dev = mesh.first_device if mesh is not None else base_params["embed"].device
         batch = [_on(x, dev) for x in (q_ids, q_mask, p_ids, p_mask, n_ids, n_mask)]
         return _grad_step(opt, state, lambda lora: info_nce_loss(
             lora_merge(base_params, lora, alpha), *batch[:4], enc_cfg, train_cfg.temperature,
-            fused, *batch[4:]))
+            fused, *batch[4:], mesh=mesh))
 
     return step
 
@@ -335,8 +449,9 @@ def make_lora_train_step(
 def init_lora_train_state(
     params: Params, train_cfg: TrainConfig, generator: torch.Generator | None = None,
 ) -> TrainState:
-    """Adapter-only TrainState over frozen base params, on their device:
-    moments exist only for the LoRA leaves."""
+    """Adapter-only TrainState over frozen base params, on their device (a
+    sharded base's first shard's: the mesh's first device): moments exist
+    only for the LoRA leaves."""
     from .lora import DEFAULT_TARGETS, lora_init
 
     dev = params["embed"].device

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..encoder.model import Params, params_from_jax
+from ..encoder.sharding import ShardedTensor
 from ..utils.device import tf32_off
 
 DEFAULT_TARGETS = ("wq", "wv")
@@ -65,7 +66,9 @@ def lora_from_jax(np_lora, device=None) -> LoraParams:
 
 def lora_merge(params: Params, lora: LoraParams, alpha: float) -> Params:
     """Effective params: base + (alpha/rank) * A@B on each adapted matrix,
-    in the base dtype (the f32 product with TF32 off)."""
+    in the base dtype (the f32 product with TF32 off). A sharded base
+    matrix (`encoder/sharding.py`) gets the delta split by its own rule,
+    each block added to its piece on that piece's device."""
     new_layers = []
     for layer, entry in zip(params["layers"], lora):
         nl = dict(layer)
@@ -73,7 +76,13 @@ def lora_merge(params: Params, lora: LoraParams, alpha: float) -> Params:
             rank = ab["a"].shape[1]
             with tf32_off():
                 delta = (ab["a"] @ ab["b"]) * (alpha / rank)
-            nl[t] = (layer[t].float() + delta).to(layer[t].dtype)
+            w = layer[t]
+            if isinstance(w, ShardedTensor):
+                blocks = torch.tensor_split(delta, len(w.pieces), dim=w.dim)
+                nl[t] = ShardedTensor([(p.float() + d.to(p.device)).to(p.dtype)
+                                       for p, d in zip(w.pieces, blocks)], w.dim, w.mesh)
+            else:
+                nl[t] = (w.float() + delta).to(w.dtype)
         new_layers.append(nl)
     return {**params, "layers": new_layers}
 
