@@ -267,6 +267,34 @@ exits non-zero (there is no CPU path):
              --calibrate` (B6, nprobe holding 0.99); `train --model-dir
              --catalog` (4 steps of 64 x 64, B2 and B7 56 times a step, a
              checkpoint); `eval` and `compare-embedders` on the checkpoint.
+24. multiproc_gloo / multiproc_nccl  the run across processes
+             (core/distributed.py), each process a
+             tests/torch_multihost_worker.py on this card, after the
+             parent empties its cache. multiproc_gloo: two processes over
+             Gloo (NCCL refuses two ranks on one card), both on cuda:0, two
+             mesh entries each: the 1M x 1024 speed path at B=1024 over
+             4 shards (2 a process) and the exact route (B5) at B=512, each
+             bit-equal across the processes and to a one-process
+             [cuda:0] * 4 engine, min recall@10 over 5 draws >= 0.99, B1
+             and B5 2 a batch a process; 10,240 adds, an update, 1,100
+             deletes and compact(reclaim=True), identical across the
+             processes; the list-sharded IVF searcher (B6) at B=8 on a
+             262,144 x 1024 clustered corpus built once by process 0,
+             equal to the one-process searcher; an int8 dp encode of 4,096
+             slogans (qwen, B3/B4) at cosine >= 0.9999 to one device;
+             mesh_train's step on (data 2, shard 2), one data row a
+             process, 3 steps: losses identical across the processes and
+             within 1e-3 (first) / 5e-3 (all) of mesh_train's, params
+             bit-identical, B2 and B7 112 a step a process; against the
+             one-process (2, 2) mesh process 0 runs itself, the first
+             loss equal and the losses, gradient norms and final params
+             within MP_TRAIN_LIMITS; the staged bf16 Gloo sum bit-equal
+             to the f32 sum of the gathered tensors; step ms, the Gloo
+             all-reduce's ms by stage and staged bytes, peak memory.
+             multiproc_nccl: one process over NCCL (world 1) on four
+             entries: the speed search and one train step bit-equal to the
+             one-process mesh, and a speed batch under
+             utils/profiling.trace whose Chrome trace names B1's kernel.
 13. times    (emitted last) the kernel / plain / bound times above, B7 and
              B2 at the training shape (64, 64, 16, 8, 128), the train step
              "on" and "off", and the script's total seconds.
@@ -1307,6 +1335,20 @@ MESH_TRAIN_STEPS = 6
 MESH_TRAIN_PAIRS = (64, 32)
 
 
+def train_tokens(rng, vocab_size: int, pairs: int, seq: int, steps: int) -> tuple:
+    """Phase 18's token batches, (steps, pairs, seq) int32 each: one random
+    template, with each pair's own identity tokens at positions 1.. of the
+    query and 2.. of the positive (drawn from `rng`, which goes on)."""
+    template = rng.integers(3, vocab_size, seq).astype(np.int32)
+    ident = max(2, seq // 16)
+    tq = np.broadcast_to(template, (steps, pairs, seq)).copy()
+    tp = tq.copy()
+    id_toks = rng.integers(3, vocab_size, (steps, pairs, ident))
+    tq[:, :, 1 : 1 + ident] = id_toks
+    tp[:, :, 2 : 2 + ident] = id_toks
+    return tq, tp
+
+
 def tp_f32_distance(mod, params, cfg, mesh, texts, dev) -> float:
     """The same tower in f32 throughout (params, activations, the reference
     composition, TF32 off) on `texts` padded to 64 tokens, through its tp
@@ -1433,7 +1475,8 @@ def mesh_train(dev, gpu: str, counters: dict, path_start, path_end, *, tq, tp, t
     mesh steps with finite losses, each within 2e-2 of the single-device
     trajectory on the same batches (tq[i], tp[i]); the launch counts
     exact. The global batch is `MESH_TRAIN_PAIRS[0]` pairs, or the next
-    if the step runs out of memory. Returns the window."""
+    if the step runs out of memory. Returns the window, the mesh losses
+    and the batch (the multi-process train step is held to them)."""
     import gc
 
     import torch
@@ -1530,7 +1573,231 @@ def mesh_train(dev, gpu: str, counters: dict, path_start, path_end, *, tq, tp, t
     if not (win["qknorm_rope_attention"] == steps * want
             and win["qknorm_rope_attention_bwd"] == steps * want):
         raise AssertionError(f"mesh_train: B2 / B7 not once a shard a layer: {per_step}, want {want}")
-    return win
+    return {"window": win, "losses": losses_mesh, "batch_pairs": nb}
+
+
+# the multiproc phases' sizes: the worker's size arguments, and the
+# encoder configs by the worker's names ("qwen" is MESH_TRAIN_CFG's tower)
+MP_SEARCH = ["--n", "1048576", "--d", "1024", "--batch", "1024", "--k", "10", "--row-block", "0",
+             "--rescore-factor", "4"]
+MP_MORE = ["--recall-draws", "5", "--exact-batch", "512", "--time-iters", "5",
+           "--live-adds", "10240", "--live-deletes", "1100", "--ivf-rows", "262144",
+           "--ivf-nlist", "1024", "--ivf-nprobe", "32", "--ivf-batch", "8",
+           "--encode-config", "qwen512", "--encode-seed", "1", "--encode-quant", "int8",
+           "--encode-batch", "512", "--encode-buckets", "64,128,256,512"]
+MP_TRAIN = ["--train-config", "qwen", "--train-seed", "71", "--lr", "2e-5", "--temperature", "0.05",
+            "--fused", "on"]
+MP_TRAIN_STEPS = 3
+MP_TIMEOUT_S = 420
+# the Gloo train step against the one-process (2, 2) mesh process 0 runs
+# itself (`train_readings`): the largest loss difference, the relative
+# difference of the gradient norms the updates read (the first step's,
+# and the largest), and the final params' distance over the distance the
+# one-process params moved. Set from tools/torch_mp_train_probe.py on an
+# H100 (PERF.md, PR 14), readings in that order: the sound run 1.22e-5,
+# 1.07e-5, 0.0146, 0.0711; twice the sum 3.07e-5, 1.0, 1.0, 0.135 (AdamW
+# does not see a gradient's scale); no sum 9.26e-4, 0.460, 0.460, 0.748.
+MP_TRAIN_LIMITS = {"max_loss_delta": 1e-4, "first_grad_norm_rel": 1e-3, "max_grad_norm_rel": 0.1,
+                   "param_distance_rel": 0.25}
+
+
+def mp_worker():
+    """tests/torch_multihost_worker.py of this checkout, as a module (its
+    `run_workers` starts the processes and waits for them)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_multihost_worker
+
+    return torch_multihost_worker
+
+
+def multiproc_phases(dev, gpu: str, *, texts, tq, tp, mesh_losses) -> None:
+    """Phases multiproc_gloo and multiproc_nccl: the port's run across
+    processes (`core/distributed.py`), each process a
+    tests/torch_multihost_worker.py on this card.
+
+    multiproc_gloo: two processes over Gloo (NCCL refuses two ranks on one
+    card), both on cuda:0, each holding two mesh entries, so CUDA tensors
+    cross the boundary through host memory. The 1,048,576 x 1024 speed
+    path at B=1024 over the (1, 4) mesh (2 shards a process) and the exact
+    route (B5) at B=512, each bit-equal across the processes and to a
+    one-process [cuda:0] * 4 engine, min recall@10 over 5 draws >= 0.99,
+    B1 and B5 exactly 2 a batch in each process; 10,240 adds, an update,
+    1,100 deletes and compact(reclaim=True), identical across the
+    processes; the list-sharded IVF searcher at B=8 on a 262,144 x 1024
+    clustered corpus (built once by process 0, loaded by both), equal to
+    the one-process sharded searcher (B6 2 a batch); an int8 dp encode of
+    4,096 slogans with the full-width qwen tower over a (4, 1) mesh, pooled
+    cosine >= 0.9999 against one device (B3, B4); the dp + tp train step
+    of mesh_train (qwen, vocab 151,936, its batch and seed) on (data 2,
+    shard 2), one data row a process: losses identical across the
+    processes, the first within 1e-3 of mesh_train's and all within 5e-3,
+    params bit-identical, B2 and B7 112 a step in each process; against
+    the one-process (2, 2) mesh that process 0 runs itself on the same
+    batches, the first loss equal and the losses, the gradient norms the
+    updates read and the final params within `MP_TRAIN_LIMITS`; in each
+    process the Gloo sum of a bf16 CUDA tensor of the gradients' size,
+    staged through the host, bit-equal to the f32 sum of the gathered
+    tensors cast back.
+
+    multiproc_nccl: one process over NCCL (world 1: the backend a
+    multi-card deployment uses, on CUDA tensors) on four entries of
+    cuda:0: the speed search and one train step bit-equal to the
+    one-process mesh, and one speed-path batch under
+    `utils/profiling.trace`, whose Chrome trace must name B1's kernel."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        with open(os.path.join(work, "texts.json"), "w") as f:
+            json.dump(list(texts), f)
+        np.savez(os.path.join(work, "batch.npz"), q=np.ascontiguousarray(tq),
+                 p=np.ascontiguousarray(tp))
+        train = [*MP_TRAIN, "--train-mesh", "2,2", "--train-batch", os.path.join(work, "batch.npz")]
+        held = torch.cuda.memory_allocated(dev) / 2**30
+        t0 = time.perf_counter()
+        W = mp_worker()
+        gloo = W.run_workers([
+            ["--rank", str(r), "--world", "2", "--init", f"file://{work}/rendezvous_gloo",
+             "--device", str(dev), "--backend", "gloo", "--local", "2", "--workdir", work,
+             "--parts", "search,live,ivf,encode,train", *MP_SEARCH, *MP_MORE,
+             "--encode-texts", os.path.join(work, "texts.json"), *train,
+             "--train-steps", str(MP_TRAIN_STEPS), "--check-one-process", "search,ivf,train"]
+            for r in range(2)], work, MP_TIMEOUT_S, name="gloo")
+        gloo_s = time.perf_counter() - t0
+        mp_gloo_gates(gloo, mesh_losses, gpu, gloo_s, held, n_texts=len(texts))
+        t0 = time.perf_counter()
+        (nccl,) = W.run_workers([
+            ["--rank", "0", "--world", "1", "--init", f"file://{work}/rendezvous_nccl",
+             "--device", str(dev), "--backend", "nccl", "--local", "4", "--workdir", work,
+             "--parts", "search,train", *MP_SEARCH, *train, "--train-steps", "1",
+             "--trace-dir", os.path.join(work, "trace"), "--check-one-process", "search,train"]],
+            work, MP_TIMEOUT_S, name="nccl")
+        mp_nccl_gates(nccl, gpu, time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _same(results: list, part: str, *keys) -> bool:
+    return all(r[part][k] == results[0][part][k] for r in results for k in keys)
+
+
+def _flag(argv: list, name: str) -> int:
+    return int(argv[argv.index(name) + 1])
+
+
+def _train_layers() -> int:
+    from theoremsearch_tpu_torch.core.config import EncoderConfig
+
+    return EncoderConfig(**MESH_TRAIN_CFG).num_layers
+
+
+def mp_gloo_gates(res: list, mesh_losses: list, gpu: str, seconds: float, held_gb: float,
+                  n_texts: int) -> None:
+    """Emit multiproc_gloo's line and raise on any gate it misses."""
+    steps = MP_TRAIN_STEPS
+    s, lv, iv, en, tr = ([r[p] for r in res] for p in ("search", "live", "ivf", "encode", "train"))
+    b2_want = steps * 1 * 2 * 2 * _train_layers()   # steps x data rows x shards x (q, p) x layers
+    per_rank = [{
+        "rank": r["rank"], "search_launches": s_["launches"], "exact_launches": s_["exact"]["launches"],
+        "live_launches": l_["launches"], "ivf_launches": i_["launches"],
+        "encode_launches": e_["launches"], "train_launches": t_["launches"],
+        "recall": s_["recall"], "batch_ms": s_["batch_ms"],
+        "search_gather_ms": s_["collectives"]["all_gather"]["s"] * 1e3,
+        "encode_s": e_["encode_s"], "encode_cos_vs_one_device": e_["min_cos_vs_one_device"],
+        "train_losses": t_["losses"], "step_ms": [x * 1e3 for x in t_["step_s"]],
+        "all_reduce_ms": [c["all_reduce"]["s"] * 1e3 for c in t_["collectives_a_step"]],
+        "all_reduce_staged_gb": [c["all_reduce"]["staged_bytes"] / 2**30 for c in t_["collectives_a_step"]],
+        "all_reduce_stages_ms": [{k: c["all_reduce"].get(k, 0.0) * 1e3
+                                  for k in ("pin_s", "to_host_s", "to_device_s")}
+                                 for c in t_["collectives_a_step"]],
+        "train_gather_ms": [c["all_gather"]["s"] * 1e3 for c in t_["collectives_a_step"]],
+        "staged_sum": t_["staged_sum"],
+        "peak_mem_gb": t_.get("peak_mem_gb"), "peak_mem_gb_part": t_.get("peak_mem_gb_part"),
+        "part_s": {p: r[p]["part_s"] for p in ("search", "live", "ivf", "encode", "train")},
+    } for r, s_, l_, i_, e_, t_ in zip(res, s, lv, iv, en, tr)]
+    losses = tr[0]["losses"]
+    vs_one = tr[0]["vs_one_process"]
+    d_first = abs(losses[0] - mesh_losses[0])
+    d_all = max(abs(a_ - b_) for a_, b_ in zip(losses, mesh_losses))
+    gates = {
+        "world_2_gloo_on_cuda": all(r["world"] == 2 and r["backend"] == "gloo" and
+                                    r["device"].startswith("cuda") for r in res),
+        "search_layout": all(x["layout"] == "shard" and x["n_global_shards"] == 4 and
+                             x["sharded_speed_ok"] for x in s),
+        "search_equal_across_processes": _same(res, "search", "ids", "scores"),
+        "search_equal_one_process": all(x["equal_one_process"] for x in s),
+        "recall_min_0.99": min(min(x["recall"]) for x in s) >= 0.99,
+        "b1_2_a_batch": all(x["launches"]["mips_g_scan"] == 2 for x in s),
+        "exact_equal": all(x["exact"]["ids"] == s[0]["exact"]["ids"]
+                           and x["exact"]["scores"] == s[0]["exact"]["scores"]
+                           and x["exact"]["equal_one_process"] for x in s),
+        "b5_2_a_batch": all(x["exact"]["launches"]["mips_topk"] == 2 for x in s),
+        "live_equal_across_processes": _same(res, "live", "live_ids", "live_scores",
+                                             "post_reclaim_ids", "post_reclaim_scores",
+                                             "folded", "num_live"),
+        "live_deletes": all(x["deleted"] == _flag(MP_MORE, "--live-deletes")
+                            and not x["deleted_returned"] for x in lv),
+        "ivf_equal": _same(res, "ivf", "ids", "scores") and all(x["equal_one_process"] for x in iv),
+        "b6_2_a_batch": all(x["launches"]["ivf_probe_scores"] == 2 for x in iv),
+        "encode_equal_across_processes": _same(res, "encode", "sha256"),
+        "encode_cos_0.9999": all(x["finite"] and x["shape"][0] == n_texts
+                                 and x["min_cos_vs_one_device"] >= 0.9999 for x in en),
+        "b3_b4_launched": all(x["launches"]["fused_attn_int8_layer"] > 0
+                              and x["launches"]["fused_mlp_int8_layer"] > 0 for x in en),
+        "train_losses_equal_across_processes": _same(res, "train", "losses"),
+        "train_params_bit_identical": _same(res, "train", "params_sha256"),
+        "train_first_loss_1e-3": d_first <= 1e-3,
+        "train_losses_5e-3": d_all <= 5e-3 and all(np.isfinite(losses)),
+        "b2_b7_112_a_step": all(x["launches"]["qknorm_rope_attention"] == b2_want
+                                and x["launches"]["qknorm_rope_attention_bwd"] == b2_want for x in tr),
+        "train_first_loss_equal_one_process": vs_one["first_loss_equal"],
+        "train_within_limits_of_one_process": all(vs_one[k] <= lim
+                                                  for k, lim in MP_TRAIN_LIMITS.items()),
+        "staged_bf16_sum_bit_equal": all(x["staged_sum"]["bit_equal"]
+                                         and x["staged_sum"]["staged_bytes"] > 0 for x in tr),
+    }
+    emit("multiproc_gloo", processes=2, backend="gloo", entries_a_process=2, gpu=gpu,
+         seconds=round(seconds, 3), parent_held_gb=held_gb,
+         search_shape=[_flag(MP_SEARCH, f) for f in ("--n", "--d", "--batch")],
+         train_losses=losses, mesh_train_losses=list(mesh_losses[:steps]),
+         train_first_loss_delta=d_first, train_max_loss_delta=d_all,
+         train_one_process=tr[0]["one_process"], train_vs_one_process=vs_one,
+         train_limits=MP_TRAIN_LIMITS, per_rank=per_rank, gates=gates)
+    missed = [k for k, ok in gates.items() if not ok]
+    if missed:
+        raise AssertionError(f"multiproc_gloo: gates missed: {missed}")
+
+
+def mp_nccl_gates(r: dict, gpu: str, seconds: float) -> None:
+    """Emit multiproc_nccl's line and raise on any gate it misses."""
+    s, t = r["search"], r["train"]
+    gates = {
+        "world_1_nccl": r["world"] == 1 and r["backend"] == "nccl",
+        "search_through_nccl": s["collectives"]["all_gather"]["calls"] == 1
+                               and s["layout"] == "local" and s["sharded_speed_ok"],
+        "search_equal_one_process": s["equal_one_process"],
+        "b1_4_a_batch": s["launches"]["mips_g_scan"] == 4,
+        "b2_b7_224_a_step": t["launches"]["qknorm_rope_attention"] == 8 * _train_layers()
+                            and t["launches"]["qknorm_rope_attention_bwd"] == 8 * _train_layers(),
+        "train_through_nccl": all(c["all_reduce"]["calls"] >= 1 and c["all_gather"]["calls"] == 2
+                                  for c in t["collectives_a_step"]),
+        "train_equal_one_process": t["equal_one_process"] and all(np.isfinite(t["losses"])),
+        "trace_names_b1": any("mips_g_scan_kernel" in k for k in s["trace"]["kernels"]),
+    }
+    emit("multiproc_nccl", processes=1, backend="nccl", entries=4, gpu=gpu,
+         seconds=round(seconds, 3), search_launches=s["launches"], batch_ms=s.get("batch_ms"),
+         search_collectives=s["collectives"], train_losses=t["losses"],
+         train_one_process_losses=t["one_process"]["losses"], train_vs_one_process=t["vs_one_process"],
+         step_ms=[x * 1e3 for x in t["step_s"]], train_collectives=t["collectives_a_step"],
+         train_launches=t["launches"], peak_mem_gb=t.get("peak_mem_gb"),
+         trace_kernels=s["trace"]["kernels"], part_s={p: r[p]["part_s"] for p in ("search", "train")},
+         gates=gates)
+    missed = [k for k, ok in gates.items() if not ok]
+    if missed:
+        raise AssertionError(f"multiproc_nccl: gates missed: {missed}")
 
 
 def main(argv=None) -> int:
@@ -3373,13 +3640,7 @@ def main(argv=None) -> int:
     tr_cfg = EncoderConfig(max_seq_len=64)
     TB, TS, TSTEPS = 64, 64, 20
     rng_t = np.random.default_rng(0)
-    template = rng_t.integers(3, tr_cfg.vocab_size, TS).astype(np.int32)
-    ident = max(2, TS // 16)
-    tq = np.broadcast_to(template, (TSTEPS, TB, TS)).copy()
-    tp_ = tq.copy()
-    id_toks = rng_t.integers(3, tr_cfg.vocab_size, (TSTEPS, TB, ident))
-    tq[:, :, 1 : 1 + ident] = id_toks
-    tp_[:, :, 2 : 2 + ident] = id_toks
+    tq, tp_ = train_tokens(rng_t, tr_cfg.vocab_size, TB, TS, TSTEPS)
     tq_dev = torch.from_numpy(tq).to(dev)
     tp_dev = torch.from_numpy(tp_).to(dev)
     tmask = torch.ones((TB, TS), dtype=torch.int32, device=dev)
@@ -3486,17 +3747,12 @@ def main(argv=None) -> int:
     del base, base_copy, lstate
 
     # ---- 18m. the dp + tp train step on a (2, 2) mesh of the card ----
-    mesh_train(dev, gpu, counters, path_start, path_end, tq=tq_dev, tp=tp_dev, tmask=tmask)
+    mesh_tr = mesh_train(dev, gpu, counters, path_start, path_end, tq=tq_dev, tp=tp_dev, tmask=tmask)
 
     # ---- 18g. the gemma tower trains at full width through its fused core ----
     gtr_cfg = GemmaEncoderConfig(max_seq_len=64)
     GSTEPS = 8
-    gtq = np.broadcast_to(rng_t.integers(3, gtr_cfg.vocab_size, TS).astype(np.int32),
-                          (GSTEPS, TB, TS)).copy()
-    gtp = gtq.copy()
-    gid = rng_t.integers(3, gtr_cfg.vocab_size, (GSTEPS, TB, ident))
-    gtq[:, :, 1 : 1 + ident] = gid
-    gtp[:, :, 2 : 2 + ident] = gid
+    gtq, gtp = train_tokens(rng_t, gtr_cfg.vocab_size, TB, TS, GSTEPS)
     gtq_dev, gtp_dev = torch.from_numpy(gtq).to(dev), torch.from_numpy(gtp).to(dev)
 
     def gemma_grads(fused):
@@ -3605,6 +3861,13 @@ def main(argv=None) -> int:
                   if path_cc[k] < 1]
     if unlaunched:
         raise AssertionError(f"catalog_cli: kernels never launched in its window: {unlaunched}")
+
+    # ---- 24. the run across processes: Gloo at world 2, NCCL at world 1 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    multiproc_phases(dev, gpu, texts=texts, tq=tq[:MP_TRAIN_STEPS, : mesh_tr["batch_pairs"]],
+                     tp=tp_[:MP_TRAIN_STEPS, : mesh_tr["batch_pairs"]],
+                     mesh_losses=mesh_tr["losses"])
 
     # ---- 13. the times line ----
     emit("times", **times_line, b2_at_train_shape=b2_train, train_step_ms={

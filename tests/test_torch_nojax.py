@@ -18,7 +18,11 @@ MODULES = sorted(
     m.name for m in pkgutil.walk_packages([str(PKG)], "theoremsearch_tpu_torch.")
 )
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_kernel_ab.py",
-                                       ROOT / "tools" / "torch_serve_ab.py"]
+                                       ROOT / "tools" / "torch_serve_ab.py",
+                                       ROOT / "tools" / "torch_mp_train_probe.py",
+                                       ROOT / "tests" / "torch_multihost_worker.py",
+                                       ROOT / "tests" / "test_torch_distributed.py",
+                                       ROOT / "tests" / "test_torch_profiling.py"]
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -57,7 +61,7 @@ def test_module_list_covers_the_slice():
                  "serve.http_api", "index.flat", "index.quant", "index.ivf", "index.builder",
                  "eval.oracle", "train.contrastive", "train.lora", "train.checkpoint", "train.data",
                  "eval.harness", "cli", "encoder.gemma", "encoder.bert", "encoder.families",
-                 "encoder.loader", "core.meshes"):
+                 "encoder.loader", "core.meshes", "core.distributed", "utils.profiling"):
         assert f"theoremsearch_tpu_torch.{want}" in MODULES
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
         "mips_g.cu", "mips_topk.cu", "attention.cu", "attention_bwd.cu", "layer_int8.cu",

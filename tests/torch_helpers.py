@@ -19,6 +19,9 @@ the card's machine runs tests/test_torch_cuda.py without jax.
 - `cpu_mesh(shard, data=1)`: a port mesh over repeated "cpu" devices
   (torch has no virtual CPU devices), the counterpart of the reference's
   8-device CPU mesh of tests/conftest.py.
+- `run_processes(cmds, logdir, timeout)`: the processes of a
+  multi-process test, started together; on a timeout every one is killed
+  and the test fails.
 """
 
 from __future__ import annotations
@@ -69,3 +72,17 @@ def ids_agree(s_want, i_want, s_got, i_got, tol: float = 1e-5, where: str = "") 
     near[:, 1:] |= gap
     near[:, :-1] |= gap
     np.testing.assert_array_equal(ig[~near], iw[~near], err_msg=where)
+
+
+def run_processes(cmds: list[list[str]], logdir, timeout: float = 180.0) -> list[str]:
+    """`torch_multihost_worker.launch` (every command at once, one deadline
+    of `timeout` seconds, each output into `logdir`); a process that exits
+    nonzero or outlives the deadline fails the test."""
+    import pytest
+
+    import torch_multihost_worker
+
+    try:
+        return torch_multihost_worker.launch(cmds, str(logdir), timeout)
+    except RuntimeError as e:
+        pytest.fail(str(e))

@@ -12,9 +12,13 @@ int8 mode the codes quantized once, are copied once to every distinct
 data device. With params placed by the tower's `shard_params` each data
 row runs the tensor-parallel forward over its shard devices
 (`encoder/sharding.py`). int8 on a mesh with `shard` > 1 raises, as the
-reference's does: the tp rules have no int8 form. A mesh spans the
-devices of one process; a mesh across processes (ROADMAP A.10 item 6)
-is not ported yet.
+reference's does: the tp rules have no int8 form. On a mesh whose
+processes hold whole data rows (`core/meshes.py`, after
+`core/distributed.py:initialize`) the batch is split over the global data
+rows, each process encodes its own rows (int8 too: such a mesh with
+`shard` 1 is dp-only) and the pooled rows are all-gathered over the
+group, so `encode` / `encode_device` return the whole batch on every
+process (the reference's `out_shardings=P()`).
 
 Texts are bucketed by token length into a few padded widths and batches
 pad to power-of-two sizes, so the forward sees a bounded set of shapes;
@@ -33,6 +37,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core.distributed import all_gather
 from ..utils.device import resolve_device, upload
 from ..utils.shapes import pow2_bucket
 from ..kernels.layer_int8 import kernel_layout
@@ -83,6 +88,7 @@ class BatchedEncoder:
         self.cfg = cfg
         self._mod = family_module(cfg)
         if mesh is not None:
+            mesh.require_whole_rows("a data-parallel encode")
             self.device = mesh.first_device
             if device is not None and resolve_device(device) != self.device:
                 raise ValueError(f"device={device} disagrees with the mesh's first device {self.device}")
@@ -106,13 +112,17 @@ class BatchedEncoder:
             self.qlayers = self._mod.quantize_params_int8(params)
             if self.device.type == "cuda":
                 self.qlayers = kernel_layout(self.qlayers)
-        # one (device, params, qlayers) a data row: sharded params as the
-        # row reads them; full params copied once to each distinct device
-        # (a device repeated on the axis shares its copy)
+        # one (device, params, qlayers) a data row this process holds:
+        # sharded params as the row reads them; full params copied once to
+        # each distinct device (a device repeated on the axis shares its
+        # copy). The batch splits over all data rows (every process's).
         data_devices = mesh.data_devices if mesh is not None else [self.device]
+        self._n_data = mesh.shape[mesh.axis_names[0]] if mesh is not None else 1
+        self._local_rows = mesh.local_rows if mesh is not None else [0]
+        self._group = mesh.data_group if mesh is not None else None
         if sharded:
             self._rows = [(dev, row_params(params, mesh, r), None)
-                          for r, dev in enumerate(data_devices)]
+                          for r, dev in zip(self._local_rows, data_devices)]
         else:
             copies = {self.device: (self.params, self.qlayers)}
             for dev in data_devices:
@@ -189,15 +199,19 @@ class BatchedEncoder:
     def _forward(self, ids_mask: np.ndarray) -> torch.Tensor:
         """Pooled rows of one padded sub-batch (2, B, W), on self.device:
         split over the data axis (B is a multiple of its size), one
-        forward a data row, gathered in order."""
-        parts = np.split(ids_mask, len(self._rows), axis=1)
+        forward a data row this process holds, gathered in order (over the
+        mesh's process group when other processes hold other rows)."""
+        parts = np.split(ids_mask, self._n_data, axis=1)
         outs = []
-        for (dev, params, qlayers), part in zip(self._rows, parts):
-            t = upload(part, dev)
+        for (dev, params, qlayers), r in zip(self._rows, self._local_rows):
+            t = upload(parts[r], dev)
             kw = {} if qlayers is None else {"qlayers": qlayers, "fused_layers": True}
             outs.append(self._mod.encode_pooled(params, t[0], t[1], self.cfg, **kw)
                         .to(self.device, non_blocking=True))
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        if self._group is not None:
+            out = torch.cat(all_gather(out, self._group))
+        return out
 
     def _prep_batch(self, texts, tokenized, idx):
         """Pad one sub-batch to its (batch-bucket, width-bucket) shape:
@@ -211,7 +225,7 @@ class BatchedEncoder:
         ids, mask = enc.input_ids, enc.attention_mask
         b_pad = min(pow2_bucket(len(idx)), self.batch_size)
         # the data axis splits the batch: round the bucket up to its size
-        n_data = len(self._rows)
+        n_data = self._n_data
         b_pad = -(-max(b_pad, len(idx)) // n_data) * n_data
         if len(idx) < b_pad:
             pad = b_pad - len(idx)

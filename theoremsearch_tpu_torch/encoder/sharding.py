@@ -13,13 +13,20 @@ The reference places a leaf with `jax.device_put` and lets GSPMD insert
 the collectives. The port keeps one controller and writes them out:
 
 - a sharded leaf is a `ShardedTensor`: one piece a shard, on that
-  shard's device of the mesh's first data row, split along one axis
-  (only where the axis divides, as `jax.device_put` demands);
+  shard's device of the mesh's home data row (the first; across
+  processes, the first this process holds), split along one axis (only
+  where the axis divides, as `jax.device_put` demands);
 - a replicated leaf is one tensor on the mesh's first device;
 - data row r of the mesh reads `row_params(params, mesh, r)`, the same
   tree copied to its devices by differentiable `.to` copies, so autograd
   sums a leaf's gradient over the rows (the reference's dp psum) and over
   the shards that read a replicated leaf.
+
+Across processes each process places the params on its own home row and
+keeps replicas for its own rows only; the train step sums the gradients
+over the processes (`train/contrastive.py`). A data row whose shards
+span processes would need the tp collectives across processes, which
+are not ported: placing params on such a mesh raises NotImplementedError.
 
 A tensor-parallel forward (`TP`) multiplies the replicated activation by
 each shard's column block, reduces the row-sharded products on the row's
@@ -137,7 +144,9 @@ def _place(t: torch.Tensor, spec: tuple, mesh):
 
 def place_params(params: dict, rules: dict, mesh) -> dict:
     """Place a {tensors..., 'layers': [dict, ...]} tree on the mesh by a
-    same-shaped rules tree of specs: fresh copies, the input untouched."""
+    same-shaped rules tree of specs: fresh copies, the input untouched.
+    A mesh whose data row spans processes raises NotImplementedError."""
+    mesh.require_whole_rows("tensor-parallel params")
     out = {k: _place(v, rules[k], mesh) for k, v in params.items() if k != "layers"}
     out["layers"] = [
         {name: _place(val, rules["layers"][name], mesh) for name, val in layer.items()}
@@ -177,8 +186,9 @@ def row_params(params, mesh, row: int):
     """The params as data row `row` of the mesh reads them: each piece
     copied to its shard's device in that row, each replicated leaf to the
     row's first device, by differentiable copies (a copy to the device a
-    tensor is on is the tensor itself). Row 0 is the placement itself."""
-    if row == 0:
+    tensor is on is the tensor itself). The home row (row 0 in one
+    process) is the placement itself."""
+    if row == mesh.home_row:
         return params
     devs = list(mesh.devices[row])
 

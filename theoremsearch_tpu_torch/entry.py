@@ -13,8 +13,10 @@ the tiny config on the plain path.
 step (dp batches + tp params, a finite loss), then the sharded speed
 path, the filtered and residual forms, live updates with compact and
 reclaim, the scheduler and the list-sharded IVF over a mesh, each held
-to the single-device engine. The run across processes
-(`tests/test_multihost.py`, ROADMAP A.10 item 6) is not ported yet.
+to the single-device engine. The run across processes (the reference's
+`tests/test_multihost.py`) is `core/distributed.py:initialize` then the
+same calls on a mesh from `make_mesh` (`tests/torch_multihost_worker.py`
+drives it).
 """
 
 from __future__ import annotations

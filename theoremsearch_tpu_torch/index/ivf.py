@@ -39,7 +39,9 @@ last one empty), on its device. A batch's probes are computed once; each
 shard scans the probed lists it owns and its spill chunks (kernel B6),
 selects and rescores locally; the per-shard top-k lists are merged on
 the mesh's first device with a cross-shard dedupe (a dual-assignment copy
-and its primary can live on different shards).
+and its primary can live on different shards). On a row split over
+processes each process places and scans its own shards, and the lists
+are all-gathered over the mesh's process group before the merge.
 """
 
 from __future__ import annotations
@@ -758,23 +760,25 @@ class IVFIndex:
         mesh layout and shared by the searchers of every k."""
         if not self.probe_major_ok:
             raise ValueError("sharded IVF needs int8 + rescore data + slab_rows % 128 == 0")
+        from ..core.meshes import gather_shard_lists
         from ..kernels.mips import merge_topk
 
         R = self.slabs.shape[1]
-        devs = mesh.shard_devices
+        mine = mesh.local_shards
         dev0 = mesh.first_device
         nprobe = min(int(nprobe or self.config.ivf_nprobe), self.centroids.shape[0])
-        key = (tuple(str(d) for d in mesh.devices.flat), tuple(mesh.shape.items()))
+        key = (tuple(str(d) for d in mesh.devices.flat), tuple(mesh.shape.items()),
+               mesh.process_index)
         if self._sharded_cache is None or self._sharded_cache[0] != key:
-            sa = self._sharded_arrays(len(devs))
+            sa = self._sharded_arrays(mesh.shape[mesh.axis_names[1]])
 
             def put(t, dev):
                 if t is None:
                     return None
                 return upload_into(torch.empty(tuple(t.shape), dtype=t.dtype, device=dev), t)
 
-            placed = [{name: put(t, dev) for name, t in sh.items()}
-                      for sh, dev in zip(sa["shards"], devs)]
+            placed = [{name: put(t, dev) for name, t in sa["shards"][s].items()}
+                      for s, dev in mine]
             cents = upload_into(torch.empty(tuple(self.centroids.shape), device=dev0),
                                 self.centroids.float())
             self._sharded_cache = (key, {"shards": placed, "cents": cents, "L_per": sa["L_per"],
@@ -791,8 +795,8 @@ class IVFIndex:
                 _, probe = _topk_stable(q @ dc["cents"].T, nprobe)            # global list ids
             owner, local = probe // L_per, probe % L_per
             p_max = min(b * nprobe, L_per) + sp_per + 1                       # +1: the empty chunk
-            parts_s, parts_i = [], []
-            for s, (dev, sh) in enumerate(zip(devs, dc["shards"])):
+            lists = []
+            for (s, dev), sh in zip(mine, dc["shards"]):
                 flat = torch.where(owner == s, local, C_local - 1).reshape(-1)
                 always = torch.arange(L_per, L_per + sp_per, device=dev0)
                 uids = unique_fixed(torch.cat([flat, always]), p_max, C_local - 1).to(torch.int32)
@@ -800,10 +804,13 @@ class IVFIndex:
                     q.to(dev, non_blocking=True), uids.to(dev, non_blocking=True), sh["slabs"],
                     sh["ids"], sh["raw"], sh["res"], sh["res_scales"], gscale,
                     k=k, c_rescore=c_rescore)
-                parts_s.append(top_s.to(dev0, non_blocking=True))
-                parts_i.append(top_i.to(dev0, non_blocking=True))
-            # the merge, with the cross-shard dedupe of dual-assignment copies
-            all_s, all_i = torch.cat(parts_s, dim=1), torch.cat(parts_i, dim=1)
+                lists.append((top_s.to(dev0, non_blocking=True), top_i.to(dev0, non_blocking=True)))
+            # every shard's list in global order (over the mesh's process
+            # group when the row spans processes), then the merge, with the
+            # cross-shard dedupe of dual-assignment copies
+            lists = gather_shard_lists(mesh, lists, b, k, dev0)
+            all_s = torch.cat([e[0] for e in lists], dim=1)
+            all_i = torch.cat([e[1] for e in lists], dim=1)
             s2, sel = _topk_stable(all_s, all_s.shape[1])
             i2 = torch.gather(all_i, 1, sel)
             s2 = torch.where((i2 >= 0) & ~_first_dup(i2), s2, NEG_INF)

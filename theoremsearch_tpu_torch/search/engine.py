@@ -48,6 +48,18 @@ once, on the first device; the IVF route takes the list-sharded searcher
 (`IVFIndex.sharded_searcher`); compact rebuilds the shards from the
 folded host arrays, as the reference does under a mesh.
 
+Across processes (a mesh from `make_mesh` after
+`core/distributed.py:initialize`) every process holds the full host
+index, as the reference's multi-process worker does, and places only its
+own shards, each keeping its global index and first row. Each process
+runs its shards, the per-shard lists are all-gathered over the mesh's
+process group in global shard order and merged once on each process's
+first device, so the result is replicated and bit-equal to a one-process
+mesh of the same shards. The delta, the tombstones, the filter caches
+and every host step are replicated: each process applies the same
+mutation stream, and the route of a batch depends on replicated state
+alone, so every process joins the same collectives in the same order.
+
 Streams: queries, the delta and compact's device fold run on the current
 (default) stream, so their order is the stream's; only multi-GB host
 uploads go through a side stream (`utils/device.py:upload_into`).
@@ -67,6 +79,7 @@ import numpy as np
 import torch
 
 from ..core.config import SearchConfig
+from ..core.meshes import gather_shard_lists
 from ..index.flat import PAD_ID, FlatIndex
 from ..kernels._build import load as _load_kernels
 from ..kernels.mips import (
@@ -410,13 +423,16 @@ class SearchEngine:
         return out
 
     def _shard_arrays(self, vecs, ids, scales, rescore_residual) -> list[dict]:
-        """Per shard: its device, its first row, its valid row count
+        """Per shard this process holds (every shard in one process; a
+        contiguous block of them on a row split over processes): its
+        device, its first row (`s * rows_per_shard` for global shard s),
+        its valid row count
         (`clip(n_valid - s * rows_per_shard, 0, rows_per_shard)`, the
         reference's `local_valid`) and its slices of the padded codes, ids
         and scales and of the rescore data, on its device."""
         rps = self.rows_per_shard
         shards = []
-        for s, dev in enumerate(self.mesh.shard_devices):
+        for s, dev in self.mesh.local_shards:
             lo = s * rps
             sh = {"device": dev, "lo": lo,
                   "valid": int(min(max(self.n_valid - lo, 0), rps)),
@@ -1147,7 +1163,7 @@ class SearchEngine:
             rows.append(pass_row if mask is None else dev)
         rows.extend([fail_row] * (g_pad - len(rows)))
         if self._shards is not None:
-            return [torch.stack([r[s] for r in rows]) for s in range(self.n_shards)]
+            return [torch.stack([r[j] for r in rows]) for j in range(len(self._shards))]
         return torch.stack(rows)
 
     def _tomb_ids_snapshot(self) -> np.ndarray:
@@ -1278,30 +1294,38 @@ class SearchEngine:
     def _to_doc_ids(li: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return torch.where(li >= 0, ids[li.clamp(min=0).long()], PAD_ID)
 
-    def _over_shards(self, q, k: int, run, *sharded):
-        """Run `run(shard, q_s, *args_s) -> (scores, doc ids) (B, k)` on
-        every shard, with q and each per-shard argument (a list of one
-        tensor a shard, or one tensor copied to every shard) on the
-        shard's device; copy the results to the first device in shard
-        order and merge them (`merge_topk`: ties to the lower shard, then
-        the lower slot, as the reference's all_gather + lax.top_k). A
-        shard without valid rows contributes nothing, as its -inf slots
-        would."""
-        parts_s, parts_i = [], []
-        for s, sh in enumerate(self._shards):
+    def _over_shards(self, q, k: int, width: int, run, *sharded):
+        """Run `run(shard, q_s, *args_s) -> (scores, doc ids) (B, width)` on
+        every shard this process holds, with q and each per-shard argument
+        (a list of one tensor a local shard, or one tensor copied to every
+        shard) on the shard's device; bring the lists to the first device
+        (over the mesh's shard group when the row spans processes:
+        `core/meshes.py:gather_shard_lists`), in global shard order, and
+        merge them (`merge_topk`: ties to the lower shard, then the lower
+        slot, as the reference's all_gather + lax.top_k). A shard without
+        valid rows contributes nothing, as its -inf slots would; which
+        shards those are is replicated state, so every process joins the
+        gather whatever its own shards hold."""
+        lists = []
+        for j, sh in enumerate(self._shards):
             if sh["valid"] == 0:
+                lists.append(None)
                 continue
             dev = sh["device"]
-            args = [a[s] if isinstance(a, list)
+            args = [a[j] if isinstance(a, list)
                     else None if a is None else a.to(dev, non_blocking=True) for a in sharded]
             out_s, out_i = run(sh, q.to(dev, non_blocking=True), *args)
-            parts_s.append(out_s.to(self.device, non_blocking=True))
-            parts_i.append(out_i.to(self.device, non_blocking=True))
+            lists.append((out_s.to(self.device, non_blocking=True),
+                          out_i.to(self.device, non_blocking=True)))
         b = q.shape[0]
-        if not parts_s:
+        lists = gather_shard_lists(self.mesh, lists, b, width, self.device)
+        rps = self.rows_per_shard
+        parts = [e for s, e in enumerate(lists) if self.n_valid > s * rps]
+        if not parts:
             return (torch.full((b, k), NEG_INF, device=self.device),
                     torch.full((b, k), PAD_ID, dtype=torch.int32, device=self.device))
-        all_s, all_i = torch.cat(parts_s, dim=1), torch.cat(parts_i, dim=1)
+        all_s = torch.cat([e[0] for e in parts], dim=1)
+        all_i = torch.cat([e[1] for e in parts], dim=1)
         if all_s.shape[1] < k:
             pad = k - all_s.shape[1]
             all_s = torch.nn.functional.pad(all_s, (0, pad), value=NEG_INF)
@@ -1326,7 +1350,7 @@ class SearchEngine:
                 s_, li = device_rescore(qs, li, sh["rescore"], sh["valid"], k=k_loc)
             return s_, self._to_doc_ids(li, sh["ids"])
 
-        return self._over_shards(q, k, run, mask, gmasks, mask_ids)
+        return self._over_shards(q, k, k_loc, run, mask, gmasks, mask_ids)
 
     def _speed_search(self, q, k_q: int, base_k: int, mask=None, gmasks=None, mask_ids=None):
         """The speed route: (B_pad, D) f32 device queries -> (scores, doc
@@ -1369,7 +1393,7 @@ class SearchEngine:
                                          k=k_dev, row_block=self.row_block)
                 return s_, self._to_doc_ids(li, sh["ids"])
 
-            return self._over_shards(q, k_dev, run, bias)
+            return self._over_shards(q, k_dev, k_dev, run, bias)
         s, li = fused_mips_topk(q, self.vectors, self.scales, self.n_valid, bias,
                                 k=k_dev, row_block=self.row_block)
         return s, self._to_doc_ids(li, self.ids)

@@ -9,7 +9,11 @@ bf16 rows, since numpy has no bf16 of its own. There is no orbax.
 A state on a mesh (`contrastive.init_sharded_train_state`) is saved as
 its full logical leaves, the file a single-device run writes; restoring
 into a sharded template splits each leaf as the template's. So a
-checkpoint moves between a mesh and one device either way.
+checkpoint moves between a mesh and one device either way. In a process
+group (`core/distributed.py:initialize`) every process holds the same
+state (a mesh across processes keeps its params identical): process 0
+writes the file and the others wait for it at a barrier; every process
+can restore.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.config import EncoderConfig, TrainConfig
+from ..core.distributed import barrier, current
 from ..encoder.sharding import ShardedTensor
 from .contrastive import AdamWState, TrainState, tree_leaves, tree_unflatten
 
@@ -42,10 +47,16 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save_checkpoint(state: TrainState, path: str | Path) -> None:
-    path = Path(path).resolve()
-    path.mkdir(parents=True, exist_ok=True)
-    np.savez(path / f"step_{int(state.step)}.npz",
-             **{f"leaf_{i}": _to_numpy(l) for i, l in enumerate(_state_leaves(state))})
+    """Write `step_{state.step}.npz` under `path`. In a process group,
+    process 0 writes and every process returns once the file is complete."""
+    group = current()
+    if group is None or group.rank == 0:
+        path = Path(path).resolve()
+        path.mkdir(parents=True, exist_ok=True)
+        np.savez(path / f"step_{int(state.step)}.npz",
+                 **{f"leaf_{i}": _to_numpy(l) for i, l in enumerate(_state_leaves(state))})
+    if group is not None:
+        barrier(group)
 
 
 def latest_step(path: str | Path) -> int | None:

@@ -35,8 +35,18 @@ so autograd builds the backward collectives: the gradient sum over
 `data` and over the shards that read a replicated leaf. Two orders of
 leaves stay apart: `tree_leaves` yields logical leaves in JAX's order
 (checkpoints, `train_state_from_jax`), `piece_leaves` their tensors, a
-sharded leaf's pieces in shard order (autograd and the optimizer). The
-`torch.distributed` form across processes (item 6) is not ported yet.
+sharded leaf's pieces in shard order (autograd and the optimizer).
+
+Across processes (item 6: a mesh from `make_mesh` after
+`core/distributed.py:initialize`, each process holding whole data rows)
+each process encodes its own rows and gathers the global batch through
+`distributed.gather_rows`, whose backward hands each process its own
+slice of the gradient; every process then takes the same global loss.
+The piece gradients are summed over the processes in one flat buffer a
+dtype (`distributed.all_reduce_flat`) before the clip and the update, so
+the clip reads the same norm everywhere and the params stay identical
+across processes. The explicit negatives carry gradient from process 0
+only, as they come from the first data row alone in one process.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import torch.nn.functional as F
 from ..core.config import EncoderConfig, TrainConfig
 from ..encoder.families import family_module
 from ..encoder.model import Params, params_from_jax
+from ..core.distributed import all_reduce_flat, gather_rows
 from ..encoder.sharding import ShardedTensor, row_params
 from ..utils.device import resolve_device, tf32_off
 
@@ -248,7 +259,8 @@ def init_sharded_train_state(enc_cfg: EncoderConfig, train_cfg: TrainConfig, mes
                              generator: torch.Generator | None = None) -> TrainState:
     """The reference's init_sharded_train_state: the tower's random params
     (drawn on the mesh's first device, seeded by train_cfg.seed unless a
-    generator is given) placed by its tp rules (`shard_params`), and zero
+    generator is given, so every process of a mesh across processes draws
+    the same numbers) placed by its tp rules (`shard_params`), and zero
     moments split as their params."""
     device = mesh.first_device
     if generator is None:
@@ -310,7 +322,8 @@ def info_nce_loss(
     mesh: the batch is split over its data axis (`_encode_rows`) and the
     loss taken over the gathered global batch on the first device; the
     negatives, replicated in the reference, are encoded once, by the first
-    data row."""
+    data row (across processes every process encodes them, and they carry
+    gradient on process 0 only)."""
     encode_pooled = family_module(enc_cfg).encode_pooled
     if mesh is None:
         q = encode_pooled(params, q_ids, q_mask, enc_cfg, fused=fused)   # (B, D) f32, normalized
@@ -324,6 +337,9 @@ def info_nce_loss(
         logits_qp = logits
         if n_ids is not None:
             neg = encode_pooled(params, n_ids, n_mask, enc_cfg, fused=fused)
+            group = mesh.data_group if mesh is not None else None
+            if group is not None and group.rank != 0:
+                neg = neg.detach()
             logits_qp = torch.cat([logits, (q @ neg.T) / temperature], dim=1)
     return 0.5 * (F.cross_entropy(logits_qp, labels) + F.cross_entropy(logits.T, labels))
 
@@ -333,17 +349,22 @@ def _encode_rows(params, ids: torch.Tensor, mask: torch.Tensor, enc_cfg, fused: 
     """Pooled embeddings of a batch split over the mesh's data axis: row r
     encodes its slice with the params as it reads them
     (`sharding.row_params`: tp over its shard devices for sharded params),
-    and the rows are gathered in order on the first device."""
+    and the rows are gathered in order on the first device; across
+    processes each process encodes the rows it holds and the global batch
+    is gathered over the group (`distributed.gather_rows`)."""
+    mesh.require_whole_rows("the dp + tp train step")
     n = mesh.shape[mesh.axis_names[0]]
     if ids.shape[0] % n:
         raise ValueError(f"a batch of {ids.shape[0]} does not split over the {n}-way data axis")
     encode_pooled = family_module(enc_cfg).encode_pooled
+    ids_rows, mask_rows = torch.tensor_split(ids, n), torch.tensor_split(mask, n)
     outs = []
-    for r, (i, m) in enumerate(zip(torch.tensor_split(ids, n), torch.tensor_split(mask, n))):
+    for r in mesh.local_rows:
         dev = mesh.devices[r, 0]
-        outs.append(encode_pooled(row_params(params, mesh, r), i.to(dev), m.to(dev), enc_cfg,
-                                  fused=fused).to(mesh.first_device))
-    return torch.cat(outs)
+        outs.append(encode_pooled(row_params(params, mesh, r), ids_rows[r].to(dev),
+                                  mask_rows[r].to(dev), enc_cfg, fused=fused).to(mesh.first_device))
+    out = torch.cat(outs)
+    return out if mesh.data_group is None else gather_rows(out, mesh.data_group)
 
 
 def _on(x, device) -> torch.Tensor | None:
@@ -358,18 +379,22 @@ def _check_fused(fused) -> None:
         raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
 
 
-def _grad_step(opt: AdamW, state: TrainState, loss_fn) -> tuple[TrainState, torch.Tensor]:
-    """loss and gradients of state.params, then the in-place update."""
+def _grad_step(opt: AdamW, state: TrainState, loss_fn, mesh=None) -> tuple[TrainState, torch.Tensor]:
+    """loss and gradients of state.params, summed over the mesh's
+    processes when it spans them, then the in-place update."""
     leaves = piece_leaves(state.params)
     for t in leaves:
         t.requires_grad_(True)
     try:
         loss = loss_fn(state.params)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = list(torch.autograd.grad(loss, leaves))
     finally:
         for t in leaves:
             t.requires_grad_(False)
-    opt_state = opt.update(list(grads), state.opt_state, leaves)
+    group = mesh.data_group if mesh is not None else None
+    if group is not None:
+        grads = all_reduce_flat(grads, group)
+    opt_state = opt.update(grads, state.opt_state, leaves)
     return TrainState(state.params, opt_state, state.step + 1), loss.detach()
 
 
@@ -400,7 +425,9 @@ def make_train_step(
     is split over `data`, explicit negatives replicated; every piece is
     updated in place. With fused "on" the qwen core runs kernel B2 forward
     and B7 backward once a shard a layer (head-local) or on the gathered
-    heads."""
+    heads. On a mesh across processes every process passes the whole
+    batch, runs its own data rows, and gets the same loss; the gradients
+    are summed over the processes before the update."""
     _check_fused(fused)
     opt = make_optimizer(train_cfg)
 
@@ -408,7 +435,8 @@ def make_train_step(
         dev = mesh.first_device if mesh is not None else state.params["embed"].device
         batch = [_on(x, dev) for x in (q_ids, q_mask, p_ids, p_mask, n_ids, n_mask)]
         return _grad_step(opt, state, lambda params: info_nce_loss(
-            params, *batch[:4], enc_cfg, train_cfg.temperature, fused, *batch[4:], mesh=mesh))
+            params, *batch[:4], enc_cfg, train_cfg.temperature, fused, *batch[4:], mesh=mesh),
+            mesh)
 
     return step
 
@@ -441,7 +469,7 @@ def make_lora_train_step(
         batch = [_on(x, dev) for x in (q_ids, q_mask, p_ids, p_mask, n_ids, n_mask)]
         return _grad_step(opt, state, lambda lora: info_nce_loss(
             lora_merge(base_params, lora, alpha), *batch[:4], enc_cfg, train_cfg.temperature,
-            fused, *batch[4:], mesh=mesh))
+            fused, *batch[4:], mesh=mesh), mesh)
 
     return step
 
