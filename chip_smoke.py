@@ -295,6 +295,21 @@ exits non-zero (there is no CPU path):
              entries: the speed search and one train step bit-equal to the
              one-process mesh, and a speed batch under
              utils/profiling.trace whose Chrome trace names B1's kernel.
+24t. multiproc_tp  tensor parallelism across processes (ROADMAP A.12),
+             Gloo, one mesh entry a process on cuda:0: (a) (1, 2) over two
+             processes, the full-width qwen tower head-local: the tp
+             encode of 512 slogans (cosine >= 0.9999 to the one-process
+             [cuda:0] * 2 mesh, >= 0.999 to one device, identical across
+             the processes), gemma's gathered encode of 64, mesh_train's
+             batch for 3 steps (identical losses and params across the
+             processes, within MP_TRAIN_LIMITS of the one-process (1, 2)
+             mesh, B2 and B7 56 a step a process), a checkpoint restored
+             on one device bit-equal; (b) (2, 2) over four processes, qwen
+             at 4 layers, 2 steps (B2/B7 8 a step a process) and a B=1024
+             speed batch on 262,144 x 1024, bit-equal across the
+             processes and to the one-process (2, 2) engine. The
+             collectives by op a step, step and encode seconds, peak
+             memory (`multiproc_tp`).
 13. times    (emitted last) the kernel / plain / bound times above, B7 and
              B2 at the training shape (64, 64, 16, 8, 128), the train step
              "on" and "off", and the script's total seconds.
@@ -1611,9 +1626,10 @@ def mp_worker():
 
 
 def multiproc_phases(dev, gpu: str, *, texts, tq, tp, mesh_losses) -> None:
-    """Phases multiproc_gloo and multiproc_nccl: the port's run across
-    processes (`core/distributed.py`), each process a
-    tests/torch_multihost_worker.py on this card.
+    """Phases multiproc_gloo, multiproc_nccl and multiproc_tp
+    (`multiproc_tp`, on the same batch): the port's run across processes
+    (`core/distributed.py`), each process a tests/torch_multihost_worker.py
+    on this card.
 
     multiproc_gloo: two processes over Gloo (NCCL refuses two ranks on one
     card), both on cuda:0, each holding two mesh entries, so CUDA tensors
@@ -1676,6 +1692,7 @@ def multiproc_phases(dev, gpu: str, *, texts, tq, tp, mesh_losses) -> None:
              "--trace-dir", os.path.join(work, "trace"), "--check-one-process", "search,train"]],
             work, MP_TIMEOUT_S, name="nccl")
         mp_nccl_gates(nccl, gpu, time.perf_counter() - t0)
+        multiproc_tp(dev, gpu, texts=texts, batch_npz=os.path.join(work, "batch.npz"), work=work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1798,6 +1815,155 @@ def mp_nccl_gates(r: dict, gpu: str, seconds: float) -> None:
     missed = [k for k, ok in gates.items() if not ok]
     if missed:
         raise AssertionError(f"multiproc_nccl: gates missed: {missed}")
+
+
+# the multiproc_tp phase: (a) the full-width qwen tower's tp path on a
+# (1, 2) mesh over two processes, with gemma's gathered encode beside it;
+# (b) a (2, 2) mesh over four processes (each data row split over two),
+# qwen at 4 layers (depth cut to bound four processes' memory beside the
+# parent) and a speed-path batch on a 262,144 x 1024 corpus
+MP_TP_ENCODE = {"qwen": 512, "gemma": 64}
+MP_TP_STEPS = (3, 2)
+MP_TP_SEARCH = ["--n", "262144", "--d", "1024", "--batch", "1024", "--k", "10", "--row-block", "0",
+                "--rescore-factor", "4"]
+
+
+def multiproc_tp(dev, gpu: str, *, texts, batch_npz: str, work: str) -> None:
+    """Phase multiproc_tp: tensor parallelism over a shard axis that spans
+    processes (ROADMAP A.12), each process a
+    tests/torch_multihost_worker.py on this card over Gloo (NCCL refuses
+    two ranks on one card), one mesh entry a process.
+
+    (a) MeshConfig(data=1, shard=2) over two processes, the qwen tower at
+    full width (28 layers, d 1024, 16/8 heads, vocab 151,936: mesh_train's
+    tower), head-local at 8/4 heads a process: the tp encode of 512
+    slogans at bucket 64, identical across the processes, pooled cosine
+    >= 0.9999 against the one-process [cuda:0] * 2 tp encode and >= 0.999
+    against one device (both run by process 0), B2 once a layer; the
+    gemma tower (24 layers, 3/1 heads, gathered) encodes 64 slogans at the
+    same gates, its B2 form once a layer on every process; mesh_train's
+    batch and seed for 3 steps: losses identical across the processes,
+    params bit-identical, against the one-process (1, 2) mesh the first
+    loss equal and the losses, gradient norms and final params within
+    `MP_TRAIN_LIMITS`, B2 and B7 56 a step a process (28 layers x (q, p)
+    x one shard); a save_checkpoint that process 0 restores on one device,
+    every leaf bit-equal. (b) MeshConfig(data=2, shard=2) over four
+    processes: qwen at 4 layers, 2 steps, losses and params identical
+    across the four, within `MP_TRAIN_LIMITS` of the one-process (2, 2)
+    mesh process 0 runs, B2/B7 8 a step a process; one B=1024 speed-path
+    batch on a 262,144 x 1024 corpus, bit-equal across the processes and
+    to the one-process (2, 2) engine, B1 once a process. The line carries
+    `distributed.stats` by op a step (the row all-reduces and all-gathers:
+    calls, bytes, host-staged bytes, seconds), step and encode seconds
+    and peak memory a process."""
+    W = mp_worker()
+    with open(os.path.join(work, "tp_texts.json"), "w") as f:
+        json.dump(list(texts[: max(MP_TP_ENCODE.values())]), f)
+    common = ["--device", str(dev), "--backend", "gloo", "--local", "1", "--workdir", work,
+              "--train-batch", batch_npz, *MP_TRAIN, "--parts"]
+    t0 = time.perf_counter()
+    a = W.run_workers([
+        ["--rank", str(r), "--world", "2", "--init", f"file://{work}/rendezvous_tp_a", *common, "tp",
+         "--tp-mesh", "1,2", "--tp-towers", "qwen,gemma", "--tp-train-towers", "qwen",
+         "--tp-encode-counts", f"{MP_TP_ENCODE['qwen']},{MP_TP_ENCODE['gemma']}",
+         "--encode-texts", os.path.join(work, "tp_texts.json"), "--encode-batch", "512",
+         "--encode-buckets", "64", "--train-steps", str(MP_TP_STEPS[0]), "--tp-checkpoint",
+         "--check-one-process", "tp"]
+        for r in range(2)], work, MP_TIMEOUT_S, name="tp_a")
+    a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = W.run_workers([
+        ["--rank", str(r), "--world", "4", "--init", f"file://{work}/rendezvous_tp_b", *common,
+         "search,tp", "--search-mesh", "2,2", *MP_TP_SEARCH, "--tp-mesh", "2,2",
+         "--tp-towers", "qwen4", "--tp-encode-counts", "0", "--train-steps", str(MP_TP_STEPS[1]),
+         "--check-one-process", "search,tp"]
+        for r in range(4)], work, MP_TIMEOUT_S, name="tp_b")
+    mp_tp_gates(a, b, gpu, a_s, time.perf_counter() - t0)
+
+
+def _by_op(steps: list) -> list:
+    """`distributed.stats` a step, by op: calls, bytes, staged bytes, ms."""
+    return [{op: {"calls": e["calls"], "bytes": e["bytes"], "staged_bytes": e["staged_bytes"],
+                  "ms": e["s"] * 1e3} for op, e in c.items()} for c in steps]
+
+
+def mp_tp_gates(a: list, b: list, gpu: str, a_s: float, b_s: float) -> None:
+    """Emit multiproc_tp's line and raise on any gate it misses."""
+    from theoremsearch_tpu_torch.core.config import EncoderConfig, GemmaEncoderConfig
+
+    layers = EncoderConfig(**MESH_TRAIN_CFG).num_layers
+    g_layers = GemmaEncoderConfig().num_layers
+    q = [r["tp"]["towers"]["qwen"] for r in a]
+    g = [r["tp"]["towers"]["gemma"] for r in a]
+    t = [x["train"] for x in q]
+    sb = [r["search"] for r in b]
+    tb = [r["tp"]["towers"]["qwen4"]["train"] for r in b]
+    steps_a, steps_b = MP_TP_STEPS
+    vs_a, vs_b = t[0]["vs_one_process"], tb[0]["vs_one_process"]
+
+    def same(xs, *keys):
+        return all(x[k] == xs[0][k] for x in xs for k in keys)
+
+    def enc_ok(xs, counter, want):
+        e = xs[0]["encode"]
+        return (same([x["encode"] for x in xs], "sha256") and e["finite"]
+                and e["min_cos_vs_one_process"] >= 0.9999 and e["min_cos_vs_one_device"] >= 0.999
+                and all(x["encode"]["launches"][counter] == want for x in xs))
+
+    gates = {
+        "a_rows_split_over_2": all(r["tp"]["layout"] == "shard" and r["tp"]["row_group_size"] == 2
+                                   and r["backend"] == "gloo" and r["device"].startswith("cuda")
+                                   for r in a),
+        "a_qwen_encode": enc_ok(q, "qknorm_rope_attention", layers),
+        "a_gemma_encode_gathered": enc_ok(g, "qknorm_rope_attention_gemma", g_layers),
+        "a_train_losses_equal_across_processes": same(t, "losses"),
+        "a_train_params_bit_identical": same(t, "params_sha256"),
+        "a_train_first_loss_equal_one_process": vs_a["first_loss_equal"],
+        "a_train_within_limits_of_one_process": all(vs_a[k] <= lim for k, lim in MP_TRAIN_LIMITS.items()),
+        "a_b2_b7_56_a_step": all(x["launches"]["qknorm_rope_attention"] == steps_a * 2 * layers
+                                 and x["launches"]["qknorm_rope_attention_bwd"] == steps_a * 2 * layers
+                                 for x in t),
+        "a_checkpoint_bit_equal": q[0]["checkpoint"]["equal"],
+        "b_rows_split_over_2": [r["tp"]["local_rows"] for r in b] == [[0], [0], [1], [1]]
+                               and all(r["tp"]["column_group_size"] == 2 for r in b),
+        "b_search_equal": same(sb, "ids", "scores") and all(x["equal_one_process"] for x in sb),
+        "b_b1_1_a_process": all(x["launches"]["mips_g_scan"] == 1 for x in sb),
+        "b_train_losses_equal_across_processes": same(tb, "losses"),
+        "b_train_params_bit_identical": same(tb, "params_sha256"),
+        "b_train_within_limits_of_one_process": all(vs_b[k] <= lim for k, lim in MP_TRAIN_LIMITS.items()),
+        "b_b2_b7_8_a_step": all(x["launches"]["qknorm_rope_attention"] == steps_b * 2 * 4
+                                and x["launches"]["qknorm_rope_attention_bwd"] == steps_b * 2 * 4
+                                for x in tb),
+    }
+    emit("multiproc_tp", gpu=gpu, backend="gloo", seconds={"a": round(a_s, 3), "b": round(b_s, 3)},
+         a={"mesh": [1, 2], "processes": 2, "layers": layers,
+            "encode": {name: {"texts": xs[0]["encode"]["shape"][0],
+                              "s": [x["encode"]["s"] for x in xs],
+                              "min_cos_vs_one_process": xs[0]["encode"]["min_cos_vs_one_process"],
+                              "min_cos_vs_one_device": xs[0]["encode"]["min_cos_vs_one_device"],
+                              "equal_one_process": xs[0]["encode"]["equal_one_process"],
+                              "launches": xs[0]["encode"]["launches"],
+                              "collectives": xs[0]["encode"]["collectives"],
+                              "peak_mem_gb": [x["encode"].get("peak_mem_gb") for x in xs]}
+                       for name, xs in (("qwen", q), ("gemma", g))},
+            "train_losses": t[0]["losses"], "one_process": t[0]["one_process"],
+            "vs_one_process": vs_a, "equal_one_process": t[0]["equal_one_process"],
+            "step_ms": [[s_ * 1e3 for s_ in x["step_s"]] for x in t],
+            "collectives_a_step": _by_op(t[0]["collectives_a_step"]),
+            "launches": t[0]["launches"], "peak_mem_gb": [x.get("peak_mem_gb") for x in t],
+            "checkpoint": q[0]["checkpoint"],
+            "part_s": [r["tp"]["part_s"] for r in a]},
+         b={"mesh": [2, 2], "processes": 4, "layers": 4, "search_shape": [262_144, 1024, 1024],
+            "search_launches": sb[0]["launches"], "search_collectives": sb[0]["collectives"],
+            "train_losses": tb[0]["losses"], "one_process": tb[0]["one_process"],
+            "vs_one_process": vs_b, "step_ms": [[s_ * 1e3 for s_ in x["step_s"]] for x in tb],
+            "collectives_a_step": _by_op(tb[0]["collectives_a_step"]),
+            "launches": tb[0]["launches"], "peak_mem_gb": [x.get("peak_mem_gb") for x in tb],
+            "part_s": [{p: r[p]["part_s"] for p in ("search", "tp")} for r in b]},
+         limits=MP_TRAIN_LIMITS, gates=gates)
+    missed = [k for k, ok in gates.items() if not ok]
+    if missed:
+        raise AssertionError(f"multiproc_tp: gates missed: {missed}")
 
 
 def main(argv=None) -> int:
@@ -3862,7 +4028,8 @@ def main(argv=None) -> int:
     if unlaunched:
         raise AssertionError(f"catalog_cli: kernels never launched in its window: {unlaunched}")
 
-    # ---- 24. the run across processes: Gloo at world 2, NCCL at world 1 ----
+    # ---- 24. the run across processes: Gloo at world 2, NCCL at world 1,
+    # then tensor parallelism across processes (24t, multiproc_tp) ----
     gc.collect()
     torch.cuda.empty_cache()
     multiproc_phases(dev, gpu, texts=texts, tq=tq[:MP_TRAIN_STEPS, : mesh_tr["batch_pairs"]],

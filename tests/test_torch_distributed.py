@@ -9,6 +9,7 @@ This file imports no jax."""
 
 import json
 import sys
+from datetime import timedelta
 
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ import torch
 from theoremsearch_tpu_torch.core import distributed
 from theoremsearch_tpu_torch.core.config import EncoderConfig, MeshConfig, TrainConfig
 from theoremsearch_tpu_torch.core.distributed import ProcessGroup, process_layout
-from theoremsearch_tpu_torch.core.meshes import Mesh, make_mesh
+from theoremsearch_tpu_torch.core.meshes import Mesh, make_mesh, mesh_groups
 
 # ---------------------------------------------------------------- plain rules
 
@@ -32,6 +33,7 @@ from theoremsearch_tpu_torch.core.meshes import Mesh, make_mesh
     (4, 2, 4, 2, "data"),
     (2, 4, 8, 1, "local"),
     (2, 2, 4, 1, "local"),     # the NCCL world-1 run
+    (2, 4, 2, 4, "shard"),     # (c) two data rows, each split over two processes (tp across them)
 ])
 def test_process_layout_accepts_the_two_layouts(data, shard, n_local, n_proc, want):
     assert process_layout(data, shard, n_local, n_proc) == want
@@ -39,7 +41,7 @@ def test_process_layout_accepts_the_two_layouts(data, shard, n_local, n_proc, wa
 
 @pytest.mark.parametrize("data, shard, n_local, n_proc, match", [
     (2, 3, 2, 3, "unevenly"),          # a block straddles two data rows
-    (2, 4, 2, 4, "unevenly"),          # data rows split over processes with data > 1
+    (2, 6, 4, 3, "unevenly"),
     (3, 2, 3, 2, "unevenly"),
     (2, 4, 4, 3, "needs 8 devices"),
     (0, 4, 4, 1, "positive"),
@@ -52,50 +54,62 @@ def test_process_layout_refuses_other_splits(data, shard, n_local, n_proc, match
 def _spanning_mesh(data, shard, n_local, rank, world) -> Mesh:
     """The mesh `make_mesh` builds on process `rank` of `world`, made here
     without a group (the layout logic alone)."""
-    pg = ProcessGroup(None, rank, world, "gloo", torch.device("cpu"))
+    pg = ProcessGroup(None, rank, world, "gloo", torch.device("cpu"), 300.0)
     layout = process_layout(data, shard, n_local, world)
     grid = np.empty(data * shard, dtype=object)
     local = np.zeros(data * shard, bool)
     grid[rank * n_local : (rank + 1) * n_local] = [torch.device("cpu")] * n_local
     local[rank * n_local : (rank + 1) * n_local] = True
+    row, col = mesh_groups(layout, data, shard, n_local, pg)
     return Mesh(grid.reshape(data, shard), process_group=pg, local=local.reshape(data, shard),
-                layout=layout)
+                layout=layout, row_group=row, column_group=col)
 
 
 def test_mesh_positions_of_each_layout():
     a = _spanning_mesh(1, 8, 4, 1, 2)
-    assert a.home_row == 0 and a.local_rows == []
-    assert [s for s, _ in a.local_shards] == [4, 5, 6, 7]
-    assert a.shard_group is a.process_group and a.data_group is None
+    assert a.home_row == 0 and a.local_rows == [0] and not a.local[0].all()
+    assert [s for s, _ in a.local_shards] == [4, 5, 6, 7] and len(a.shard_devices) == 4
+    assert a.row_group is a.process_group and a.column_group is None
     b = _spanning_mesh(2, 4, 4, 1, 2)
     assert b.home_row == 1 and b.local_rows == [1] and b.data_devices == [torch.device("cpu")]
     assert [s for s, _ in b.local_shards] == [0, 1, 2, 3] and len(b.shard_devices) == 4
-    assert b.data_group is b.process_group and b.shard_group is None
+    assert b.column_group is b.process_group and b.row_group is None and b.local[1].all()
     one = make_mesh(MeshConfig(data=2, shard=2), devices=["cpu"] * 4)
     assert one.process_group is None and one.layout == "local" and one.local_rows == [0, 1]
-    assert one.shard_group is None and one.data_group is None
+    assert one.row_group is None and one.column_group is None
+    with pytest.raises(RuntimeError, match="call initialize"):
+        _spanning_mesh(2, 4, 2, 1, 4)       # a split row at data > 1 needs real subgroups
 
 
 def test_tensor_parallel_across_processes_raises():
     """Params whose shard axis crosses a process boundary (a data row that
-    spans processes), and the dp paths over such a row, name the ROADMAP
-    item instead of running."""
-    from theoremsearch_tpu_torch.encoder.batching import BatchedEncoder
+    spans processes) are placed: each process keeps its own block of
+    pieces with their global indices, the logical shape stays global, and
+    a moment split as the leaf keeps the same block. Nothing here raises
+    any more (ROADMAP A.12 is ported); tests/test_torch_tp_multihost.py
+    runs the collectives."""
     from theoremsearch_tpu_torch.encoder.model import init_params, shard_params
-    from theoremsearch_tpu_torch.train.contrastive import _encode_rows
+    from theoremsearch_tpu_torch.encoder.sharding import ShardedTensor
 
-    mesh = _spanning_mesh(1, 8, 4, 0, 2)
     cfg = EncoderConfig.tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        shard_params(params, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        BatchedEncoder(params, cfg, mesh=mesh)
-    ids = torch.zeros((8, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        _encode_rows(params, ids, ids, cfg, "on", mesh)
-    with pytest.raises(NotImplementedError):
-        mesh.shard_devices
+    for rank in range(2):
+        mesh = _spanning_mesh(1, 8, 4, rank, 2)
+        assert mesh.shard_devices == [torch.device("cpu")] * 4
+        placed = shard_params(params, mesh)
+        wq = placed["layers"][0]["wq"]
+        assert isinstance(wq, ShardedTensor) and wq.split_over_processes
+        assert wq.index == [4 * rank + i for i in range(4)] and wq.count == 8
+        assert tuple(wq.shape) == tuple(params["layers"][0]["wq"].shape)
+        want = torch.tensor_split(params["layers"][0]["wq"], 8, dim=1)[4 * rank : 4 * rank + 4]
+        assert all(torch.equal(p, w) for p, w in zip(wq.pieces, want))
+        emb = placed["embed"]
+        assert emb.index[0] == 4 * rank and emb.pieces[0].shape[0] == cfg.vocab_size // 8
+        mu = wq.split(torch.arange(wq.shape.numel(), dtype=torch.float32).view(wq.shape))
+        assert mu.index == wq.index and [tuple(p.shape) for p in mu.pieces] == \
+            [tuple(p.shape) for p in wq.pieces]
+        assert torch.equal(mu.pieces[0][0], torch.arange(wq.shape[1])[16 * 4 * rank:][:16].float())
+        assert not isinstance(placed["final_norm"], ShardedTensor)
 
 
 def test_initialize_needs_a_device_or_cuda():
@@ -117,6 +131,71 @@ def test_make_mesh_without_a_group_is_unchanged():
     m = make_mesh(MeshConfig(data=2, shard=4), devices=["cpu"] * 8)
     assert m.process_count == 1 and m.process_index == 0 and m.local.all()
     assert m.first_device == torch.device("cpu") and m.home_row == 0
+
+
+def _nccl_group(world: int = 2) -> ProcessGroup:
+    """An NCCL group's record, never opened: for the checks that run before
+    a collective reaches the backend."""
+    return ProcessGroup(None, 0, world, "nccl", torch.device("cuda", 0), 300.0)
+
+
+@pytest.mark.parametrize("op", ["all_gather", "all_reduce_sum", "broadcast"])
+def test_nccl_group_refuses_a_host_tensor(op):
+    """NCCL has no host transport: a collective given a CPU tensor on an
+    NCCL group raises naming the tensor's device, before the backend."""
+    args = {"broadcast": (0,)}.get(op, ())
+    with pytest.raises(ValueError, match="NCCL group takes CUDA tensors, got one on cpu"):
+        getattr(distributed, op)(torch.zeros(4), *args, _nccl_group())
+
+
+def test_split_leaf_save_hands_no_host_tensor_to_a_collective(tmp_path, monkeypatch):
+    """save_checkpoint of a leaf whose row is split over processes gathers
+    the pieces on their own device and copies the result to the host
+    afterwards: the collective never sees a host tensor, which an NCCL
+    group refuses. The pieces lie on the meta device, standing for the
+    card; the gather is recorded and answers with the row's pieces."""
+    from theoremsearch_tpu_torch.encoder import sharding
+    from theoremsearch_tpu_torch.encoder.sharding import ShardedTensor
+    from theoremsearch_tpu_torch.train.checkpoint import save_checkpoint
+    from theoremsearch_tpu_torch.train.contrastive import AdamWState, TrainState
+
+    seen = []
+
+    def gather(t, pg):
+        seen.append(t.device)
+        return [torch.full(t.shape, float(r), dtype=t.dtype) for r in range(pg.size)]
+
+    monkeypatch.setattr(sharding, "all_gather", gather)
+    mesh = type("RowMesh", (), {"row_group": _nccl_group()})()
+
+    def leaf():
+        return ShardedTensor([torch.empty((3, 2), device="meta")] * 2, 1, mesh, [0, 1], 4)
+
+    state = TrainState({"w": leaf()}, AdamWState(1, {"w": leaf()}, {"w": leaf()}), 1)
+    save_checkpoint(state, tmp_path)
+    assert seen == [torch.device("meta")] * 3
+    w = np.load(tmp_path / "step_1.npz")["leaf_0"]
+    assert w.shape == (3, 8) and (w[:, 4:] == 1).all()
+
+
+def test_subgroups_keep_the_groups_timeout(monkeypatch):
+    """A row or column group waits for a peer as long as the group
+    `initialize` opened (its timeout_s), not the backend's default."""
+    calls = []
+
+    def new_group(ranks, **kw):
+        calls.append((tuple(ranks), kw))
+        return object()
+
+    monkeypatch.setattr(distributed.dist, "new_group", new_group)
+    monkeypatch.setattr(distributed, "_current",
+                        ProcessGroup(None, 2, 4, "gloo", torch.device("cpu"), 7.5))
+    monkeypatch.setattr(distributed, "_subgroups", {})
+    row, col = mesh_groups("shard", 2, 2, 1, distributed.current())
+    assert [r for r, _ in calls] == [(0, 1), (2, 3), (0, 2), (1, 3)]
+    assert all(kw["timeout"] == timedelta(seconds=7.5) for _, kw in calls)
+    assert (row.rank, row.size, row.timeout_s) == (0, 2, 7.5)
+    assert (col.rank, col.size, col.timeout_s) == (1, 2, 7.5)
 
 
 # ---------------------------------------------------------------- two processes
@@ -164,9 +243,81 @@ def _negatives_grads(cfg, params, mesh) -> list:
     grads = list(torch.autograd.grad(loss, leaves))
     for x in leaves:
         x.requires_grad_(False)
-    if mesh.data_group is not None:
-        grads = distributed.all_reduce_flat(grads, mesh.data_group)
+    if mesh.column_group is not None:
+        grads = distributed.all_reduce_flat(grads, mesh.column_group)
     return [g.detach() for g in logical_grads(params, grads)]
+
+
+def _tp_mini(mesh) -> dict:
+    """A small tensor-parallel chain in f64 over `mesh`'s shard axis that
+    runs each collective of `encoder/sharding.py:TP` once: a vocab-sharded
+    lookup (`embed`), a replicated input read by every shard (`bcast`),
+    column blocks gathered and mixed across blocks as a gathered attention
+    core mixes them (`gather`, `scatter`), a row-sharded product summed
+    over the shards (`row`). Returns the loss and the gradients of the
+    replicated input and of this process's pieces, by global piece."""
+    from theoremsearch_tpu_torch.encoder.sharding import TP, place_params
+
+    gen = torch.Generator().manual_seed(3)
+    full = {"embed": torch.randn((16, 6), generator=gen, dtype=torch.float64),
+            "wcol": torch.randn((6, 8), generator=gen, dtype=torch.float64),
+            "wrow": torch.randn((8, 6), generator=gen, dtype=torch.float64), "layers": []}
+    rules = {"embed": ("shard", None), "wcol": (None, "shard"), "wrow": ("shard", None), "layers": {}}
+    p = place_params(full, rules, mesh)
+    x = torch.randn((3, 6), generator=gen, dtype=torch.float64)
+    ids = torch.tensor([1, 7, 14])
+    leaves = [x] + [t for k in ("embed", "wcol", "wrow") for t in p[k].pieces]
+    for t in leaves:
+        t.requires_grad_(True)
+    tp = TP(p["wcol"])
+    h = x + tp.embed(p["embed"], ids)
+    g = tp.gather(tp.col(tp.bcast(h), p["wcol"]))
+    g = torch.tanh(g) * g.sum(-1, keepdim=True)
+    out = tp.row(tp.scatter(g), p["wrow"])
+    loss = (out ** 2).sum() + (h * out).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    pieces = {f"{k}{i}": grads[1 + j * len(p[k].pieces) + n].tolist()
+              for j, k in enumerate(("embed", "wcol", "wrow")) for n, i in enumerate(p[k].index)}
+    return {"loss": float(loss.detach()), "x": grads[0].tolist(), "pieces": pieces}
+
+
+def _split_row_probe(rank: int, workdir: str) -> dict:
+    """A (1, 4) mesh whose one data row is split over the two processes:
+    ShardedTensor's global shape, split and full; the TP chain; a sharded
+    state's checkpoint (written by process 0 alone, restored on one device
+    by both)."""
+    from theoremsearch_tpu_torch.encoder.sharding import _place
+    from theoremsearch_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from theoremsearch_tpu_torch.train.contrastive import (
+        init_sharded_train_state, init_train_state, tree_leaves,
+    )
+
+    m = make_mesh(MeshConfig(data=1, shard=4), devices=["cpu"] * 2)
+    full = torch.arange(96, dtype=torch.float32).view(8, 12)
+    st = _place(full, (None, "shard"), m)
+    res = {"layout": m.layout, "index": st.index, "count": st.count, "shape": list(st.shape),
+           "piece_shapes": [list(q.shape) for q in st.pieces],
+           "full_equal": torch.equal(st.full(), full),
+           "split_equal": all(torch.equal(q, b) for q, b in zip(
+               st.split(2 * full).pieces, torch.tensor_split(2 * full, 4, dim=1)[2 * rank:]))}
+    res["tp"] = _tp_mini(m)
+    cfg = EncoderConfig(**{**EncoderConfig.tiny().__dict__, "dtype": "float32",
+                           "param_dtype": "float32"})
+    tcfg = TrainConfig(batch_size=4, seq_len=16)
+    state = init_sharded_train_state(cfg, tcfg, m)
+    writes, savez = [], np.savez
+    np.savez = lambda *a, **k: (writes.append(str(a[0])), savez(*a, **k))[1]
+    try:
+        save_checkpoint(state, f"{workdir}/split")
+    finally:
+        np.savez = savez
+    res["checkpoint_writes"] = len(writes)
+    back = restore_checkpoint(f"{workdir}/split", cfg, tcfg, template=init_train_state(
+        cfg, tcfg, generator=torch.Generator().manual_seed(7), device="cpu"))
+    one = init_train_state(cfg, tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    res["checkpoint_equal_one_device"] = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(back.params), tree_leaves(one.params)))
+    return res
 
 
 def _probe(rank: int, world: int, init: str, out: str, workdir: str) -> None:
@@ -248,6 +399,7 @@ def _probe(rank: int, world: int, init: str, out: str, workdir: str) -> None:
         grads = _negatives_grads(cfg, state.params, m)
         if rank == 0:
             torch.save(grads, f"{workdir}/negatives_grads.pt")
+        res["split_row"] = _split_row_probe(rank, workdir)
     finally:
         distributed.shutdown()
     with open(out, "w") as f:
@@ -352,6 +504,46 @@ def test_checkpoint_written_once_and_restored_everywhere(pair):
         assert r["checkpoint_equal"] and r["lora_checkpoint_equal"]
     assert sorted(p.name for p in tmp.iterdir() if p.name.startswith("step_")) == ["step_0.npz"]
     assert sorted(p.name for p in (tmp / "lora").iterdir()) == ["step_0.npz"]
+
+
+def test_sharded_tensor_across_processes(pair):
+    """On a (1, 4) mesh over two processes of two entries each process
+    holds its block of pieces; `shape` is the global shape, `split` keeps
+    the local blocks and `full` gathers the row (every process joins)."""
+    res, _ = pair
+    for r, x in enumerate(res):
+        sr = x["split_row"]
+        assert sr["layout"] == "shard" and sr["index"] == [2 * r, 2 * r + 1] and sr["count"] == 4
+        assert sr["shape"] == [8, 12] and sr["piece_shapes"] == [[8, 3], [8, 3]]
+        assert sr["full_equal"] and sr["split_equal"]
+
+
+def test_tp_collectives_match_one_process_in_f64(pair):
+    """`TP`'s embed, bcast, gather and row sum over a row split between two
+    processes (`distributed.row_*`: each backward the conjugate
+    collective) give the one-process mesh's loss and gradients in f64: the
+    replicated input's gradient whole on both processes, each piece's
+    gradient that of the same global piece in one process."""
+    from theoremsearch_tpu_torch.core.meshes import Mesh
+
+    res, _ = pair
+    want = _tp_mini(Mesh(np.full((1, 4), torch.device("cpu"), dtype=object)))
+    for x in res:
+        got = x["split_row"]["tp"]
+        assert abs(got["loss"] - want["loss"]) <= 1e-12 * abs(want["loss"])
+        np.testing.assert_allclose(got["x"], want["x"], rtol=1e-12, atol=1e-12)
+        assert len(got["pieces"]) == 6
+        for k, g in got["pieces"].items():
+            np.testing.assert_allclose(g, want["pieces"][k], rtol=1e-12, atol=1e-12, err_msg=k)
+
+
+def test_split_row_checkpoint_written_once(pair):
+    """A sharded state on a row split over the processes: both gather, only
+    process 0 writes, and either restores it on one device bit-equal to
+    the same seed's unsharded params."""
+    res, _ = pair
+    assert [x["split_row"]["checkpoint_writes"] for x in res] == [1, 0]
+    assert all(x["split_row"]["checkpoint_equal_one_device"] for x in res)
 
 
 if __name__ == "__main__":

@@ -31,7 +31,15 @@ writes one JSON object with a key a part:
   `--lora-steps`, LoRA steps over the frozen sharded base).
   `--train-control` breaks the gradient sum on purpose (`train_control`)
   to show what the readings against one process catch;
-- encode: a dp encode over a (world * local, 1) mesh.
+- encode: a dp encode over a (world * local, 1) mesh;
+- tp: tensor parallelism on a `--tp-mesh` (data, shard) mesh whose data
+  rows may span processes, for each tower `--tp-towers` names (params
+  from `--tp-params-dir`, else drawn from a seeded generator): the tp
+  encode (`BatchedEncoder` on the tower's `shard_params`), the dp + tp
+  train step and LoRA steps (`--train-*`, `--lora-steps`), with
+  `--tp-checkpoint` a save_checkpoint that process 0 restores on one
+  device, and with `--tp-controls` the train step again with a row
+  collective broken on purpose (`tp_control`).
 
 Every process builds the same index, as the reference's worker does, and
 applies the same mutation stream. Each part also reports the kernel
@@ -63,9 +71,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-PARTS = ("search", "routes", "ivf", "live", "train", "encode")
+PARTS = ("search", "routes", "ivf", "live", "train", "encode", "tp")
 CONTROLS = ("sum", "no_sum", "doubled_sum")
+TP_CONTROLS = ("gather_slice", "bcast_no_sum", "row_sum")
 COLLECTIVE_TIMEOUT_S = 180.0
+# a leaf's first gradient norm at or below this share of the global one is
+# 0 to rounding (tp_readings)
+ZERO_GRAD_REL = 1e-5
 TRAIN_TEXTS = ([f"query topic {i}" for i in range(8)], [f"statement topic {i}" for i in range(8)])
 ENCODE_TEXTS = [f"multi host encode check {i}" for i in range(8)]
 
@@ -265,44 +277,65 @@ def train_batches(steps: int, vocab_size: int, path: str | None = None) -> list[
 
 
 def encoder_config(name: str):
-    """"tiny": EncoderConfig.tiny(); "tiny_f32": the same in f32 (the tiny
-    train twins' precision); "qwen": the full-width Qwen3-0.6B-class tower
-    at max_seq_len 64 with the padded vocabulary 151,936 (chip_smoke's
-    mesh_train); "qwen512": the full-width serving tower (EncoderConfig())."""
-    from theoremsearch_tpu_torch.core.config import EncoderConfig
+    """"tiny": EncoderConfig.tiny(); "tiny_f32", "gemma_tiny_f32",
+    "bert_tiny_f32": the three towers' tiny configs in f32 (the train
+    twins' precision; gemma's at 2 layers, one sliding and one global);
+    "qwen": the full-width Qwen3-0.6B-class tower at
+    max_seq_len 64 with the padded vocabulary 151,936 (chip_smoke's
+    mesh_train); "qwen4": the same at 4 layers; "qwen512": the full-width
+    serving tower (EncoderConfig()); "gemma": the full-width
+    embeddinggemma-300m-class tower at max_seq_len 128 (chip_smoke's
+    mesh_encode_tp)."""
+    from theoremsearch_tpu_torch.core.config import (
+        BertEncoderConfig, EncoderConfig, GemmaEncoderConfig,
+    )
 
-    if name == "tiny":
-        return EncoderConfig.tiny()
-    if name == "tiny_f32":
-        return EncoderConfig(**{**EncoderConfig.tiny().__dict__, "dtype": "float32",
-                                "param_dtype": "float32"})
-    if name == "qwen":
-        return EncoderConfig(vocab_size=151_936, max_seq_len=64)
-    if name == "qwen512":
-        return EncoderConfig()
-    raise ValueError(f"unknown config {name!r}")
+    f32 = {"dtype": "float32", "param_dtype": "float32"}
+    configs = {
+        "tiny": EncoderConfig.tiny,
+        "tiny_f32": lambda: EncoderConfig.tiny().replace(**f32),
+        "gemma_tiny_f32": lambda: GemmaEncoderConfig.tiny().replace(num_layers=2, **f32),
+        "bert_tiny_f32": lambda: BertEncoderConfig.tiny().replace(**f32),
+        "qwen": lambda: EncoderConfig(vocab_size=151_936, max_seq_len=64),
+        "qwen4": lambda: EncoderConfig(vocab_size=151_936, max_seq_len=64, num_layers=4),
+        "qwen512": EncoderConfig,
+        "gemma": lambda: GemmaEncoderConfig(max_seq_len=128),
+    }
+    if name not in configs:
+        raise ValueError(f"unknown config {name!r}")
+    return configs[name]()
 
 
 def train_run(cfg, tcfg, mesh, batches, seed: int, fused: str, device,
-              keep_params: bool = False) -> dict:
+              keep_params: bool = False, full=None, keep_state: bool = False) -> dict:
     """`len(batches)` dp + tp steps from `init_sharded_train_state` (params
-    drawn from a generator seeded `seed` on the mesh's first device):
-    losses, step seconds, collective stats a step, the global gradient
-    norm each update read (after the sum over processes, before the
-    clip), the distance the params moved, their checksum and element
-    count (and, with keep_params, the params themselves)."""
+    drawn from a generator seeded `seed` on the mesh's first device), or
+    from the full params `full` placed by `shard_train_state` with zero
+    moments: losses, step seconds, collective stats a step, the global
+    gradient norm each update read (after the sum over processes, before
+    the clip), the distance the params moved, a checksum of the logical
+    params (gathered over the row where it spans processes, so every
+    process holds the same bytes) and their element count (and, with
+    keep_params, the logical params and the norm of each logical leaf's
+    first gradient, from this process's pieces; with keep_state, the
+    state)."""
     from theoremsearch_tpu_torch.core import distributed
+    from theoremsearch_tpu_torch.encoder.sharding import ShardedTensor
     from theoremsearch_tpu_torch.train.contrastive import (
-        init_sharded_train_state, make_train_step, piece_leaves,
+        TrainState, init_sharded_train_state, make_optimizer, make_train_step, shard_train_state,
+        tree_leaves,
     )
 
     first = mesh.first_device
-    state = init_sharded_train_state(cfg, tcfg, mesh,
-                                     generator=torch.Generator(device=first).manual_seed(seed))
-    start = [t.detach().clone() for t in piece_leaves(state.params)]
+    if full is None:
+        state = init_sharded_train_state(cfg, tcfg, mesh,
+                                         generator=torch.Generator(device=first).manual_seed(seed))
+    else:
+        state = shard_train_state(TrainState(full, make_optimizer(tcfg).init(full), 0), mesh, cfg)
+    start = logical_leaves(state.params)
     step = make_train_step(cfg, tcfg, mesh=mesh, fused=fused)
-    losses, step_s, coll, norms = [], [], [], []
-    with grad_norms(norms):
+    losses, step_s, coll, norms, first_sq = [], [], [], [], []
+    with grad_norms(norms, first_sq if keep_params else None):
         for b in batches:
             sync(first)
             distributed.stats.reset()
@@ -312,29 +345,46 @@ def train_run(cfg, tcfg, mesh, batches, seed: int, fused: str, device,
             sync(first)
             step_s.append(time.perf_counter() - t0)
             coll.append(distributed.stats.snapshot())
-    end = piece_leaves(state.params)
+    end = logical_leaves(state.params)
     res = {"losses": losses, "step_s": step_s, "collectives_a_step": coll,
            "grad_norms": [float(n) for n in norms], "update_norm": distance(end, start),
            "params_sha256": digest(end), "numel": sum(t.numel() for t in end)}
     if keep_params:
-        res["params"] = [t.detach() for t in end]
+        res["params"] = end
+        sq = iter(first_sq)
+        res["leaf_grad_norms"] = [
+            sum(next(sq) for _ in (x.pieces if isinstance(x, ShardedTensor) else [x])) ** 0.5
+            for x in tree_leaves(state.params)]
+    if keep_state:
+        res["state"] = state
     return res
 
 
-def lora_run(cfg, tcfg, mesh, batches, seed: int, fused: str) -> dict:
+def lora_run(cfg, tcfg, mesh, batches, seed: int, fused: str, full=None, lora=None) -> dict:
     """`len(batches)` LoRA steps (rank 4 on wq and wv) over frozen sharded
-    base params drawn as `train_run` draws them: losses and a checksum of
-    the adapters."""
+    base params drawn as `train_run` draws them (or `full` placed by the
+    tower's `shard_params`), from adapters drawn from a generator seeded
+    `seed + 1` (or `lora`): losses and a checksum of the adapters."""
+    from theoremsearch_tpu_torch.encoder.families import family_module
     from theoremsearch_tpu_torch.train.contrastive import (
-        init_lora_train_state, init_sharded_train_state, make_lora_train_step, piece_leaves,
+        TrainState, init_lora_train_state, init_sharded_train_state, make_lora_train_step,
+        make_optimizer, piece_leaves,
     )
 
     first = mesh.first_device
-    base = init_sharded_train_state(cfg, tcfg, mesh,
-                                    generator=torch.Generator(device=first).manual_seed(seed)).params
     lcfg = tcfg.replace(lora_rank=4)
-    state = init_lora_train_state(base, lcfg,
-                                  generator=torch.Generator(device=first).manual_seed(seed + 1))
+    if full is None:
+        base = init_sharded_train_state(cfg, tcfg, mesh,
+                                        generator=torch.Generator(device=first).manual_seed(seed)).params
+    else:
+        base = family_module(cfg).shard_params(full, mesh)
+    if lora is None:
+        state = init_lora_train_state(base, lcfg,
+                                      generator=torch.Generator(device=first).manual_seed(seed + 1))
+    else:
+        lora = [{t: {k: v.to(first, copy=True) for k, v in ab.items()} for t, ab in e.items()}
+                for e in lora]
+        state = TrainState(lora, make_optimizer(lcfg).init(lora), 0)
     step = make_lora_train_step(cfg, lcfg, mesh=mesh, fused=fused)
     losses = []
     for b in batches:
@@ -362,6 +412,16 @@ def local_mesh(data: int, shard: int, dev):
     return Mesh(np.full((data, shard), torch.device(dev), dtype=object))
 
 
+def logical_leaves(tree) -> list:
+    """The logical leaves of a params tree (a sharded leaf's pieces joined,
+    over the row group where the row spans processes: a collective every
+    process of the row joins)."""
+    from theoremsearch_tpu_torch.encoder.sharding import unshard_params
+    from theoremsearch_tpu_torch.train.contrastive import tree_leaves
+
+    return [t.detach() for t in tree_leaves(unshard_params(tree))]
+
+
 def sync(dev) -> None:
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize(dev)
@@ -373,15 +433,20 @@ def distance(a: list, b: list) -> float:
 
 
 @contextmanager
-def grad_norms(out: list):
+def grad_norms(out: list, first_pieces: list | None = None):
     """Append to `out` the global gradient norm every AdamW update reads
-    (after the sum over processes, before the clip)."""
+    (after the sum over processes, before the clip), and to `first_pieces`
+    (when given) the sum of squares of each piece's gradient at the first
+    update, in `piece_leaves` order."""
     from theoremsearch_tpu_torch.train.contrastive import AdamW
 
     orig = AdamW.global_norm
 
-    def recorded(self, grads):
-        n = orig(self, grads)
+    def recorded(self, grads, row=None):
+        n = orig(self, grads, row)
+        if first_pieces is not None and not out:
+            first_pieces.extend(float(torch.linalg.vector_norm(g, dtype=torch.float32)) ** 2
+                                for g in grads)
         out.append(n)
         return n
 
@@ -412,13 +477,70 @@ def train_control(name: str):
         contrastive.all_reduce_flat = orig
 
 
+class _SliceGather(torch.autograd.Function):
+    """`distributed.row_gather` with `GatherRows`'s backward: the own block
+    of the gradient, not summed over the row."""
+
+    @staticmethod
+    def forward(ctx, x, pg, dim):
+        from theoremsearch_tpu_torch.core import distributed
+
+        ctx.dim, ctx.lo, ctx.n = dim, pg.rank * x.shape[dim], x.shape[dim]
+        return torch.cat(distributed.all_gather(x, pg), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+@contextmanager
+def tp_control(name: str):
+    """A tensor-parallel collective broken on purpose, for a control run:
+    "gather_slice" (the gathered core's backward a plain slice),
+    "bcast_no_sum" (a replicated input's gradient not summed over the row)
+    or "row_sum" (a replicated leaf's gradient also summed over the row,
+    before the update)."""
+    from theoremsearch_tpu_torch.core import distributed
+    from theoremsearch_tpu_torch.encoder import sharding
+    from theoremsearch_tpu_torch.train import contrastive
+
+    saved = [(sharding, "row_gather", sharding.row_gather),
+             (sharding, "row_bcast", sharding.row_bcast),
+             (contrastive.AdamW, "update", contrastive.AdamW.update)]
+    if name == "gather_slice":
+        sharding.row_gather = lambda x, pg, dim=-1: _SliceGather.apply(x, pg, dim % x.ndim)
+    elif name == "bcast_no_sum":
+        sharding.row_bcast = lambda x, pg: x
+    elif name == "row_sum":
+        update = contrastive.AdamW.update
+
+        def summed(self, grads, state, params, row=None):
+            group, order = row
+            pieces = {pos for r, pos in order if r > 0}
+            grads = [g if i in pieces else distributed.all_reduce_sum(g, group)
+                     for i, g in enumerate(grads)]
+            return update(self, grads, state, params, row)
+
+        contrastive.AdamW.update = summed
+    else:
+        raise ValueError(f"unknown tp control {name!r}")
+    try:
+        yield
+    finally:
+        for obj, attr, val in saved:
+            setattr(obj, attr, val)
+
+
 def train_readings(run: dict, one: dict, param_distance: float) -> dict:
     """How far a run across processes is from the one-process mesh's run
     on the same batches: whether the first losses are equal, the largest
     loss difference, the relative difference of the first gradient norms
     (the first sum over processes, before the trajectories part) and the
-    largest over the steps, and the distance between the final params
-    over the distance the one-process params moved."""
+    largest over the steps, the distance between the final params over
+    the distance the one-process params moved, and (where both runs kept
+    them) the largest relative difference of one piece's first gradient
+    norm (a broken sum of a few small leaves moves the global norm
+    little, and AdamW does not see a leaf's gradient scale)."""
     rel = [abs(a / b - 1.0) for a, b in zip(run["grad_norms"], one["grad_norms"])]
     return {"first_loss_equal": run["losses"][0] == one["losses"][0],
             "max_loss_delta": max(abs(a - b) for a, b in zip(run["losses"], one["losses"])),
@@ -462,6 +584,7 @@ def counters() -> dict:
             "mips_g_scan_gmask": mips.mips_g_gmask_launches, "mips_topk": mips.mips_topk_launches,
             "ivf_probe_scores": mips.ivf_scores_launches,
             "qknorm_rope_attention": attention.attention_launches,
+            "qknorm_rope_attention_gemma": attention.attention_gemma_launches,
             "qknorm_rope_attention_bwd": attention.attention_bwd_launches,
             "fused_attn_int8_layer": layer_int8.attn_int8_launches,
             "fused_mlp_int8_layer": layer_int8.mlp_int8_launches}
@@ -498,18 +621,28 @@ def log(rank: int, msg: str) -> None:
 # ---------------------------------------------------------------- the run
 
 
-def part_search(a, dev, local, pg, out) -> None:
+def search_mesh(a, local):
+    """The mesh the search part runs on: `--search-mesh` (data, shard), or
+    every entry on the shard axis (1, world * local)."""
+    from theoremsearch_tpu_torch.core.config import MeshConfig
     from theoremsearch_tpu_torch.core.meshes import make_mesh
 
+    if not a.search_mesh:
+        return make_mesh(None, devices=local)
+    data, shard = (int(x) for x in a.search_mesh.split(","))
+    return make_mesh(MeshConfig(data=data, shard=shard), devices=local)
+
+
+def part_search(a, dev, local, pg, out) -> None:
     vecs, queries = corpus(a.n, a.d, a.batch, dev)
-    mesh = make_mesh(None, devices=local)
+    mesh = search_mesh(a, local)
     idx = flat_index(vecs, dev)
     eng = flat_engine(vecs, mesh, dev, a, idx=idx)
     with Window() as w:
         got = search_lists(eng, queries, a.k)
     res = {"n_global_shards": mesh.shape["shard"], "layout": mesh.layout,
-           "local_shards": [s for s, _ in mesh.local_shards], "sharded_speed_ok": eng._speed_ok,
-           **got, **w.report()}
+           "local_shards": [s for s, _ in mesh.local_shards], "local_rows": mesh.local_rows,
+           "sharded_speed_ok": eng._speed_ok, **got, **w.report()}
     if a.time_iters:
         t0 = time.perf_counter()
         for _ in range(a.time_iters):
@@ -535,7 +668,7 @@ def part_search(a, dev, local, pg, out) -> None:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
         res["trace"] = {"path": prof.trace_path,
                         "kernels": sorted(n for n in names if "mips_g" in n)}
-    one_mesh = local_mesh(1, mesh.shape["shard"], dev)
+    one_mesh = local_mesh(mesh.shape["data"], mesh.shape["shard"], dev)
     if "search" in a.check_one_process:
         res["equal_one_process"] = search_lists(flat_engine(vecs, one_mesh, dev, a, idx=idx),
                                                 queries, a.k) == got
@@ -725,6 +858,194 @@ def part_encode(a, dev, local, pg, out) -> None:
     out["encode"] = res
 
 
+def tp_params(a, name: str, cfg, dev):
+    """A tower's full params (and LoRA adapters or None): `{name}.pt` (and
+    `{name}_lora.pt`) under `--tp-params-dir`, else drawn from a generator
+    seeded `--train-seed` on `dev`."""
+    from theoremsearch_tpu_torch.encoder.families import family_module
+
+    if a.tp_params_dir:
+        path = os.path.join(a.tp_params_dir, f"{name}.pt")
+        lpath = os.path.join(a.tp_params_dir, f"{name}_lora.pt")
+        lora = torch.load(lpath, map_location=dev, weights_only=True) if os.path.exists(lpath) else None
+        return torch.load(path, map_location=dev, weights_only=True), lora
+    gen = torch.Generator(device=dev).manual_seed(a.train_seed)
+    return family_module(cfg).init_params(cfg, gen, device=dev), None
+
+
+def tp_encode(params, cfg, mesh, texts, a) -> np.ndarray:
+    """`BatchedEncoder` on the tower's `shard_params` over `mesh` (the tp
+    encode), or on the full params on one device when mesh is None."""
+    from theoremsearch_tpu_torch.encoder.batching import BatchedEncoder
+    from theoremsearch_tpu_torch.encoder.families import family_module
+
+    buckets = tuple(int(x) for x in a.encode_buckets.split(","))
+    if mesh is None:
+        enc = BatchedEncoder(params, cfg, batch_size=a.encode_batch, buckets=buckets,
+                             device=params["embed"].device)
+    else:
+        enc = BatchedEncoder(family_module(cfg).shard_params(params, mesh), cfg, mesh=mesh,
+                             batch_size=a.encode_batch, buckets=buckets)
+    return enc.encode(texts)
+
+
+def min_cos(a: np.ndarray, b: np.ndarray) -> float:
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return float(np.min(np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))))
+
+
+def checkpoint_check(state, cfg, tcfg, dev, pg, directory: str) -> dict:
+    """save_checkpoint of a (possibly row-split) state from every process;
+    process 0 restores it into a one-device template and compares every
+    leaf (params, moments, counts) with the state's logical leaves."""
+    from theoremsearch_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from theoremsearch_tpu_torch.train.contrastive import init_train_state
+
+    sync(dev)
+    t0 = time.perf_counter()
+    save_checkpoint(state, directory)
+    save_s = time.perf_counter() - t0
+    opt = state.opt_state
+    want = [logical_leaves(t) for t in (state.params, opt.mu, opt.nu)]
+    if pg.rank != 0:
+        return {"save_s": save_s}
+    template = init_train_state(cfg, tcfg, generator=torch.Generator(device=dev).manual_seed(12345),
+                                device=dev)
+    t0 = time.perf_counter()
+    back = restore_checkpoint(directory, cfg, tcfg, template=template)
+    restore_s = time.perf_counter() - t0
+    got = [logical_leaves(t) for t in (back.params, back.opt_state.mu, back.opt_state.nu)]
+    equal = all(len(g) == len(w) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                         for x, y in zip(g, w)) for g, w in zip(got, want))
+    return {"save_s": save_s, "restore_s": restore_s, "leaves": sum(len(w) for w in want),
+            "equal": bool(equal and back.step == state.step and back.opt_state.count == opt.count),
+            "bytes": sum(t.numel() * t.element_size() for w in want for t in w)}
+
+
+def tp_readings(run: dict, one: dict, params: list) -> dict:
+    """`train_readings` of a tp run's logical `params` against the
+    one-process run, and the param distance again over the leaves whose
+    first gradient in the one-process run is not 0 to rounding (a norm
+    above ZERO_GRAD_REL of the global one), with the count and element
+    share of those left out. A leaf whose exact gradient is 0 (BERT's key
+    bias: softmax removes a shift of every key score of a query) moves by
+    the rounding noise in it, which AdamW scales up to whole steps and
+    which the row's other summation order changes."""
+    out = train_readings(run, one, distance(params, one["params"]))
+    live = [n > ZERO_GRAD_REL * one["grad_norms"][0] for n in one["leaf_grad_norms"]]
+    out["param_distance_rel_live"] = distance(
+        [x for x, k in zip(params, live) if k],
+        [y for y, k in zip(one["params"], live) if k]) / one["update_norm"]
+    out["zero_grad_leaves"] = live.count(False)
+    out["zero_grad_share"] = (sum(y.numel() for y, k in zip(one["params"], live) if not k)
+                              / sum(y.numel() for y in one["params"]))
+    out["min_leaf_grad_rel"] = min(one["leaf_grad_norms"]) / one["grad_norms"][0]
+    out["min_live_leaf_grad_rel"] = min(n for n, k in zip(one["leaf_grad_norms"], live) if k) \
+        / one["grad_norms"][0]
+    return out
+
+
+def part_tp(a, dev, local, pg, out) -> None:
+    """Tensor parallelism on the `--tp-mesh` mesh, tower by tower (see the
+    module docstring). Process 0 runs each piece again on a one-process
+    mesh of the same shape (and the encode on one device) when
+    `--check-one-process` names tp."""
+    from theoremsearch_tpu_torch.core.config import MeshConfig, TrainConfig
+    from theoremsearch_tpu_torch.core.meshes import make_mesh
+
+    data, shard = (int(x) for x in a.tp_mesh.split(","))
+    mesh = make_mesh(MeshConfig(data=data, shard=shard), devices=local)
+    check = "tp" in a.check_one_process and pg.rank == 0
+    one_mesh = local_mesh(data, shard, dev)
+    texts = ENCODE_TEXTS
+    if a.encode_texts:
+        with open(a.encode_texts) as f:
+            texts = json.load(f)
+    towers = [t for t in a.tp_towers.split(",") if t]
+    encode_n = dict(zip(towers, (int(x) for x in a.tp_encode_counts.split(",")))) \
+        if a.tp_encode_counts else {}
+    train_towers = set(a.tp_train_towers.split(",")) if a.tp_train_towers else set(towers)
+    res = {"mesh": [data, shard], "layout": mesh.layout, "local_rows": mesh.local_rows,
+           "local_shards": [s for s, _ in mesh.local_shards],
+           "row_group_size": mesh.row_group.size if mesh.row_group is not None else 1,
+           "column_group_size": mesh.column_group.size if mesh.column_group is not None else 1,
+           "towers": {}}
+    for name in towers:
+        cfg = encoder_config(name)
+        full, lora = tp_params(a, name, cfg, dev)
+        r = {}
+        n = encode_n.get(name, len(texts))
+        if n:
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            with Window() as w:
+                emb = tp_encode(full, cfg, mesh, texts[:n], a)
+            e = {"shape": list(emb.shape), "finite": bool(np.isfinite(emb).all()),
+                 "sha256": hashlib.sha256(emb.tobytes()).hexdigest(), **w.report()}
+            if dev.type == "cuda":
+                e["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            if emb.size <= 65_536:
+                e["embeddings"] = emb.astype(np.float64).tolist()
+            if check:
+                one = tp_encode(full, cfg, one_mesh, texts[:n], a)
+                e["equal_one_process"] = bool(np.array_equal(one, emb))
+                e["min_cos_vs_one_process"] = min_cos(emb, one)
+                e["min_cos_vs_one_device"] = min_cos(emb, tp_encode(full, cfg, None, texts[:n], a))
+            r["encode"] = e
+        if name in train_towers:
+            batches = train_batches(a.train_steps, cfg.vocab_size, a.train_batch)
+            tcfg = TrainConfig(batch_size=int(batches[0][0].shape[0]),
+                               seq_len=int(batches[0][0].shape[1]), learning_rate=a.lr,
+                               temperature=a.temperature)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            with Window() as w:
+                t = train_run(cfg, tcfg, mesh, batches, a.train_seed, a.fused, dev,
+                              keep_params=check, full=full, keep_state=a.tp_checkpoint)
+            t.update(w.report())
+            if dev.type == "cuda":
+                t["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            state = t.pop("state", None)
+            one = None
+            if check:
+                mine = t.pop("params")
+                one = train_run(cfg, tcfg, one_mesh, batches, a.train_seed, a.fused, dev,
+                                keep_params=True, full=full)
+                t["one_process"] = {k: one[k] for k in ("losses", "grad_norms", "update_norm")}
+                t["vs_one_process"] = tp_readings(t, one, mine)
+                t["equal_one_process"] = (one["losses"] == t["losses"]
+                                          and one["params_sha256"] == t["params_sha256"])
+            r["train"] = t
+            if a.tp_checkpoint:
+                r["checkpoint"] = checkpoint_check(state, cfg, tcfg, dev, pg,
+                                                   os.path.join(a.workdir, f"tp_checkpoint_{name}"))
+            del state
+            if a.lora_steps:
+                lb = batches[: a.lora_steps]
+                lr_ = lora_run(cfg, tcfg, mesh, lb, a.train_seed, a.fused, full=full, lora=lora)
+                if check:
+                    lone = lora_run(cfg, tcfg, one_mesh, lb, a.train_seed, a.fused, full=full, lora=lora)
+                    lr_["one_process_losses"] = lone["losses"]
+                    lr_["max_loss_delta"] = max(abs(x - y) for x, y in zip(lr_["losses"], lone["losses"]))
+                r["lora"] = lr_
+            controls = {}
+            for c in (c for t_, c in (x.split(":") for x in a.tp_controls.split(",") if x)
+                      if t_ == name):
+                with tp_control(c):
+                    tc = train_run(cfg, tcfg, mesh, batches, a.train_seed, a.fused, dev,
+                                   keep_params=check, full=full)
+                controls[c] = {"losses": tc["losses"], "params_sha256": tc["params_sha256"]}
+                if check:
+                    controls[c]["vs_one_process"] = tp_readings(tc, one, tc.pop("params"))
+            if controls:
+                r["controls"] = controls
+        res["towers"][name] = r
+        del full
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["tp"] = res
+
+
 def parse(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rank", type=int, required=True)
@@ -737,7 +1058,7 @@ def parse(argv=None):
     ap.add_argument("--parts", default="search,routes,live,train,encode")
     ap.add_argument("--workdir", default=None, help="a directory every process can read")
     ap.add_argument("--check-one-process", default="",
-                    help="parts (search, ivf, train) to run again on a one-process mesh")
+                    help="parts (search, ivf, train, tp) to run again on a one-process mesh")
     ap.add_argument("--trace-dir", default=None,
                     help="trace one speed-path batch (utils/profiling.trace) into this directory")
     # search / routes / live
@@ -776,6 +1097,19 @@ def parse(argv=None):
     ap.add_argument("--encode-quant", default="none")
     ap.add_argument("--encode-batch", type=int, default=8)
     ap.add_argument("--encode-buckets", default="16")
+    ap.add_argument("--search-mesh", default="", help="data,shard of the search part's mesh "
+                    "(default: 1,world*local)")
+    # tp
+    ap.add_argument("--tp-mesh", default="1,2", help="data,shard of the tp part's mesh")
+    ap.add_argument("--tp-towers", default="tiny_f32", help="configs (encoder_config names)")
+    ap.add_argument("--tp-train-towers", default=None, help="the towers that train (default: all)")
+    ap.add_argument("--tp-encode-counts", default="",
+                    help="texts each tower encodes, in --tp-towers order (0: none; default: all)")
+    ap.add_argument("--tp-params-dir", default=None, help="{name}.pt full params, {name}_lora.pt")
+    ap.add_argument("--tp-checkpoint", action="store_true",
+                    help="save the trained state; process 0 restores it on one device")
+    ap.add_argument("--tp-controls", default="",
+                    help=f"control runs, tower:control pairs (controls: {TP_CONTROLS})")
     a = ap.parse_args(argv)
     a.check_one_process = {p for p in a.check_one_process.split(",") if p}
     return a
@@ -802,7 +1136,7 @@ def main(argv=None) -> int:
     local = [dev] * a.local
     out = {"rank": pg.rank, "world": pg.size, "backend": pg.backend, "device": str(dev)}
     fns = {"search": part_search, "routes": part_routes, "ivf": part_ivf, "live": part_live,
-           "train": part_train, "encode": part_encode}
+           "train": part_train, "encode": part_encode, "tp": part_tp}
     try:
         for p in parts:
             log(pg.rank, f"{p} ...")

@@ -8,9 +8,11 @@ mesh spans processes (the reference's tests/multihost_worker.py).
 
 `initialize` opens the process group; `core/meshes.py:make_mesh` then
 builds the global (data, shard) grid from every process's local devices,
-and the sharded paths (the engines' per-shard merge, the dp encode, the
-dp + tp train step) reach the other processes only through the
-collectives below, each given the mesh's `ProcessGroup` explicitly:
+and the sharded paths (the engines' per-shard merge, the dp and tp
+encodes, the dp + tp train step) reach the other processes only through
+the collectives below, each given a `ProcessGroup` explicitly: the whole
+group, or a subgroup of it (`subgroup`: the processes of one data row, or
+those that hold the same shard block in every row).
 
 - `all_gather` (rank order), `all_reduce_sum`, `all_reduce_flat` (one
   collective a dtype over a list of tensors), `broadcast`, `barrier`;
@@ -18,14 +20,23 @@ collectives below, each given the mesh's `ProcessGroup` explicitly:
   computes the same global loss from the gathered rows, so the backward
   returns each process's own slice of its own upstream gradient, with no
   reduction (a reduce-scatter would count every gradient world-size
-  times); the parameter gradients are then summed over the processes.
+  times); the parameter gradients are then summed over the processes;
+- the four autograd collectives of a tensor-parallel forward over a data
+  row split across processes (`encoder/sharding.py:TP`, in SPMD form:
+  every process of the row runs the replicated work itself), each with
+  the conjugate collective as its backward: `row_bcast` (identity; the
+  gradient summed over the row), `row_reduce` (the sum over the row;
+  identity), `row_gather` (the column blocks all-gathered; the gradient
+  summed over the row and cut to the own block: a reduce-scatter, since
+  every process's gathered core reads every block).
 
 Transport: NCCL takes CUDA tensors as they are. Gloo takes host tensors,
 so a CUDA tensor goes through a host copy and comes back to its device;
-a gather moves raw bytes (any dtype, bit for bit) and a sum of bf16 or
-f16 runs in f32 on the host and is cast back once. This is the backend's
-transport, not a fallback: a collective that fails raises, and a lost
-peer raises after the group's timeout instead of hanging.
+a gather moves raw bytes (any dtype, bit for bit). A sum of bf16 or f16
+runs in f32 on either backend and is cast back once, so a sum does not
+depend on the backend. This is the backend's transport, not a fallback:
+a collective that fails raises, and a lost peer raises after the group's
+timeout instead of hanging.
 
 `stats` counts each collective's calls, the bytes this process sent into
 it, the bytes staged through the host and the host seconds it took
@@ -56,22 +67,27 @@ from ..utils.device import resolve_device
 
 __all__ = ["CollectiveStats", "ProcessGroup", "all_gather", "all_reduce_flat", "all_reduce_sum",
            "barrier", "broadcast", "current", "gather_rows", "initialize", "process_layout",
-           "shutdown", "stats"]
+           "row_bcast", "row_gather", "row_reduce", "shutdown", "stats", "subgroup"]
 
 
 @dataclass(frozen=True)
 class ProcessGroup:
     """An open process group: torch's group object, this process's rank,
-    the world size, the backend and the device this process runs on."""
+    the world size, the backend, the device this process runs on and the
+    seconds a collective may wait for a peer (`initialize`'s timeout_s,
+    which its subgroups keep)."""
 
     group: object
     rank: int
     size: int
     backend: str
     device: torch.device
+    timeout_s: float
 
 
 _current: ProcessGroup | None = None
+# rank set -> this process's subgroup over it (None where it is no member)
+_subgroups: dict[tuple[int, ...], "ProcessGroup | None"] = {}
 
 
 class CollectiveStats:
@@ -150,7 +166,7 @@ def initialize(coordinator: str, num_processes: int, process_id: int, backend: s
     kw = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=init_method, world_size=num_processes,
                             rank=process_id, timeout=timedelta(seconds=timeout_s), **kw)
-    _current = ProcessGroup(dist.group.WORLD, process_id, num_processes, backend, dev)
+    _current = ProcessGroup(dist.group.WORLD, process_id, num_processes, backend, dev, timeout_s)
     return _current
 
 
@@ -165,6 +181,30 @@ def shutdown() -> None:
     if _current is not None:
         dist.destroy_process_group()
         _current = None
+        _subgroups.clear()
+
+
+def subgroup(ranks) -> ProcessGroup | None:
+    """The group over `ranks` (ranks of the open group, in order), created
+    at the first call for that rank set and reused after; None on a
+    process outside it. `torch.distributed.new_group` must be called by
+    every process, members or not, in the same order, so every process
+    calls this for every rank set in the same order (`make_mesh` does):
+    one that skips a call leaves the others waiting until the timeout.
+    A subgroup's collectives wait as long as the open group's."""
+    pg = _current
+    if pg is None:
+        raise RuntimeError("subgroup() needs a process group: call initialize() first")
+    key = tuple(int(r) for r in ranks)
+    if key not in _subgroups:
+        if key == tuple(range(pg.size)):
+            _subgroups[key] = pg
+        else:
+            g = dist.new_group(list(key), timeout=timedelta(seconds=pg.timeout_s))
+            _subgroups[key] = (ProcessGroup(g, key.index(pg.rank), len(key), pg.backend, pg.device,
+                                            pg.timeout_s)
+                               if pg.rank in key else None)
+    return _subgroups[key]
 
 
 def process_layout(data: int, shard: int, n_local: int, n_proc: int) -> str:
@@ -174,9 +214,11 @@ def process_layout(data: int, shard: int, n_local: int, n_proc: int) -> str:
     - "local": one process holds the whole grid;
     - "data": every process holds whole data rows (n_local a multiple of
       shard: the reference's MeshConfig(data=2, shard=4) over two hosts);
-    - "shard": one data row whose shard axis spans the processes, each
-      holding a contiguous block of shards (the reference's search mesh
-      Mesh(jax.devices(), ("shard",))).
+    - "shard": every data row splits into equal blocks of whole processes
+      (shard a multiple of n_local), each holding a contiguous block of
+      the row's shards: the reference's search mesh
+      Mesh(jax.devices(), ("shard",)) at data 1, tensor parallelism
+      across processes at any data.
 
     Any other split (a block that straddles data rows) raises ValueError."""
     if min(data, shard, n_local, n_proc) < 1:
@@ -189,16 +231,24 @@ def process_layout(data: int, shard: int, n_local: int, n_proc: int) -> str:
         return "local"
     if n_local % shard == 0:
         return "data"
-    if data == 1 and shard % n_local == 0:
+    if shard % n_local == 0:
         return "shard"
     raise ValueError(
         f"a {data}x{shard} mesh over {n_proc} processes of {n_local} devices splits data rows "
-        "across processes unevenly; supported: whole data rows a process, or one data row "
-        "whose shards are split into equal blocks a process")
+        "across processes unevenly; supported: whole data rows a process, or data rows split "
+        "into equal blocks of shards a process")
 
 
 def _staged(pg: ProcessGroup, t: torch.Tensor) -> bool:
     return pg.backend == "gloo" and t.device.type == "cuda"
+
+
+def _check_transport(pg: ProcessGroup, t: torch.Tensor) -> None:
+    """NCCL moves CUDA tensors only: refuse any other before it reaches
+    the backend, whose own error does not name the tensor."""
+    if pg.backend == "nccl" and t.device.type != "cuda":
+        raise ValueError(f"an NCCL group takes CUDA tensors, got one on {t.device}: run the "
+                         "collective on the tensor's device and move its result afterwards")
 
 
 def _to_host(t: torch.Tensor, op: str, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -227,6 +277,7 @@ def all_gather(t: torch.Tensor, pg: ProcessGroup) -> list[torch.Tensor]:
     order, on `t`'s device. Through Gloo the bytes travel, so any dtype
     comes back bit for bit."""
     t = t.detach().contiguous()
+    _check_transport(pg, t)
     with _counted("all_gather", pg, t, t.numel() * t.element_size() * (1 + pg.size)):
         if pg.backend == "nccl":
             out = [torch.empty_like(t) for _ in range(pg.size)]
@@ -242,14 +293,16 @@ def all_gather(t: torch.Tensor, pg: ProcessGroup) -> list[torch.Tensor]:
 
 def all_reduce_sum(t: torch.Tensor, pg: ProcessGroup) -> torch.Tensor:
     """The sum of every process's `t`, a new tensor on `t`'s device in its
-    dtype. Through Gloo, bf16 and f16 are summed in f32 and cast back once."""
+    dtype. bf16 and f16 are summed in f32 and cast back once, on either
+    backend."""
     t = t.detach()
+    _check_transport(pg, t)
     wide = torch.float32 if t.dtype in (torch.bfloat16, torch.float16) else t.dtype
     with _counted("all_reduce", pg, t, 2 * t.numel() * wide.itemsize):
         if pg.backend == "nccl":
-            out = t.clone()
+            out = t.to(wide, copy=True)
             dist.all_reduce(out, group=pg.group)
-            return out
+            return out.to(t.dtype)
         staged = _staged(pg, t)
         h = _to_host(t, "all_reduce", wide) if staged else t.to(wide, copy=True)
         dist.all_reduce(h, group=pg.group)
@@ -275,6 +328,7 @@ def broadcast(t: torch.Tensor, src: int, pg: ProcessGroup) -> torch.Tensor:
     """Process `src`'s `t` on every process (a new tensor on `t`'s device;
     every process passes a tensor of the same shape and dtype)."""
     t = t.detach().contiguous()
+    _check_transport(pg, t)
     with _counted("broadcast", pg, t, 2 * t.numel() * t.element_size()):
         if pg.backend == "nccl":
             out = t.clone()
@@ -315,3 +369,68 @@ def gather_rows(x: torch.Tensor, pg: ProcessGroup) -> torch.Tensor:
     """Differentiable gather of every process's rows in rank order (see
     `GatherRows`)."""
     return GatherRows.apply(x, pg)
+
+
+class _RowBcast(torch.autograd.Function):
+    """Forward: `x` as it is (every process of the row holds it whole).
+    Backward: the gradient summed over the row, since each process's
+    per-shard work read `x` for its own shards only."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, pg: ProcessGroup) -> torch.Tensor:
+        ctx.pg = pg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return all_reduce_sum(g, ctx.pg), None
+
+
+class _RowReduce(torch.autograd.Function):
+    """Forward: the sum over the row of every process's partial. Backward:
+    the gradient as it is: every process of the row carries the whole
+    upstream gradient of the replicated sum."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, pg: ProcessGroup) -> torch.Tensor:
+        return all_reduce_sum(x, pg)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+class _RowGather(torch.autograd.Function):
+    """Forward: every process's block concatenated along `dim` in rank
+    order. Backward: the gradient summed over the row, then this process's
+    block (a reduce-scatter): every process runs the gathered work on all
+    blocks and keeps its own output, so each block's gradient has a part
+    from every process. (`GatherRows`'s slice with no sum is right only
+    where every process takes the same loss of the gathered rows.)"""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, pg: ProcessGroup, dim: int) -> torch.Tensor:
+        ctx.pg, ctx.dim = pg, dim
+        ctx.lo, ctx.n = pg.rank * x.shape[dim], x.shape[dim]
+        return torch.cat(all_gather(x, pg), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return all_reduce_sum(g, ctx.pg).narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+def row_bcast(x: torch.Tensor, pg: ProcessGroup) -> torch.Tensor:
+    """A replicated tensor read by per-shard work on a row split over the
+    processes of `pg`: identity forward, gradient summed over the row."""
+    return _RowBcast.apply(x, pg)
+
+
+def row_reduce(x: torch.Tensor, pg: ProcessGroup) -> torch.Tensor:
+    """The sum of every row process's partial `x`, identity backward."""
+    return _RowReduce.apply(x, pg)
+
+
+def row_gather(x: torch.Tensor, pg: ProcessGroup, dim: int = -1) -> torch.Tensor:
+    """Every row process's block of a tensor concatenated along `dim`;
+    the backward a reduce-scatter (`_RowGather`)."""
+    return _RowGather.apply(x, pg, dim % x.ndim)

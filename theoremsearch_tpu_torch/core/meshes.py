@@ -20,10 +20,17 @@ passes its own local devices and the grid is filled row-major by the
 processes' devices in rank order, as `jax.devices()` orders them. A
 process holds only its own grid positions (the others are None in
 `devices`) and its own first device is `first_device`. Two layouts are
-supported (`distributed.process_layout`): whole data rows a process
-(dp across processes; the dp encode and the train step gather their rows
-over the group) and one data row whose shards are split into blocks a
-process (the engines gather their per-shard top-k lists over the group).
+supported (`distributed.process_layout`): whole data rows a process, or
+every data row split into equal blocks of whole processes. Two subgroups
+of the process group carry the collectives:
+
+- the row group (`row_group`): the processes of this process's data row,
+  when it spans several: the engines gather their per-shard top-k lists
+  over it and a tensor-parallel forward sums its partials over it;
+- the column group (`column_group`): the processes that hold the same
+  block of shards in every data row (every process, when each holds whole
+  rows): the dp encode and the train step gather their rows over it, and
+  the train step sums its gradients over it.
 """
 
 from __future__ import annotations
@@ -35,10 +42,6 @@ from ..utils.device import resolve_device
 from . import distributed
 from .config import MeshConfig
 
-ROADMAP_TP_ACROSS_PROCESSES = (
-    "tensor parallelism across processes (a data row whose shards span processes) is not "
-    "ported (ROADMAP A.12)")
-
 
 class Mesh:
     """A (data, shard) grid of devices with named axes.
@@ -49,10 +52,12 @@ class Mesh:
     `distributed.ProcessGroup` the grid spans, or None for a mesh of this
     process's devices alone; local: bool array of the positions this
     process holds; layout: "local", "data" or "shard"
-    (`distributed.process_layout`)."""
+    (`distributed.process_layout`). row_group / column_group: the
+    subgroups of the module docstring, or None where there is no other
+    process to reach (`mesh_groups` gives them; `make_mesh` passes them)."""
 
     def __init__(self, devices, axis_names=("data", "shard"), process_group=None, local=None,
-                 layout: str = "local"):
+                 layout: str = "local", row_group=None, column_group=None):
         src = np.asarray(devices, dtype=object)
         arr = np.empty(src.shape, dtype=object)
         for pos in np.ndindex(arr.shape):
@@ -68,6 +73,8 @@ class Mesh:
         self.layout = layout
         self.process_index = process_group.rank if process_group is not None else 0
         self.process_count = process_group.size if process_group is not None else 1
+        self.row_group = row_group
+        self.column_group = column_group
 
     @property
     def home_row(self) -> int:
@@ -77,8 +84,9 @@ class Mesh:
 
     @property
     def local_rows(self) -> list[int]:
-        """The data rows this process holds whole, in order."""
-        return [int(r) for r in np.nonzero(self.local.all(axis=1))[0]]
+        """The data rows this process runs, in order: those it holds whole,
+        or the one whose block of shards it holds."""
+        return [int(r) for r in np.nonzero(self.local.any(axis=1))[0]]
 
     @property
     def local_shards(self) -> list[tuple[int, torch.device]]:
@@ -88,35 +96,16 @@ class Mesh:
         return [(s, self.devices[r, s]) for s in range(self.devices.shape[1]) if self.local[r, s]]
 
     @property
-    def shard_group(self):
-        """The group over which the engines gather per-shard lists: set
-        when this process's row is split over processes (and at world size
-        1, where the one process holds every shard); None otherwise."""
-        return self.process_group if self.layout in ("shard", "local") else None
-
-    @property
-    def data_group(self):
-        """The group over which data rows are gathered and gradients
-        summed: set when the processes hold whole data rows; None
-        otherwise."""
-        return self.process_group if self.layout in ("data", "local") else None
-
-    def require_whole_rows(self, what: str) -> None:
-        """NotImplementedError if this process's data row spans processes."""
-        if not self.local[self.home_row].all():
-            raise NotImplementedError(f"{what}: {ROADMAP_TP_ACROSS_PROCESSES}")
-
-    @property
     def shard_devices(self) -> list[torch.device]:
-        """The devices along the shard axis of the home row (the first data
-        row in one process)."""
-        self.require_whole_rows("the shard devices of a data row")
-        return list(self.devices[self.home_row])
+        """This process's devices along the shard axis of its home row (the
+        whole first row in one process; `local_shards` gives their global
+        shard indices)."""
+        return [d for _, d in self.local_shards]
 
     @property
     def data_devices(self) -> list[torch.device]:
-        """The first devices of the data rows this process holds."""
-        return [self.devices[r, 0] for r in self.local_rows]
+        """This process's first device of each data row it runs."""
+        return [self.devices[r][self.local[r]][0] for r in self.local_rows]
 
     @property
     def first_device(self) -> torch.device:
@@ -140,8 +129,9 @@ def make_mesh(cfg: MeshConfig | None = None, devices=None) -> Mesh:
     After `distributed.initialize`, `devices` are this process's own,
     every process passes as many, and the grid is the global one: the
     processes' devices in rank order, row-major; a split
-    `distributed.process_layout` refuses raises. (`Mesh(grid)` builds a
-    mesh of this process's devices alone at any time.)"""
+    `distributed.process_layout` refuses raises; `mesh_groups` gives the
+    row and column groups. (`Mesh(grid)` builds a mesh of this process's
+    devices alone at any time.)"""
     if devices is None:
         resolve_device(None)          # raises without CUDA
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -171,8 +161,35 @@ def make_mesh(cfg: MeshConfig | None = None, devices=None) -> Mesh:
     lo = pg.rank * len(devices)
     grid[lo : lo + len(devices)] = devices
     local[lo : lo + len(devices)] = True
+    row_group, column_group = mesh_groups(layout, cfg.data, cfg.shard, len(devices), pg)
     return Mesh(grid.reshape(cfg.data, cfg.shard), axis_names=names, process_group=pg,
-                local=local.reshape(cfg.data, cfg.shard), layout=layout)
+                local=local.reshape(cfg.data, cfg.shard), layout=layout, row_group=row_group,
+                column_group=column_group)
+
+
+def mesh_groups(layout: str, data: int, shard: int, n_local: int,
+                pg: "distributed.ProcessGroup") -> tuple:
+    """(row group, column group) of process `pg.rank` on a (data, shard)
+    grid of `layout` (`distributed.process_layout`), None where the group
+    would hold this process alone:
+
+    - "local" (world size 1): both the one-process group, so its
+      collectives still run (the NCCL world-1 run);
+    - "data": no row group; the column group is every process;
+    - "shard" at data 1: the row group is every process; no column group;
+    - "shard" at data > 1: subgroups (`distributed.subgroup`); every
+      process creates every row group, then every column group, in the
+      same order, as `new_group` requires."""
+    if layout == "local":
+        return pg, pg
+    if layout == "data":
+        return None, pg
+    if data == 1:
+        return pg, None
+    per_row = shard // n_local
+    rows = [distributed.subgroup(range(r * per_row, (r + 1) * per_row)) for r in range(data)]
+    cols = [distributed.subgroup(range(c, pg.size, per_row)) for c in range(per_row)]
+    return rows[pg.rank // per_row], cols[pg.rank % per_row]
 
 
 def shard_axis_size(mesh: Mesh, axis: str = "shard") -> int:
@@ -183,13 +200,14 @@ def gather_shard_lists(mesh: Mesh, lists: list, b: int, width: int, device) -> l
     """Per-shard top-k lists of the home row, in global shard order.
 
     lists: one (scores (b, width) f32, ids (b, width) int) or None a local
-    shard, in `local_shards` order. Without a shard group these are every
+    shard, in `local_shards` order. Without a row group these are every
     shard's and come back as they are. With one, they are exchanged in a
-    single all_gather (scores and ids packed as int32 words) and one
-    entry a shard of the row comes back, on `device`; an entry a process
-    passed as None holds zeros (the caller knows which shards are empty
-    from replicated state)."""
-    pg = mesh.shard_group
+    single all_gather over the row (scores and ids packed as int32 words)
+    and one entry a shard of the row comes back, on `device`; an entry a
+    process passed as None holds zeros (the caller knows which shards are
+    empty from replicated state). Every data row runs the same search (the
+    reference replicates `data`), each over its own row group."""
+    pg = mesh.row_group
     if pg is None:
         return lists
     id_dtype = next((i.dtype for _, i in filter(None, lists)), torch.int32)

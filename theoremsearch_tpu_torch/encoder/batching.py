@@ -12,13 +12,17 @@ int8 mode the codes quantized once, are copied once to every distinct
 data device. With params placed by the tower's `shard_params` each data
 row runs the tensor-parallel forward over its shard devices
 (`encoder/sharding.py`). int8 on a mesh with `shard` > 1 raises, as the
-reference's does: the tp rules have no int8 form. On a mesh whose
-processes hold whole data rows (`core/meshes.py`, after
-`core/distributed.py:initialize`) the batch is split over the global data
-rows, each process encodes its own rows (int8 too: such a mesh with
-`shard` 1 is dp-only) and the pooled rows are all-gathered over the
-group, so `encode` / `encode_device` return the whole batch on every
-process (the reference's `out_shardings=P()`).
+reference's does: the tp rules have no int8 form. On a mesh across
+processes (`core/meshes.py`, after `core/distributed.py:initialize`) the
+batch is split over the global data rows and each process encodes the
+rows it runs: its whole rows (int8 too: such a mesh with `shard` 1 is
+dp-only), or, where a row spans processes, every process of the row the
+same slice through the row's tp forward. The pooled rows are
+all-gathered over the mesh's column group, so `encode` / `encode_device`
+return the whole batch on every process (the reference's
+`out_shardings=P()`). Every choice of a sub-batch's shape (bucket,
+padding, split) is made from the texts alone, so the processes of a row
+run collectives of the same shapes.
 
 Texts are bucketed by token length into a few padded widths and batches
 pad to power-of-two sizes, so the forward sees a bounded set of shapes;
@@ -88,12 +92,11 @@ class BatchedEncoder:
         self.cfg = cfg
         self._mod = family_module(cfg)
         if mesh is not None:
-            mesh.require_whole_rows("a data-parallel encode")
             self.device = mesh.first_device
             if device is not None and resolve_device(device) != self.device:
                 raise ValueError(f"device={device} disagrees with the mesh's first device {self.device}")
-            if sharded and len(params["embed"].pieces) != mesh.shape[mesh.axis_names[1]]:
-                raise ValueError(f"params sharded {len(params['embed'].pieces)} ways do not fit "
+            if sharded and params["embed"].count != mesh.shape[mesh.axis_names[1]]:
+                raise ValueError(f"params sharded {params['embed'].count} ways do not fit "
                                  f"the mesh {mesh.shape}")
             if not sharded:
                 params = _to_device(params, self.device)
@@ -112,14 +115,14 @@ class BatchedEncoder:
             self.qlayers = self._mod.quantize_params_int8(params)
             if self.device.type == "cuda":
                 self.qlayers = kernel_layout(self.qlayers)
-        # one (device, params, qlayers) a data row this process holds:
+        # one (device, params, qlayers) a data row this process runs:
         # sharded params as the row reads them; full params copied once to
         # each distinct device (a device repeated on the axis shares its
         # copy). The batch splits over all data rows (every process's).
         data_devices = mesh.data_devices if mesh is not None else [self.device]
         self._n_data = mesh.shape[mesh.axis_names[0]] if mesh is not None else 1
         self._local_rows = mesh.local_rows if mesh is not None else [0]
-        self._group = mesh.data_group if mesh is not None else None
+        self._group = mesh.column_group if mesh is not None else None
         if sharded:
             self._rows = [(dev, row_params(params, mesh, r), None)
                           for r, dev in zip(self._local_rows, data_devices)]
@@ -199,8 +202,8 @@ class BatchedEncoder:
     def _forward(self, ids_mask: np.ndarray) -> torch.Tensor:
         """Pooled rows of one padded sub-batch (2, B, W), on self.device:
         split over the data axis (B is a multiple of its size), one
-        forward a data row this process holds, gathered in order (over the
-        mesh's process group when other processes hold other rows)."""
+        forward a data row this process runs, gathered in order (over the
+        mesh's column group when other processes run other rows)."""
         parts = np.split(ids_mask, self._n_data, axis=1)
         outs = []
         for (dev, params, qlayers), r in zip(self._rows, self._local_rows):

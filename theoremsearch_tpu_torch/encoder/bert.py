@@ -132,7 +132,7 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
     """`forward` over sharded params (`shard_params`): the LayerNorms and
     residuals on the first device, the biased projections and the GELU on
     each shard's blocks, the heads local or gathered (`sharding.TP.attention`)."""
-    tp = TP(params["embed"].devices)
+    tp = TP(params["embed"])
     ids, mask = input_ids.to(tp.first), attention_mask.to(tp.first).bool()
     dtype = _DTYPES[cfg.dtype]
     eps = cfg.layer_norm_eps

@@ -386,7 +386,7 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
     the sandwich norms, residuals and masks on the first device, the
     projections and GeGLU on each shard's blocks, the core head-local or
     gathered (`sharding.TP.attention`)."""
-    tp = TP(params["embed"].devices)
+    tp = TP(params["embed"])
     ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
     dtype = _DTYPES[cfg.dtype]
     eps = cfg.rms_norm_eps
@@ -408,10 +408,11 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
           for d in set(tp.devices)}
     for li, layer in enumerate(params["layers"]):
         glob = is_global_layer(cfg, li)
+        qn, kn = tp.rep(layer["q_norm"]), tp.rep(layer["k_norm"])
 
         def core(q, k, v, dev, div):
             lcfg = cfg.replace(num_heads=cfg.num_heads // div, num_kv_heads=cfg.num_kv_heads // div)
-            norms = {"q_norm": layer["q_norm"].to(dev), "k_norm": layer["k_norm"].to(dev)}
+            norms = {"q_norm": qn.to(dev), "k_norm": kn.to(dev)}
             am_d, kinds = on[dev]
             rope_cs, valid = kinds[glob]
             if use_fused:
@@ -431,11 +432,12 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
 
 def _head_tp(params: Params, pooled: torch.Tensor) -> torch.Tensor:
     """The ST head over sharded params: head_w1's column blocks (with the
-    matching blocks of the replicated head_b1), head_w2's row blocks, the
-    partials summed on the first device; f32 with TF32 off."""
-    tp = TP(params["head_w1"].devices)
+    matching blocks of the replicated head_b1, `TP.split`), head_w2's row
+    blocks, the partials summed on the first device (and over the row's
+    processes); f32 with TF32 off."""
+    tp = TP(params["head_w1"])
     hs = [x @ w.float() for x, w in zip(tp.bcast(pooled), params["head_w1"].pieces)]
-    hs = [h + b1 for h, b1 in zip(hs, tp.scatter(params["head_b1"].float().to(tp.first)))]
+    hs = [h + b1 for h, b1 in zip(hs, tp.split(params["head_b1"].float().to(tp.first)))]
     return tp.reduce([h @ w.float() for h, w in zip(hs, params["head_w2"].pieces)]) + \
         params["head_b2"].float().to(tp.first)
 

@@ -349,7 +349,7 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
     hidden states come back on the first. The same attention dispatch as
     the unsharded path (`_fused_ok` on the whole batch), with the core on
     each shard's heads where the kv heads divide over the shards."""
-    tp = TP(params["embed"].devices)
+    tp = TP(params["embed"])
     ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
     x = tp.embed(params["embed"], ids).to(_DTYPES[cfg.dtype])
     positions = torch.clamp(torch.cumsum(am.to(torch.int32), dim=1) - 1, min=0)
@@ -360,10 +360,11 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
     eps = cfg.rms_norm_eps
     on = {d: (rope_cs[0].to(d), rope_cs[1].to(d), am.to(d), am.bool().to(d)) for d in set(tp.devices)}
     for layer in params["layers"]:
+        qn, kn = tp.rep(layer["q_norm"]), tp.rep(layer["k_norm"])
 
         def core(q, k, v, dev, div):
             lcfg = cfg.replace(num_heads=cfg.num_heads // div, num_kv_heads=cfg.num_kv_heads // div)
-            norms = {"q_norm": layer["q_norm"].to(dev), "k_norm": layer["k_norm"].to(dev)}
+            norms = {"q_norm": qn.to(dev), "k_norm": kn.to(dev)}
             cos, sin, am_d, mask_d = on[dev]
             if use_fused:
                 return _attention_core(norms, q, k, v, am_d, (cos, sin), lcfg, plain).to(q.dtype)

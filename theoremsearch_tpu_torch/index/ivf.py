@@ -41,7 +41,7 @@ selects and rescores locally; the per-shard top-k lists are merged on
 the mesh's first device with a cross-shard dedupe (a dual-assignment copy
 and its primary can live on different shards). On a row split over
 processes each process places and scans its own shards, and the lists
-are all-gathered over the mesh's process group before the merge.
+are all-gathered over the mesh's row group before the merge.
 """
 
 from __future__ import annotations
@@ -805,8 +805,8 @@ class IVFIndex:
                     sh["ids"], sh["raw"], sh["res"], sh["res_scales"], gscale,
                     k=k, c_rescore=c_rescore)
                 lists.append((top_s.to(dev0, non_blocking=True), top_i.to(dev0, non_blocking=True)))
-            # every shard's list in global order (over the mesh's process
-            # group when the row spans processes), then the merge, with the
+            # every shard's list in global order (over the mesh's row group
+            # when the row spans processes), then the merge, with the
             # cross-shard dedupe of dual-assignment copies
             lists = gather_shard_lists(mesh, lists, b, k, dev0)
             all_s = torch.cat([e[0] for e in lists], dim=1)

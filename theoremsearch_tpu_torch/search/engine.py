@@ -53,9 +53,10 @@ Across processes (a mesh from `make_mesh` after
 index, as the reference's multi-process worker does, and places only its
 own shards, each keeping its global index and first row. Each process
 runs its shards, the per-shard lists are all-gathered over the mesh's
-process group in global shard order and merged once on each process's
-first device, so the result is replicated and bit-equal to a one-process
-mesh of the same shards. The delta, the tombstones, the filter caches
+row group (the processes of its data row) in global shard order and
+merged once on each process's first device, so the result is replicated
+and bit-equal to a one-process mesh of the same shards; every data row
+runs the same search, as the reference replicates `data`. The delta, the tombstones, the filter caches
 and every host step are replicated: each process applies the same
 mutation stream, and the route of a batch depends on replicated state
 alone, so every process joins the same collectives in the same order.
@@ -1299,7 +1300,7 @@ class SearchEngine:
         every shard this process holds, with q and each per-shard argument
         (a list of one tensor a local shard, or one tensor copied to every
         shard) on the shard's device; bring the lists to the first device
-        (over the mesh's shard group when the row spans processes:
+        (over the mesh's row group when the row spans processes:
         `core/meshes.py:gather_shard_lists`), in global shard order, and
         merge them (`merge_topk`: ties to the lower shard, then the lower
         slot, as the reference's all_gather + lax.top_k). A shard without

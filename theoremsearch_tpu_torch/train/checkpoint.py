@@ -8,10 +8,12 @@ bf16 rows, since numpy has no bf16 of its own. There is no orbax.
 
 A state on a mesh (`contrastive.init_sharded_train_state`) is saved as
 its full logical leaves, the file a single-device run writes; restoring
-into a sharded template splits each leaf as the template's. So a
-checkpoint moves between a mesh and one device either way. In a process
-group (`core/distributed.py:initialize`) every process holds the same
-state (a mesh across processes keeps its params identical): process 0
+into a sharded template splits each leaf as the template's (the pieces
+this process holds). So a checkpoint moves between a mesh and one device
+either way. In a process group (`core/distributed.py:initialize`) every
+process holds the same state, or its block of a row's pieces where a
+data row spans processes: every process gathers those leaves over its
+row group (a collective every process of the row must join), process 0
 writes the file and the others wait for it at a barrier; every process
 can restore.
 """
@@ -37,7 +39,7 @@ def _state_leaves(state: TrainState) -> list:
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, ShardedTensor):
-        leaf = leaf.full("cpu")
+        leaf = leaf.full()
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf, np.int32)
     t = leaf.detach().cpu()
@@ -48,13 +50,20 @@ def _to_numpy(leaf) -> np.ndarray:
 
 def save_checkpoint(state: TrainState, path: str | Path) -> None:
     """Write `step_{state.step}.npz` under `path`. In a process group,
-    process 0 writes and every process returns once the file is complete."""
+    every process gathers the leaves split over its row, process 0 writes
+    and every process returns once the file is complete."""
     group = current()
-    if group is None or group.rank == 0:
+    writer = group is None or group.rank == 0
+    leaves = []
+    for leaf in _state_leaves(state):
+        if isinstance(leaf, ShardedTensor) and leaf.split_over_processes:
+            leaf = leaf.full()              # the row's collective: every process joins
+        leaves.append(_to_numpy(leaf) if writer else None)
+    if writer:
         path = Path(path).resolve()
         path.mkdir(parents=True, exist_ok=True)
         np.savez(path / f"step_{int(state.step)}.npz",
-                 **{f"leaf_{i}": _to_numpy(l) for i, l in enumerate(_state_leaves(state))})
+                 **{f"leaf_{i}": a for i, a in enumerate(leaves)})
     if group is not None:
         barrier(group)
 

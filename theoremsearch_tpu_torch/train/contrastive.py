@@ -37,16 +37,24 @@ leaves stay apart: `tree_leaves` yields logical leaves in JAX's order
 (checkpoints, `train_state_from_jax`), `piece_leaves` their tensors, a
 sharded leaf's pieces in shard order (autograd and the optimizer).
 
-Across processes (item 6: a mesh from `make_mesh` after
-`core/distributed.py:initialize`, each process holding whole data rows)
-each process encodes its own rows and gathers the global batch through
-`distributed.gather_rows`, whose backward hands each process its own
-slice of the gradient; every process then takes the same global loss.
-The piece gradients are summed over the processes in one flat buffer a
-dtype (`distributed.all_reduce_flat`) before the clip and the update, so
-the clip reads the same norm everywhere and the params stay identical
-across processes. The explicit negatives carry gradient from process 0
-only, as they come from the first data row alone in one process.
+Across processes (item 6 and A.12: a mesh from `make_mesh` after
+`core/distributed.py:initialize`) each process encodes the data rows it
+runs: rows it holds whole, or, where a row spans processes, the row's
+slice through the SPMD tp forward that every process of the row runs
+(`encoder/sharding.py:TP`), whose backward sums the gradient of every
+replicated input over the row. The global batch is gathered over the
+mesh's column group through `distributed.gather_rows`, whose backward
+hands each process its own slice of the gradient; every process then
+takes the same global loss. The piece gradients are summed over the
+column group only, in one flat buffer a dtype
+(`distributed.all_reduce_flat`), before the clip and the update: a
+replicated leaf's gradient is already whole on every process of a row,
+and a sum over the row would count it once a process. The clip's norm
+adds every piece's sum of squares in global piece order (gathered over
+the row group), each replicated leaf once, so every process reads the
+same norm and the params stay identical across processes. The explicit
+negatives carry gradient from the first data row only (column-group rank
+0), as they come from the first data row alone in one process.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ import torch.nn.functional as F
 from ..core.config import EncoderConfig, TrainConfig
 from ..encoder.families import family_module
 from ..encoder.model import Params, params_from_jax
-from ..core.distributed import all_reduce_flat, gather_rows
+from ..core.distributed import all_gather, all_reduce_flat, gather_rows
 from ..encoder.sharding import ShardedTensor, row_params
 from ..utils.device import resolve_device, tf32_off
 
@@ -91,11 +99,33 @@ def logical_grads(params, grads: list) -> list:
     out = []
     for leaf in tree_leaves(params):
         if isinstance(leaf, ShardedTensor):
-            parts = [next(it) for _ in leaf.pieces]
-            out.append(torch.cat([g.to(leaf.device) for g in parts], dim=leaf.dim))
+            out.append(leaf.with_pieces([next(it) for _ in leaf.pieces]).full())
         else:
             out.append(next(it))
     return out
+
+
+def norm_order(params, mesh) -> tuple | None:
+    """Where the clip's norm finds each piece's sum of squares when the
+    mesh's data row spans processes: (the row group, one (rank in the row,
+    position in that process's `piece_leaves`) a piece in the one-process
+    order: the logical leaves in JAX's order, a sharded leaf's pieces in
+    global piece order, a replicated leaf once, from the row's first
+    process). None when this process holds every piece of its row."""
+    leaves = tree_leaves(params)
+    if mesh is None or not any(isinstance(x, ShardedTensor) and x.split_over_processes
+                               for x in leaves):
+        return None
+    order, pos = [], 0
+    for leaf in leaves:
+        if isinstance(leaf, ShardedTensor):
+            n = len(leaf.pieces)
+            order.extend((g // n, pos + g % n) for g in range(leaf.count))
+            pos += n
+        else:
+            order.append((0, pos))
+            pos += 1
+    return mesh.row_group, order
 
 
 def tree_unflatten(template, leaves):
@@ -185,24 +215,32 @@ class AdamW:
         d = float(np.float32(decay))
         return float(np.float32(1.0) - np.float32(d ** count))
 
-    def global_norm(self, grads: list) -> torch.Tensor:
+    def global_norm(self, grads: list, row: tuple | None = None) -> torch.Tensor:
         """optax.global_norm: each leaf's sum of squares in its own dtype,
         added in leaf order (the first leaf's bf16 sum promoted to f32 at
         the first f32 leaf, as Python's `sum` over JAX arrays does), sqrt. A
         sharded leaf adds its pieces' sums, each in the leaf's dtype, in f32
         (they round apart from the whole leaf's sum). On the first
-        gradient's device."""
+        gradient's device. row: `norm_order`'s (group, order) where the
+        pieces are spread over a row's processes: every process's sums are
+        gathered over the row and added in the one-process order."""
         dev = grads[0].device
         sums = [(g * g).sum().float().to(dev) for g in grads]
+        if row is not None:
+            group, order = row
+            every = all_gather(torch.stack(sums), group)
+            sums = [every[r][i] for r, i in order]
         return torch.stack(sums).cumsum(0)[-1].sqrt()
 
     @torch.no_grad()
-    def update(self, grads: list, state: AdamWState, params: list) -> AdamWState:
+    def update(self, grads: list, state: AdamWState, params: list,
+               row: tuple | None = None) -> AdamWState:
         """One step on matching tensor lists (`piece_leaves` order); params
-        and the moments change in place. Returns the new state."""
+        and the moments change in place. `row` as `global_norm`'s. Returns
+        the new state."""
         count = state.count + 1
         mus, nus = piece_leaves(state.mu), piece_leaves(state.nu)
-        norm_all = self.global_norm(grads)
+        norm_all = self.global_norm(grads, row)
         bc1 = self._bias_correction(self.b1, count)
         bc2 = self._bias_correction(self.b2, count)
         groups: dict[tuple, list[int]] = {}
@@ -323,7 +361,8 @@ def info_nce_loss(
     loss taken over the gathered global batch on the first device; the
     negatives, replicated in the reference, are encoded once, by the first
     data row (across processes every process encodes them, and they carry
-    gradient on process 0 only)."""
+    gradient on the processes of the first data row only: column-group
+    rank 0)."""
     encode_pooled = family_module(enc_cfg).encode_pooled
     if mesh is None:
         q = encode_pooled(params, q_ids, q_mask, enc_cfg, fused=fused)   # (B, D) f32, normalized
@@ -337,7 +376,7 @@ def info_nce_loss(
         logits_qp = logits
         if n_ids is not None:
             neg = encode_pooled(params, n_ids, n_mask, enc_cfg, fused=fused)
-            group = mesh.data_group if mesh is not None else None
+            group = mesh.column_group if mesh is not None else None
             if group is not None and group.rank != 0:
                 neg = neg.detach()
             logits_qp = torch.cat([logits, (q @ neg.T) / temperature], dim=1)
@@ -350,21 +389,20 @@ def _encode_rows(params, ids: torch.Tensor, mask: torch.Tensor, enc_cfg, fused: 
     encodes its slice with the params as it reads them
     (`sharding.row_params`: tp over its shard devices for sharded params),
     and the rows are gathered in order on the first device; across
-    processes each process encodes the rows it holds and the global batch
-    is gathered over the group (`distributed.gather_rows`)."""
-    mesh.require_whole_rows("the dp + tp train step")
+    processes each process encodes the rows it runs (a row split over
+    processes: every process of the row the same slice) and the global
+    batch is gathered over the column group (`distributed.gather_rows`)."""
     n = mesh.shape[mesh.axis_names[0]]
     if ids.shape[0] % n:
         raise ValueError(f"a batch of {ids.shape[0]} does not split over the {n}-way data axis")
     encode_pooled = family_module(enc_cfg).encode_pooled
     ids_rows, mask_rows = torch.tensor_split(ids, n), torch.tensor_split(mask, n)
     outs = []
-    for r in mesh.local_rows:
-        dev = mesh.devices[r, 0]
+    for r, dev in zip(mesh.local_rows, mesh.data_devices):
         outs.append(encode_pooled(row_params(params, mesh, r), ids_rows[r].to(dev),
                                   mask_rows[r].to(dev), enc_cfg, fused=fused).to(mesh.first_device))
     out = torch.cat(outs)
-    return out if mesh.data_group is None else gather_rows(out, mesh.data_group)
+    return out if mesh.column_group is None else gather_rows(out, mesh.column_group)
 
 
 def _on(x, device) -> torch.Tensor | None:
@@ -380,8 +418,10 @@ def _check_fused(fused) -> None:
 
 
 def _grad_step(opt: AdamW, state: TrainState, loss_fn, mesh=None) -> tuple[TrainState, torch.Tensor]:
-    """loss and gradients of state.params, summed over the mesh's
-    processes when it spans them, then the in-place update."""
+    """loss and gradients of state.params, summed over the mesh's column
+    group when it spans processes (never over a row: `bcast`'s backward
+    already made a replicated leaf's gradient whole there), then the
+    in-place update."""
     leaves = piece_leaves(state.params)
     for t in leaves:
         t.requires_grad_(True)
@@ -391,10 +431,10 @@ def _grad_step(opt: AdamW, state: TrainState, loss_fn, mesh=None) -> tuple[Train
     finally:
         for t in leaves:
             t.requires_grad_(False)
-    group = mesh.data_group if mesh is not None else None
+    group = mesh.column_group if mesh is not None else None
     if group is not None:
         grads = all_reduce_flat(grads, group)
-    opt_state = opt.update(grads, state.opt_state, leaves)
+    opt_state = opt.update(grads, state.opt_state, leaves, norm_order(state.params, mesh))
     return TrainState(state.params, opt_state, state.step + 1), loss.detach()
 
 

@@ -68,7 +68,9 @@ def lora_merge(params: Params, lora: LoraParams, alpha: float) -> Params:
     """Effective params: base + (alpha/rank) * A@B on each adapted matrix,
     in the base dtype (the f32 product with TF32 off). A sharded base
     matrix (`encoder/sharding.py`) gets the delta split by its own rule,
-    each block added to its piece on that piece's device."""
+    each local block added to its piece on that piece's device
+    (`ShardedTensor.blocks`: on a row split over processes the delta's
+    gradient is summed over the row)."""
     new_layers = []
     for layer, entry in zip(params["layers"], lora):
         nl = dict(layer)
@@ -78,9 +80,8 @@ def lora_merge(params: Params, lora: LoraParams, alpha: float) -> Params:
                 delta = (ab["a"] @ ab["b"]) * (alpha / rank)
             w = layer[t]
             if isinstance(w, ShardedTensor):
-                blocks = torch.tensor_split(delta, len(w.pieces), dim=w.dim)
-                nl[t] = ShardedTensor([(p.float() + d.to(p.device)).to(p.dtype)
-                                       for p, d in zip(w.pieces, blocks)], w.dim, w.mesh)
+                nl[t] = w.with_pieces([(p.float() + d.to(p.device)).to(p.dtype)
+                                       for p, d in zip(w.pieces, w.blocks(delta))])
             else:
                 nl[t] = (w.float() + delta).to(w.dtype)
         new_layers.append(nl)
