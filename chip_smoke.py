@@ -34,6 +34,31 @@ exits non-zero (there is no CPU path):
              (8, 526, 256, 1024), (16, 526, 256, 1024), (64, 1500, 256,
              1024), (13, 5, 128, 1024), (8, 3, 512, 1024), the uids ending
              in repeats of the empty fill chunk.
+25. ingest_cli  (run here, before any phase that starts threads or
+             holds the 1M corpora: the parse driver forks a child a paper)
+             a week of arXiv math listings made from a seed
+             (synthetic_week: 400 papers, new- and old-style ids, ~16
+             theorems each on shared and [section] counters, starred
+             environments, newcommand macros, labels, comments; payloads
+             a gzipped .tex, a gzipped tar with an input file, a few
+             uncompressed .tex and PDFs) in one local bundle tar, through
+             the port's ingest library: upsert_arxiv (date partition week,
+             a local listing), locate_in_bundles (every gzip member's byte
+             range, checked against the payload), parse_papers (fetcher:
+             fetch_paper_source with a ranged read of the bundle) with the
+             extracted (paper, name, label) set equal to the generator's,
+             no timeout and an empty queue; then through
+             theoremsearch_tpu_torch.cli.run on the same catalog:
+             ingest-tex (20 files), stacks --parsed (500 tags), slogans
+             (offline-stub, 16 workers, a JSONL trace with one record a
+             slogan, one slogan a theorem) and quality --sample 20, with
+             no CUDA allocation in any of these; embed --model-dir (a
+             full-width Qwen3 checkpoint of EncoderConfig() written here,
+             a WordLevel tokenizer over the bodies' words; B2) into an
+             int8-global-residual spool, one vector a theorem; search on
+             the speed route (B1 + the residual rescore), min recall@10
+             >= 0.99 over 5 draws of 1,024 vs the fp32 oracle. Each
+             step's seconds, papers parsed and slogans embedded a second.
  5. encoder  full-width Qwen3-0.6B-class encoder (28 layers, random bf16
              weights from a seeded generator): kernel path vs plain path
              cosine, then 4,096 slogans through BatchedEncoder.
@@ -314,14 +339,14 @@ exits non-zero (there is no CPU path):
              B2 at the training shape (64, 64, 16, 8, 128), the train step
              "on" and "off", and the script's total seconds.
 
-Each path (phases 5-7, 7b, 9, 11, 11r, 11l, 11c, 11s, 12, 15, 16, 16l,
+Each path (phases 25, 5-7, 7b, 9, 11, 11r, 11l, 11c, 11s, 12, 15, 16, 16l,
 16m, 16t, 18, 18m, 18g, 20, 21, 23) runs with every launch counter set to 0 just before it
 and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
-stack, the train step). Inside phase 23's window its checks (the recall
-draws, the direct path the served answers are held to) are counted apart
-and taken out.
+stack, the train step, the CLI). Inside the windows of phases 25 and 23
+their checks (the recall draws, the direct path the served answers are
+held to) are counted apart and taken out.
 """
 
 from __future__ import annotations
@@ -381,6 +406,179 @@ def queued_ms(fn, iters: int) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+_SYLLABLES = ("ba", "ce", "di", "fo", "gu", "ka", "le", "mi", "no", "pu", "ra", "se", "ti",
+              "vo", "zu", "qua", "tri", "lex", "mor", "sin", "pel", "dax", "run", "hol")
+SHARED_ENVS = (("theorem", "Theorem"), ("lemma", "Lemma"), ("proposition", "Proposition"),
+               ("corollary", "Corollary"))
+OLD_ARCHIVES = ("math", "alg-geom", "dg-ga", "funct-an", "q-alg")
+
+
+def front_words(n: int = 2048, seed: int = 0) -> list[str]:
+    """`n` distinct pseudo-words of two to four syllables from a seeded
+    generator: the vocabulary of the synthetic theorem bodies."""
+    rng = np.random.default_rng(seed)
+    out: dict[str, None] = {}
+    while len(out) < n:
+        k = int(rng.integers(2, 5))
+        out["".join(_SYLLABLES[j] for j in rng.integers(0, len(_SYLLABLES), k))] = None
+    return list(out)
+
+
+def synthetic_paper(rng, tag: str, words: list[str], n_thm: int = 16,
+                    two_files: bool = False) -> tuple[dict, list]:
+    """One synthetic arXiv-style LaTeX source and the theorems it states:
+    ({file name: text}, [(name, label), ...] in document order), the
+    names as amsthm numbers them.
+
+    The main file numbers `theorem` within sections or throughout (a coin
+    flip), puts lemma, proposition and corollary on theorem's counter
+    (\\newtheorem{lemma}[theorem]{Lemma}), `definition` on a counter of
+    its own and one starred `remark`; defines \\R and \\norm with
+    \\newcommand and uses them in the bodies; labels about two theorems in
+    three; gives some a note ([Main result]); and carries a commented-out
+    theorem and trailing comments. With `two_files` it pulls intro.tex in
+    with \\input: the scanner method reads the main file alone (the flatten
+    method inlines inputs), so intro.tex holds prose, no section and no
+    theorem."""
+    per_section = bool(rng.random() < 0.5)
+    n_sec = int(rng.integers(2, 5))
+    cuts = np.sort(rng.choice(np.arange(1, n_thm), n_sec - 1, replace=False))
+    sizes = np.diff(np.concatenate([[0], cuts, [n_thm]]))
+    remark_at = int(rng.integers(0, n_thm))
+
+    def w(k: int) -> str:
+        return " ".join(words[j] for j in rng.integers(0, len(words), k))
+
+    lines = ["\\documentclass{article}", "\\usepackage{amsmath,amssymb,amsthm}",
+             "\\newcommand{\\R}{\\mathbb{R}}", "\\newcommand{\\norm}[1]{\\left\\| #1 \\right\\|}",
+             "\\newtheorem{theorem}{Theorem}" + ("[section]" if per_section else "")]
+    lines += [f"\\newtheorem{{{env}}}[theorem]{{{cap}}}" for env, cap in SHARED_ENVS[1:]]
+    lines += ["\\newtheorem{definition}{Definition}", "\\newtheorem*{remark}{Remark}",
+              f"\\title{{On {w(3)}}}", "\\begin{document}", "\\maketitle"]
+    if two_files:
+        lines.append("\\input{intro}")
+    expected = []
+    shared = defn = k = 0
+    for s, size in enumerate(sizes, 1):
+        lines.append(f"\\section{{{w(2).capitalize()}}}")
+        if per_section:
+            shared = 0
+        lines.append(f"We now turn to {w(6)}.")
+        if rng.random() < 0.3:
+            lines.append("% \\begin{lemma} a commented-out lemma \\end{lemma}")
+        for _ in range(int(size)):
+            if k == remark_at:
+                env, name = "remark", "Remark"
+            elif rng.random() < 0.15:
+                env = "definition"
+                defn += 1
+                name = f"Definition {defn}."
+            else:
+                env, cap = SHARED_ENVS[int(rng.integers(0, len(SHARED_ENVS)))]
+                shared += 1
+                name = f"{cap} {s}.{shared}." if per_section else f"{cap} {shared}."
+            note = ""
+            if env != "remark" and rng.random() < 0.15:
+                note = w(2).capitalize()
+                name += f" ({note})"
+            label = f"{env[:3]}:{tag}-{k}" if rng.random() < 0.67 else None
+            j = int(rng.integers(1, 99))
+            body = (f"Let $x_{{{j}}} \\in \\R$ and let every {w(2)} be a {w(3)} of rank "
+                    f"{int(rng.integers(2, 999))}.")
+            if rng.random() < 0.3:
+                body += f" % {w(2)}\n"
+            body += f" Then $\\norm{{x_{{{j}}}}} \\le {j}$ and each {w(3)} is {w(2)}."
+            lines.append(f"\\begin{{{env}}}" + (f"[{note}]" if note else "")
+                         + (f"\\label{{{label}}}" if label else "") + f" {body}\n\\end{{{env}}}")
+            expected.append((name, label))
+            k += 1
+    if rng.random() < 0.5:
+        lines.append(f"\\section*{{Acknowledgements}} We thank {w(2)}.")
+    lines.append("\\end{document}")
+    files = {"main.tex": "\n".join(lines) + "\n"}
+    if two_files:
+        files["intro.tex"] = f"We study {w(12)}. Our results concern {w(8)}.\n"
+    return files, expected
+
+
+def synthetic_week(n_papers: int, seed: int = 0, n_thm: int = 16) -> list[dict]:
+    """About one week of arXiv's math listings, made from a seed: each
+    paper's metadata row, its bundle member name and source payload, and
+    the (name, label) of each theorem it states.
+
+    One id in eight is old-style (math/0309001, alg-geom/...), the rest
+    new-style (2401.00001). The payloads: a gzipped single .tex (half), a
+    gzipped tar of main.tex and its \\input intro.tex (the rest), except
+    one paper in 50 whose payload is an uncompressed .tex and one in 100
+    served as a PDF with no TeX source (no theorems). At most 1,000
+    papers: the old-style ids have seven digits."""
+    import gzip
+    import io
+    import tarfile
+
+    if n_papers > 1000:
+        raise ValueError("synthetic_week makes at most 1,000 papers")
+    rng = np.random.default_rng(seed)
+    words = front_words(seed=seed)
+    out = []
+    for i in range(n_papers):
+        if i % 8 == 7:
+            arch = OLD_ARCHIVES[(i // 8) % len(OLD_ARCHIVES)]
+            pid, member = f"{arch}/0309{i:03d}", f"0309/{arch}0309{i:03d}.gz"
+        else:
+            pid = f"2401.{i:05d}"
+            member = f"2401/{pid}.gz"
+        kind = ("pdf" if i % 100 == 53 else "raw" if i % 50 == 11
+                else "tar" if rng.random() < 0.5 else "gz")
+        files, expected = synthetic_paper(rng, pid.replace("/", "-"), words, n_thm,
+                                          two_files=kind == "tar")
+        if kind == "pdf":
+            payload, expected = b"%PDF-1.5\n" + rng.bytes(512), []
+        elif kind == "raw":
+            payload = files["main.tex"].encode()
+        elif kind == "gz":
+            payload = gzip.compress(files["main.tex"].encode(), mtime=0)
+        else:
+            buf = io.BytesIO()
+            with tarfile.open(fileobj=buf, mode="w") as tar:
+                for name, text in files.items():
+                    info = tarfile.TarInfo(name)
+                    info.size = len(text.encode())
+                    tar.addfile(info, io.BytesIO(text.encode()))
+            payload = gzip.compress(buf.getvalue(), mtime=0)
+        cat = MATH_WEEK_CATS[i % len(MATH_WEEK_CATS)]
+        out.append({
+            "paper_id": pid, "member": member, "payload": payload, "kind": kind,
+            "theorems": expected,
+            "meta": {"paper_id": pid, "title": f"On {' '.join(words[j] for j in rng.integers(0, len(words), 4))}",
+                     "authors": [f"Author {int(a)}" for a in rng.integers(0, 500, int(rng.integers(1, 4)))],
+                     "summary": f"We study {' '.join(words[j] for j in rng.integers(0, len(words), 20))}.",
+                     "link": f"https://arxiv.org/abs/{pid}", "last_updated": f"2024-01-{1 + i % 7:02d}",
+                     "journal_ref": None if i % 3 else "J. Math.", "primary_category": cat,
+                     "categories": [cat]},
+        })
+    return out
+
+
+MATH_WEEK_CATS = ("math.AG", "math.NT", "math.CO", "math.PR", "math.AP", "math.DG", "math.GT",
+                  "math.FA")
+
+
+def bundle_tar(papers: list[dict]) -> bytes:
+    """The papers' payloads as one arXiv-style source bundle (a plain tar
+    of members named as synthetic_week names them)."""
+    import io
+    import tarfile
+
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tar:
+        for p in papers:
+            info = tarfile.TarInfo(p["member"])
+            info.size = len(p["payload"])
+            tar.addfile(info, io.BytesIO(p["payload"]))
+    return buf.getvalue()
 
 
 def slogans(n: int) -> list[str]:
@@ -637,6 +835,301 @@ def min_recall(engine, corpus_dev, dev, draws: int = 5, nq: int = 1024) -> list[
     for s in range(draws):
         _, ids = engine.search_vectors(qd[s], k=10)
         out.append(recall_vs_exact(np.asarray(ids), oracle[s * nq : (s + 1) * nq], k=10))
+    return out
+
+
+def _noop() -> None:
+    pass
+
+
+def fork_round_trip_ms(n: int = 5) -> float:
+    """Mean ms to fork a child that does nothing and join it: the floor
+    under the parse driver's child a paper, in this process's state."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("fork")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        p = ctx.Process(target=_noop)
+        p.start()
+        p.join()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def stacks_json(dirpath: str, n_tags: int, words: list[str], per_section: int = 10) -> str:
+    """A pre-parsed Stacks Project export of `n_tags` items in sections of
+    `per_section` ({"theorem", "body", "label"} rows, one JSON a section)
+    and its tags file ("TAG,label" lines); returns the tags file's path."""
+    rng = np.random.default_rng(23)
+    os.makedirs(dirpath, exist_ok=True)
+    tags = ["# synthetic Stacks tags"]
+    for s in range(-(-n_tags // per_section)):
+        rows = []
+        for j in range(min(per_section, n_tags - s * per_section)):
+            label = f"section-{s}-lemma-{j}"
+            tags.append(f"{s * per_section + j:04X},{label}")
+            rows.append({"theorem": f"Lemma {s + 1}.{j + 1}.", "label": label,
+                         "body": f"Let $X$ be a scheme. Every "
+                                 f"{' '.join(words[k] for k in rng.integers(0, len(words), 6))} "
+                                 f"on $X$ is quasi-coherent."})
+        with open(os.path.join(dirpath, f"section-{s}.json"), "w") as f:
+            json.dump(rows, f)
+    path = os.path.join(dirpath, "tags")
+    with open(path, "w") as f:
+        f.write("\n".join(tags) + "\n")
+    return path
+
+
+def ingest_cli(dev, gpu: str, counters: dict, cfg=None, n_papers: int = 400, n_thm: int = 16,
+               n_tex: int = 20, n_tags: int = 500) -> dict:
+    """Phase ingest_cli: a synthetic week of arXiv math listings from LaTeX
+    sources to ids through the port's ingest library and CLI (see the
+    module docstring). Returns the phase's numbers, with the launches of
+    its recall draws under "check_launches" for the caller to take out of
+    the window; raises if a gate fails, the launch gates last."""
+    import contextlib
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from theoremsearch_tpu_torch.cli import run as cli_run
+    from theoremsearch_tpu_torch.core.config import EncoderConfig
+    from theoremsearch_tpu_torch.ingest import Catalog
+    from theoremsearch_tpu_torch.ingest.arxiv_api import ArxivPaper, upsert_arxiv
+    from theoremsearch_tpu_torch.ingest.parse_driver import parse_papers
+    from theoremsearch_tpu_torch.ingest.sources import fetch_paper_source, locate_in_bundles
+
+    cfg = cfg or EncoderConfig()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    db, bundle = os.path.join(work, "catalog.db"), os.path.join(work, "arXiv_src_2401_001.tar")
+    model_dir, spool, trace = (os.path.join(work, d) for d in ("qwen", "spool", "trace.jsonl"))
+    bundle_key = os.path.basename(bundle)
+
+    def snap() -> dict:
+        return {k: c.n for k, c in counters.items()}
+
+    def delta(a: dict, b: dict) -> dict:
+        return {k: b[k] - a[k] for k in a if b[k] != a[k]}
+
+    def allocations() -> int:
+        """CUDA allocation requests so far (the caching allocator's count)."""
+        return (torch.cuda.memory_stats(dev).get("allocation.all.allocated", 0)
+                if dev.type == "cuda" else 0)
+
+    check = dict.fromkeys(counters, 0)
+
+    @contextlib.contextmanager
+    def aside():
+        a = snap()
+        try:
+            yield
+        finally:
+            for k, v in delta(a, snap()).items():
+                check[k] += v
+
+    faults: list = []
+    launch_faults: list = []
+    secs: dict = {}
+    out: dict = {"gpu": gpu, "check_launches": check}
+
+    def timed(step: str):
+        t0 = time.perf_counter()
+        return lambda: secs.__setitem__(step, time.perf_counter() - t0)
+
+    try:
+        done = timed("generate")
+        papers = synthetic_week(n_papers, seed=29, n_thm=n_thm)
+        with open(bundle, "wb") as f:
+            f.write(bundle_tar(papers))
+        by_id = {p["paper_id"]: p for p in papers}
+        done()
+        want = {(p["paper_id"], name, label) for p in papers for name, label in p["theorems"]}
+        alloc0 = allocations()
+
+        # 1. the week's metadata (upsert_arxiv over a local source), then
+        # the byte ranges of the bundle's gzip members
+        cat = Catalog(db)
+        done = timed("arxiv")
+        by_cat: dict = {}
+        for p in papers:
+            by_cat.setdefault(p["meta"]["primary_category"], []).append(ArxivPaper(**p["meta"]))
+        n_up = upsert_arxiv(cat, categories=sorted(by_cat), date_partition="week",
+                            paper_source=lambda c: iter(by_cat[c]))
+        done()
+        done = timed("locate")
+        with open(bundle, "rb") as fh:
+            located = list(locate_in_bundles(cat, [(bundle_key, fh)]))
+        done()
+        locs = {r[0]: (r[1], r[2], r[3]) for r in cat.conn.execute(
+            "SELECT paper_id, bundle_tar, offset_start, offset_end FROM paper_arxiv_s3_location")}
+        with open(bundle, "rb") as fh:
+            raw = fh.read()
+        bad_ranges = [pid for pid, (_, a, b) in locs.items() if raw[a : b + 1] != by_id[pid]["payload"]]
+        gz = {p["paper_id"] for p in papers if p["payload"][:2] == b"\x1f\x8b"}
+        out["locate"] = {"papers_upserted": n_up, "located": located, "gzip_members": len(gz),
+                         "ranges_wrong": bad_ranges[:8]}
+        emit("ingest_cli", step="locate", **out["locate"], gpu=gpu)
+        if n_up != n_papers or set(locs) != gz or bad_ranges:
+            faults.append(f"arxiv/locate: {out['locate']}")
+
+        # 2. parse every paper in a forked child: a ranged read of the
+        # bundle where the locator found the member, else the member
+        # itself (the arxiv.org/src fallback, served from the bundle)
+        def ranged(key: str, start: int, end: int) -> bytes:
+            with open(bundle, "rb") as fh_:
+                fh_.seek(start)
+                return fh_.read(end - start + 1)
+
+        def fetch(pid: str) -> bytes:
+            loc = locs.get(pid)
+            if loc is None:
+                return by_id[pid]["payload"]
+            return fetch_paper_source(pid, loc, ranged_get=ranged)
+
+        fork_ms = fork_round_trip_ms()
+        done = timed("parse")
+        stats = parse_papers(cat, source_fetcher=fetch, timeout_s=30)
+        done()
+        got = {(r[0], r[1], r[2]) for r in cat.conn.execute(
+            "SELECT paper_id, name, label FROM theorem")}
+        queue = [r["paper_id"] for page in cat.unparsed_papers() for r in page]
+        out["parse"] = {"parsed": stats.parsed, "failed": stats.failed, "timeouts": stats.timeouts,
+                        "theorems": stats.theorems, "expected": len(want),
+                        "missing": sorted(want - got)[:4], "unexpected": sorted(got - want)[:4],
+                        "left_in_queue": len(queue),
+                        "seconds_per_paper": secs["parse"] / n_papers,
+                        "empty_child_round_trip_ms": fork_ms,
+                        "papers_per_s": n_papers / secs["parse"]}
+        emit("ingest_cli", step="parse", **out["parse"], gpu=gpu)
+        if not (got == want and stats.timeouts == 0 and stats.failed == 0
+                and stats.parsed == n_papers and not queue):
+            faults.append(f"parse: {out['parse']}")
+
+        # 3. the host subcommands, through the port's CLI on the same catalog
+        tex_dir = os.path.join(work, "tex")
+        os.makedirs(tex_dir)
+        rng = np.random.default_rng(31)
+        words = front_words(seed=29)
+        tex_want, tex_files = set(), []
+        for k in range(n_tex):
+            files, thms = synthetic_paper(rng, f"note{k}", words, n_thm)
+            path = os.path.join(tex_dir, f"note{k}.tex")
+            with open(path, "w") as f:
+                f.write(files["main.tex"])
+            tex_files.append(path)
+            tex_want |= {(f"local-note{k}", name, label) for name, label in thms}
+        done = timed("ingest_tex")
+        n_tex_thm = cli_run(["--catalog", db, "ingest-tex", *tex_files, "--category", "math.GM"])
+        done()
+        tex_got = {(r[0], r[1], r[2]) for r in cat.conn.execute(
+            "SELECT paper_id, name, label FROM theorem WHERE paper_id LIKE 'local-%'")}
+        tags = stacks_json(os.path.join(work, "stacks"), n_tags, words)
+        done = timed("stacks")
+        n_stacks = cli_run(["--catalog", db, "stacks", "--parsed", os.path.dirname(tags),
+                            "--tags", tags])
+        done()
+        n_stacks_papers = cat.count("paper", ["paper_id LIKE 'stacks-%'"])
+        n_all = cat.count("theorem")
+        done = timed("slogans")
+        cost = cli_run(["--catalog", db, "slogans", "--model", "offline-stub", "--workers", "16",
+                        "--trace", trace])
+        done()
+        per_theorem = cat.conn.execute(
+            "SELECT COUNT(*), COUNT(DISTINCT theorem_id) FROM theorem_slogan").fetchone()
+        with open(trace) as f:
+            spans = [json.loads(ln) for ln in f]
+        spans_ok = all(s["type"] == "span" and s["name"] == "generate_theorem_slogan"
+                       and s["model"] == "offline-stub" and s["latency_s"] >= 0 for s in spans)
+        done = timed("quality")
+        report = cli_run(["--catalog", db, "quality", "--sample", "20"])
+        done()
+        alloc3 = allocations()
+        out["host_cli"] = {
+            "ingest_tex_theorems": n_tex_thm, "ingest_tex_equal": tex_got == tex_want,
+            "stacks_theorems": n_stacks, "stacks_papers": n_stacks_papers,
+            "slogans": cost.calls, "slogans_rows": per_theorem[0],
+            "theorems_with_slogan": per_theorem[1], "theorems": n_all,
+            "trace_records": len(spans), "trace_records_ok": spans_ok,
+            "quality_rated": len(report.ratings), "cuda_allocations": alloc3 - alloc0}
+        emit("ingest_cli", step="host_cli", **out["host_cli"], gpu=gpu)
+        if not (tex_got == tex_want and n_tex_thm == len(tex_want) and n_stacks == n_tags
+                and n_stacks_papers == -(-n_tags // 10)
+                and n_all == len(want) + len(tex_want) + n_tags
+                and cost.calls == per_theorem[0] == per_theorem[1] == n_all
+                and len(spans) == cost.calls and spans_ok and len(report.ratings) <= 20
+                and alloc3 == alloc0):
+            faults.append(f"host subcommands: {out['host_cli']}")
+
+        # 4. embed on the card: a full-width Qwen3 checkpoint with a
+        # WordLevel tokenizer over the bodies' words and the numbers
+        done = timed("checkpoint")
+        config, tensors = qwen_checkpoint(cfg, dev, seed=37)
+        os.makedirs(model_dir)
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump(config, f)
+        write_safetensors(os.path.join(model_dir, "model.safetensors"), tensors)
+        del tensors
+        common = ["let", "every", "be", "a", "of", "rank", "then", "and", "each", "is", "math",
+                  "x", "scheme", "on", "quasi", "coherent"]
+        vocab = words + common
+        word_level_tokenizer(model_dir, vocab + [str(i) for i in range(cfg.vocab_size - 3 - len(vocab))])
+        done()
+        c0 = snap()
+        done = timed("embed")
+        n_emb = cli_run(["--catalog", db, "embed", "--model-dir", model_dir, "--spool", spool,
+                         "--index-dtype", "int8-global-residual"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        done()
+        c1 = snap()
+        n_fwd = sum(-(-min(256, n_all - s) // 64) for s in range(0, n_all, 256))
+        out["embed"] = {"slogans": n_emb, "slogans_per_s": n_emb / secs["embed"], "forwards": n_fwd,
+                        "launches": delta(c0, c1)}
+        emit("ingest_cli", step="embed", **out["embed"], gpu=gpu)
+        if n_emb != n_all:
+            faults.append(f"embed: {n_emb} slogans embedded, {n_all} theorems")
+        if c1["qknorm_rope_attention"] - c0["qknorm_rope_attention"] < 1:
+            launch_faults.append(f"embed: B2 never launched {delta(c0, c1)}")
+
+        # 5. search on the speed route (B1 + the residual rescore), then
+        # min recall@10 over 5 draws against the fp32 oracle
+        query = cat.conn.execute("SELECT slogan FROM theorem_slogan ORDER BY slogan_id "
+                                 "LIMIT 1 OFFSET ?", (n_all // 3,)).fetchone()[0]
+        c0 = snap()
+        done = timed("search")
+        engine = cli_run(["--catalog", db, "search", query, "--model-dir", model_dir,
+                          "--spool", spool])
+        done()
+        c1 = snap()
+        routes = dict(engine.route_counts)
+        _, corpus = spool_corpus(spool, dev)
+        with aside():
+            recalls = min_recall(engine, corpus, dev)
+        out["search"] = {"rows": engine.n_valid, "route_counts": routes,
+                         "recall_draws": recalls, "recall_min": min(recalls),
+                         "launches": delta(c0, c1)}
+        emit("ingest_cli", step="search", **out["search"], gpu=gpu)
+        if not (engine.n_valid == n_all and routes == {"speed": 1}
+                and min(recalls) >= 0.99):
+            faults.append(f"search: {out['search']}")
+        if c1["mips_g_scan"] - c0["mips_g_scan"] < 1:
+            launch_faults.append(f"search: B1 never launched {delta(c0, c1)}")
+        cat.close()
+        del engine, corpus
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = secs
+    out["papers_parsed_per_s"] = out.get("parse", {}).get("papers_per_s")
+    out["slogans_embedded_per_s"] = out.get("embed", {}).get("slogans_per_s")
+    emit("ingest_cli", step="summary", seconds=secs, papers_parsed_per_s=out["papers_parsed_per_s"],
+         slogans_embedded_per_s=out["slogans_embedded_per_s"], gpu=gpu)
+    if faults or launch_faults:
+        raise AssertionError("ingest_cli: " + "; ".join(faults + launch_faults))
     return out
 
 
@@ -2313,6 +2806,22 @@ def main(argv=None) -> int:
         if not ok:
             raise AssertionError(f"B6 kernel disagrees with its plain version at {[bb, p6, r6, D]}")
     del sl6, ck, cp
+
+    # ---- 25. ingest_cli: a week of synthetic arXiv sources to ids through
+    # the port's ingest library and CLI. It runs before any phase that
+    # starts threads or allocates the 1M corpora: the parse driver forks a
+    # child a paper ----
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_start()
+    ic_checks = ingest_cli(dev, gpu, counters)["check_launches"]
+    path_ic = path_end(aside=ic_checks)
+    emit("ingest_cli", step="window", launches=path_ic, check_launches_taken_out=ic_checks, gpu=gpu)
+    unlaunched = [k for k in ("mips_g_scan", "qknorm_rope_attention") if path_ic[k] < 1]
+    if unlaunched:
+        raise AssertionError(f"ingest_cli: kernels never launched in its window: {unlaunched}")
 
     # ---- 5. encoder at full width ----
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)

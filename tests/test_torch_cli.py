@@ -1,8 +1,11 @@
 """The port's command line (theoremsearch_tpu_torch/cli.py) on the CPU:
-every device subcommand through `run([...])` with `--device cpu`, on a
-catalog filled as the JAX tests fill theirs and a synthetic qwen
-checkpoint (`--model-dir`), held to the JAX package's CLI on the same
-inputs where both compute the same thing; the serving stack with a
+the reference's fourteen subcommands and their flags; every device
+subcommand through `run([...])` with `--device cpu`, on a catalog filled
+as the JAX tests fill theirs and a synthetic qwen checkpoint
+(`--model-dir`), held to the JAX package's CLI on the same inputs where
+both compute the same thing; the seven host subcommands through both
+CLIs, from a source bundle and a fake arXiv listing to equal catalogs,
+and on to the same search ids; the serving stack with a
 catalog refresh thread (a twin of tests/test_live_refresh.py's server
 case); the compare-embedders cases of tests/test_experiments.py; and the
 entry point."""
@@ -122,18 +125,34 @@ def _spool_rows(spool):
 # ------------------------------------------------------------ the surface
 
 
+def _flags(parser) -> dict:
+    """A subparser's arguments: dest -> (option strings, default, choices,
+    nargs, type, required)."""
+    return {a.dest: (a.option_strings, a.default, a.choices, a.nargs, a.type, a.required)
+            for a in parser._actions if a.dest != "help"}
+
+
 def test_help_lists_the_device_subcommands():
+    """`--help` lists the reference's fourteen subcommands, in its order;
+    each takes the reference's flags with its defaults, plus `--device` on
+    the seven device subcommands and on no host subcommand."""
+    from theoremsearch_tpu.cli import build_parser as jax_build_parser
+
     res = subprocess.run([sys.executable, "-m", "theoremsearch_tpu_torch", "--help"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
-    for cmd in DEVICE_CMDS:
-        assert cmd in res.stdout
-    for cmd in HOST_ONLY:
-        assert cmd not in res.stdout
+    ref = jax_build_parser()._subparsers._group_actions[0].choices
     sub = build_parser()._subparsers._group_actions[0].choices
-    assert sorted(sub) == sorted(DEVICE_CMDS)
+    assert list(sub) == list(ref) and len(sub) == 14
+    assert sorted(DEVICE_CMDS + HOST_ONLY) == sorted(sub)
     for cmd, parser in sub.items():
-        assert "--device" in parser.format_help(), cmd
+        assert cmd in res.stdout
+        mine = _flags(parser)
+        if cmd in DEVICE_CMDS:
+            assert mine.pop("device")[0] == ["--device"], cmd
+        else:
+            assert "device" not in mine and "--device" not in parser.format_help(), cmd
+        assert mine == _flags(ref[cmd]), cmd
 
 
 @pytest.mark.parametrize("cmd", DEVICE_CMDS)
@@ -379,3 +398,129 @@ def test_serve_refresh_thread_end_to_end(tmp_path, catalog_file):
     assert not poller, "the refresh thread outlived the server"
     assert IndexBuilder(args.spool).total_rows == 43       # the refreshed vector was spooled
     cat.close()
+
+
+# ------------------------------------------- the host subcommands, twinned
+
+
+def _printed_hits(lines):
+    """(score, "name — title") of each hit line search printed."""
+    return [(float(ln[1:7]), ln.split("] ", 1)[1]) for ln in lines if ln.startswith("[")]
+
+
+def test_host_subcommands_twin_sources_to_ids(tmp_path, monkeypatch, capsys, model_dir):
+    """ingest-arxiv (a fake listing in place of the arXiv client),
+    locate-s3 (a local bundle in place of S3), parse, ingest-tex, stacks,
+    slogans (16 workers, a JSONL trace) and quality through both CLIs
+    on copies of one catalog: equal paper, theorem, slogan, parse_status
+    and location tables and equal printed lines. Then embed and search on
+    each package's own catalog with the same checkpoint: the same ids
+    wherever the printed scores are unique, from sources to ids."""
+    import importlib
+
+    from chip_smoke import bundle_tar, front_words, stacks_json, synthetic_paper, synthetic_week
+
+    # gzip payloads only: the locator skips the rest, and parse's fallback
+    # for an unlocated paper is arxiv.org
+    papers = [p for p in synthetic_week(24, seed=3, n_thm=5) if p["kind"] in ("gz", "tar")]
+    bundle = tmp_path / "arXiv_src_2401_001.tar"
+    bundle.write_bytes(bundle_tar(papers))
+    cats = sorted({p["meta"]["primary_category"] for p in papers})
+    words = front_words(seed=3)
+    tags = stacks_json(str(tmp_path / "stacks"), 30, words)
+    rng = np.random.default_rng(5)
+    tex_files = []
+    for k in range(3):
+        files, _ = synthetic_paper(rng, f"note{k}", words, 6)
+        tex_files.append(str(tmp_path / f"note{k}.tex"))
+        Path(tex_files[-1]).write_text(files["main.tex"])
+    monkeypatch.setitem(sys.modules, "requests", None)    # no network fallback, ever
+    monkeypatch.setitem(sys.modules, "boto3", None)
+
+    def ranged(key, start, end):
+        with open(bundle, "rb") as f:
+            f.seek(start)
+            return f.read(end - start + 1)
+
+    for pkg in ("theoremsearch_tpu", "theoremsearch_tpu_torch"):
+        api = importlib.import_module(f"{pkg}.ingest.arxiv_api")
+        src = importlib.import_module(f"{pkg}.ingest.sources")
+
+        def listing(query, date_partition="month", api=api, **kw):
+            assert query.startswith("cat:") and date_partition == "week"
+            return iter([api.ArxivPaper(**p["meta"]) for p in papers
+                         if p["meta"]["primary_category"] == query[4:]])
+
+        monkeypatch.setattr(api, "iter_arxiv_papers", listing)
+        monkeypatch.setattr(src, "s3_bundle_iterator",
+                            lambda bundle_start=0: iter([(bundle.name, open(bundle, "rb"))][bundle_start:]))
+        monkeypatch.setattr(src, "default_ranged_get", ranged)
+
+    empty = tmp_path / "empty.db"
+    Catalog(str(empty)).close()
+    dbs = {"jax": _copy(empty, tmp_path / "jax"), "torch": _copy(empty, tmp_path / "torch")}
+    steps = [["ingest-arxiv", "--categories", *cats, "--date-partition", "week"],
+             ["locate-s3", "--bundle-start", "0"], ["parse", "--timeout", "30"],
+             ["ingest-tex", *tex_files, "--authors", "A. Uthor", "B. Author"],
+             ["stacks", "--parsed", str(Path(tags).parent), "--tags", tags],
+             ["slogans", "--model", "offline-stub", "--workers", "16", "--trace", "TRACE"],
+             ["quality", "--sample", "20"]]
+    printed, results = {"jax": [], "torch": []}, []
+    capsys.readouterr()
+    for argv in steps:
+        for name, fn in (("jax", jax_main), ("torch", run)):
+            trace = str(tmp_path / name / "trace.jsonl")
+            out = fn(["--catalog", dbs[name]] + [trace if a == "TRACE" else a for a in argv])
+            printed[name].append(capsys.readouterr().out.splitlines())
+            if name == "torch":
+                results.append(out)
+    assert printed["torch"] == printed["jax"]
+    n_up, located, stats, n_tex, n_stacks, cost, report = results
+    n_thm = sum(len(p["theorems"]) for p in papers)
+    assert n_up == len(papers) and located == [(bundle.name, len(papers))]
+    assert (stats.parsed, stats.failed, stats.timeouts, stats.theorems) == (len(papers), 0, 0, n_thm)
+    assert n_stacks == 30 and n_tex == 3 * 6 and report.ratings == []
+    cat_j, cat_p = JCatalog(dbs["jax"]), Catalog(dbs["torch"])
+    for table, sql in (("paper", "SELECT * FROM paper"),
+                       ("theorem", "SELECT * FROM theorem"),
+                       ("theorem_slogan", "SELECT * FROM theorem_slogan"),
+                       ("parse_status", "SELECT paper_id, status, theorems FROM parse_status"),
+                       ("paper_arxiv_s3_location", "SELECT * FROM paper_arxiv_s3_location")):
+        rows = [sorted(map(tuple, c.conn.execute(sql))) for c in (cat_j, cat_p)]
+        assert rows[0] == rows[1], table
+    n_all = cat_p.count("theorem")
+    assert n_all == n_thm + 30 + 18 == cost.calls == cat_p.count("theorem_slogan")
+    got = {(r[0], r[1], r[2]) for r in cat_p.conn.execute(
+        "SELECT paper_id, name, label FROM theorem WHERE paper_id NOT LIKE 'stacks-%' "
+        "AND paper_id NOT LIKE 'local-%'")}
+    assert got == {(p["paper_id"], n, lbl) for p in papers for n, lbl in p["theorems"]}
+    traces = [len((tmp_path / name / "trace.jsonl").read_text().splitlines()) for name in dbs]
+    assert traces == [n_all, n_all]
+
+    # sources -> ids: embed and search on each package's own catalog
+    query = cat_p.conn.execute("SELECT slogan FROM theorem_slogan ORDER BY slogan_id "
+                               "LIMIT 1 OFFSET 17").fetchone()[0]
+    cat_j.close()
+    cat_p.close()
+    common = ["embed", "--model-dir", model_dir, "--index-dtype", "int8-global-residual"]
+    jax_main(["--catalog", dbs["jax"]] + common + ["--spool", str(tmp_path / "jax" / "spool")])
+    assert run(["--catalog", dbs["torch"]] + common +
+               ["--spool", str(tmp_path / "torch" / "spool"), "--device", "cpu"]) == n_all
+    capsys.readouterr()
+    search = ["search", query, "--model-dir", model_dir, "--top-k", "10"]
+    jax_main(["--catalog", dbs["jax"]] + search + ["--spool", str(tmp_path / "jax" / "spool")])
+    want = _printed_hits(capsys.readouterr().out.splitlines())
+    engine = run(["--catalog", dbs["torch"]] + search +
+                 ["--spool", str(tmp_path / "torch" / "spool"), "--device", "cpu"])
+    hits = _printed_hits(capsys.readouterr().out.splitlines())
+    assert engine.route_counts == {"speed": 1} and engine.n_valid == n_all
+    assert len(hits) == len(want) == 10
+    # bf16 forwards of the two packages agree at cosine > 0.999, so a
+    # printed score moves by a few 1e-3: a hit may trade places only with
+    # one the reference scored within 5e-3 of its rank
+    want_at = {hit: s for s, hit in want}
+    assert len(want_at) == 10
+    for r, ((s, hit), (ws, whit)) in enumerate(zip(hits, want)):
+        assert abs(s - ws) <= 5e-3, (r, hits, want)
+        if hit != whit:
+            assert (hit in want_at and abs(want_at[hit] - ws) <= 5e-3) or r == 9, (r, hits, want)

@@ -61,7 +61,9 @@ def test_module_list_covers_the_slice():
                  "serve.http_api", "index.flat", "index.quant", "index.ivf", "index.builder",
                  "eval.oracle", "train.contrastive", "train.lora", "train.checkpoint", "train.data",
                  "eval.harness", "cli", "encoder.gemma", "encoder.bert", "encoder.families",
-                 "encoder.loader", "core.meshes", "core.distributed", "utils.profiling"):
+                 "encoder.loader", "core.meshes", "core.distributed", "utils.profiling",
+                 "ingest.parse_driver", "ingest.latex.extract", "slogans.generate", "eval.quality",
+                 "serve.ui"):
         assert f"theoremsearch_tpu_torch.{want}" in MODULES
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
         "mips_g.cu", "mips_topk.cu", "attention.cu", "attention_bwd.cu", "layer_int8.cu",
@@ -102,7 +104,18 @@ def test_test_helpers_and_meshes_need_no_jax():
 VERBATIM = ["core/config.py", "utils/shapes.py", "utils/gc_tuning.py", "search/metadata.py",
             "search/filters.py", "encoder/tokenizer.py", "serve/latex_display.py",
             "eval/metrics.py", "train/data.py", "eval/harness.py", "encoder/families.py",
-            "ingest/catalog.py", "eval/experiments.py"]
+            "ingest/catalog.py", "eval/experiments.py",
+            # the front of the pipeline: ingest, slogans, the quality probes
+            "utils/tracing.py", "utils/progress.py", "ingest/__init__.py",
+            "ingest/latex/__init__.py", "ingest/latex/scanner.py", "ingest/latex/numbering.py",
+            "ingest/latex/declarations.py", "ingest/latex/macros.py", "ingest/latex/extract.py",
+            "ingest/main_tex.py", "ingest/sources.py", "ingest/methods/__init__.py",
+            "ingest/methods/flatten.py", "ingest/methods/tex_capture.py",
+            "ingest/methods/plastex_method.py", "ingest/parse_driver.py", "ingest/stacks.py",
+            "ingest/citations.py", "ingest/arxiv_api.py", "slogans/__init__.py",
+            "slogans/prompts.py", "slogans/client.py", "slogans/cost.py", "slogans/generate.py",
+            "slogans/batch.py", "eval/quality.py"]
+PROMPT_CONFIGS = sorted(p.name for p in (ROOT / "theoremsearch_tpu" / "slogans" / "prompt_configs").iterdir())
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -110,3 +123,31 @@ def test_verbatim_copies_match_their_source(rel):
     lines = (PKG / rel).read_text().splitlines(keepends=True)
     assert lines[0].startswith(f"# Verbatim copy of theoremsearch_tpu/{rel} ")
     assert "".join(lines[2:]) == (ROOT / "theoremsearch_tpu" / rel).read_text()
+
+
+@pytest.mark.parametrize("name", PROMPT_CONFIGS)
+def test_prompt_configs_are_byte_equal(name):
+    """The shipped slogan prompt configs (and their README) are data the
+    port carries byte for byte: prompt ids key the slogan versions."""
+    assert len(PROMPT_CONFIGS) == 4
+    got = PKG / "slogans" / "prompt_configs" / name
+    assert got.read_bytes() == (ROOT / "theoremsearch_tpu" / "slogans" / "prompt_configs" / name).read_bytes()
+
+
+def test_ingest_and_slogans_leave_cuda_alone():
+    """The front of the pipeline is host work: importing it loads no torch
+    (so a parse child forked from it carries no CUDA state), and a process
+    that has imported it has no CUDA context."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import theoremsearch_tpu_torch.ingest, theoremsearch_tpu_torch.slogans\n"
+        "import theoremsearch_tpu_torch.ingest.parse_driver, theoremsearch_tpu_torch.ingest.stacks\n"
+        "import theoremsearch_tpu_torch.ingest.arxiv_api, theoremsearch_tpu_torch.slogans.batch\n"
+        "assert 'torch' not in sys.modules, 'the ingest and slogan modules imported torch'\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]

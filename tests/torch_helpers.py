@@ -22,11 +22,15 @@ the card's machine runs tests/test_torch_cuda.py without jax.
 - `run_processes(cmds, logdir, timeout)`: the processes of a
   multi-process test, started together; on a timeout every one is killed
   and the test fails.
+- `Pkg(name)` / `twin(case)`: a twin case written once over a package's
+  modules (`pkg("ingest.latex.extract")`), run on the reference and on
+  the port; their results must be equal.
 """
 
 from __future__ import annotations
 
 import fcntl
+import importlib
 import os
 import tempfile
 
@@ -86,3 +90,25 @@ def run_processes(cmds: list[list[str]], logdir, timeout: float = 180.0) -> list
         return torch_multihost_worker.launch(cmds, str(logdir), timeout)
     except RuntimeError as e:
         pytest.fail(str(e))
+
+
+class Pkg:
+    """One package's modules by their path under it: the reference
+    ("theoremsearch_tpu") or the port ("theoremsearch_tpu_torch")."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __call__(self, rel: str):
+        return importlib.import_module(f"{self.name}.{rel}")
+
+    def catalog(self, path=":memory:"):
+        return self("ingest.catalog").Catalog(path)
+
+
+def twin(case, *args):
+    """`case(pkg, *args)` on the reference and on the port: the results
+    must be equal; returns the port's."""
+    ref, port = (case(Pkg(name), *args) for name in ("theoremsearch_tpu", "theoremsearch_tpu_torch"))
+    assert port == ref
+    return port

@@ -1,6 +1,15 @@
 """Command line of the port (counterpart of theoremsearch_tpu/cli.py): the
-device subcommands, on the card unless `--device cpu` is given.
+reference's fourteen subcommands. The host subcommands ingest, parse and
+rate on the CPU, through the catalog alone; the device subcommands run on
+the card unless `--device cpu` is given.
 
+    python -m theoremsearch_tpu_torch ingest-arxiv --categories math.AG --date-partition week
+    python -m theoremsearch_tpu_torch locate-s3 --bundle-start 0
+    python -m theoremsearch_tpu_torch parse --timeout 30 --limit 100
+    python -m theoremsearch_tpu_torch stacks --parsed stacks_parsed.zip --tags tags
+    python -m theoremsearch_tpu_torch slogans --model offline-stub --prompt-id body-only-v1
+    python -m theoremsearch_tpu_torch ingest-tex paper.tex --title "My notes"
+    python -m theoremsearch_tpu_torch quality --sample 20
     python -m theoremsearch_tpu_torch --catalog catalog.db embed --model-dir M --spool ./spool
     python -m theoremsearch_tpu_torch --catalog catalog.db build-ivf --spool ./spool --calibrate
     python -m theoremsearch_tpu_torch --catalog catalog.db search "chromatic number bound"
@@ -11,22 +20,22 @@ device subcommands, on the card unless `--device cpu` is given.
     python -m theoremsearch_tpu_torch train --steps 100 --checkpoint-dir ckpt --eval
     python -m theoremsearch_tpu_torch train --device cpu --steps 4     # a CPU run
 
-The flags are the reference's, plus `--device` on every subcommand
-(default: the card; no CPU fallback). `--model-dir` loads a local
-HuggingFace checkpoint of any of the three families (qwen, gemma, BERT:
-detected from its config.json), with its tokenizer when the directory
-holds one and its sentence-transformers role prompts; without it the
-encoder is the hermetic one of `--embedder` (its family's tiny() config,
-weights from a generator seeded 0).
-
-The reference's host-only subcommands (ingest-arxiv, locate-s3, parse,
-stacks, slogans, ingest-tex, quality) touch no device and are not
-registered here: they stay with `python -m theoremsearch_tpu`, on the same
-catalog file.
+The flags are the reference's, plus `--device` on the seven device
+subcommands (embed, build-ivf, search, serve, eval, compare-embedders,
+train; default: the card; no CPU fallback). The host subcommands
+(ingest-arxiv, locate-s3, parse, stacks, slogans, ingest-tex, quality)
+take no `--device` and touch no device: ingest-arxiv, locate-s3 and the
+tex / plastex parse methods need the network, boto3, pdflatex or plasTeX,
+as in the reference. `--model-dir` loads a local HuggingFace checkpoint
+of any of the three families (qwen, gemma, BERT: detected from its
+config.json), with its tokenizer when the directory holds one and its
+sentence-transformers role prompts; without it the encoder is the
+hermetic one of `--embedder` (its family's tiny() config, weights from a
+generator seeded 0).
 
 `run([...])` returns each subcommand's result (the engine, the index,
-the losses, the metrics) to an in-process caller; `main` is the console
-entry point.
+the losses, the metrics, the parse stats, the slogan cost) to an
+in-process caller; `main` is the console entry point.
 """
 
 from __future__ import annotations
@@ -89,6 +98,117 @@ def _batched_encoder(args):
         prompts = {}
     return BatchedEncoder(params, cfg, tokenizer=tok, prompts=prompts,
                           quant=getattr(args, "quant", "none"), device=device)
+
+
+def cmd_ingest_arxiv(args):
+    from .ingest.arxiv_api import MATH_CATEGORIES, upsert_arxiv
+    from .ingest.citations import get_paper_citations
+
+    cats = args.categories or MATH_CATEGORIES
+    n = upsert_arxiv(
+        _catalog(args),
+        categories=cats,
+        date_partition=args.date_partition,
+        citation_lookup=get_paper_citations if args.citations else None,
+    )
+    print(f"upserted {n} papers")
+    return n
+
+
+def cmd_locate_s3(args):
+    from .ingest.sources import locate_in_bundles, s3_bundle_iterator
+
+    cat = _catalog(args)
+    located = []
+    for key, n in locate_in_bundles(cat, s3_bundle_iterator(args.bundle_start)):
+        print(f"{key}: located {n}")
+        located.append((key, n))
+    return located
+
+
+def cmd_parse(args):
+    from .ingest.parse_driver import parse_papers
+
+    stats = parse_papers(
+        _catalog(args),
+        timeout_s=args.timeout,
+        limit=args.limit,
+        parsing_method=args.parsing_method,
+        debug=args.debugging_mode,
+        verbose=True,
+    )
+    print(
+        f"parsed={stats.parsed} failed={stats.failed} timeouts={stats.timeouts}"
+        f" theorems={stats.theorems} rate={stats.parse_rate:.2%}"
+    )
+    return stats
+
+
+def cmd_stacks(args):
+    from .ingest.stacks import load_tag_map, upsert_stacks_from_json
+
+    tag_map = load_tag_map(args.tags) if args.tags else {}
+    n = upsert_stacks_from_json(_catalog(args), args.parsed, tag_map)
+    print(f"ingested {n} stacks theorems")
+    return n
+
+
+def cmd_slogans(args):
+    from .slogans import generate_slogans, get_client, load_prompt
+    from .utils.tracing import get_tracer
+
+    prompt = load_prompt(args.prompt_id, prompts_dir=args.prompts_dir)
+    client = get_client(args.model)
+    tracer = get_tracer("jsonl", args.trace) if args.trace else None
+    cost = generate_slogans(
+        _catalog(args), prompt, client, model_name=args.model,
+        workers=args.workers, limit=args.limit, tracer=tracer,
+    )
+    print(json.dumps(cost.summary()))
+    return cost
+
+
+def cmd_ingest_tex(args):
+    """Ingest local .tex files directly: each file becomes a synthetic
+    paper with its extracted theorems."""
+    from .ingest.latex.extract import extract_file
+
+    cat = _catalog(args)
+    total = 0
+    for path in args.files:
+        p = Path(path)
+        thms = extract_file(str(p))
+        pid = f"local-{p.stem}"
+        cat.upsert_paper(
+            {
+                "paper_id": pid,
+                "title": args.title or p.stem,
+                "authors": args.authors or [],
+                "summary": "",
+                "link": f"file://{p.resolve()}",
+                "last_updated": None,
+                "journal_ref": None,
+                "primary_category": args.category,
+                "categories": [args.category],
+                "citations": None,
+            }
+        )
+        cat.replace_theorems(
+            pid, [{"name": t.name, "body": t.body, "label": t.label} for t in thms], "scanner"
+        )
+        total += len(thms)
+    print(f"ingested {total} theorems from {len(args.files)} files")
+    return total
+
+
+def cmd_quality(args):
+    from .eval.quality import rate_slogans_quality
+
+    report = rate_slogans_quality(_catalog(args), sample_size=args.sample)
+    print(f"mean rating: {report.mean:.2f} over {len(report.ratings)} slogans")
+    for sid, r in report.flagged:
+        print(f"  flagged slogan_id={sid} rating={r}")
+    return report
 
 
 def cmd_embed(args):
@@ -472,6 +592,38 @@ def build_parser() -> argparse.ArgumentParser:
     hermetic = ("hermetic model family when --model-dir is absent "
                 "(with --model-dir the family is detected)")
 
+    s = sub.add_parser("ingest-arxiv")
+    s.add_argument("--categories", nargs="*")
+    s.add_argument("--date-partition", default="month", choices=["year", "month", "week", "day"])
+    s.add_argument("--citations", action="store_true")
+    s.set_defaults(fn=cmd_ingest_arxiv)
+
+    s = sub.add_parser("locate-s3")
+    s.add_argument("--bundle-start", type=int, default=0)
+    s.set_defaults(fn=cmd_locate_s3)
+
+    s = sub.add_parser("parse")
+    s.add_argument("--timeout", type=float, default=30.0)
+    s.add_argument("--limit", type=int)
+    s.add_argument("--parsing-method", default="scanner",
+                   choices=["scanner", "flatten", "tex", "plastex"])
+    s.add_argument("--debugging-mode", action="store_true")
+    s.set_defaults(fn=cmd_parse)
+
+    s = sub.add_parser("stacks")
+    s.add_argument("--parsed", required=True)
+    s.add_argument("--tags")
+    s.set_defaults(fn=cmd_stacks)
+
+    s = sub.add_parser("slogans")
+    s.add_argument("--model", default="offline-stub")
+    s.add_argument("--prompt-id", default="body-only-v1")
+    s.add_argument("--prompts-dir")
+    s.add_argument("--workers", type=int, default=16)
+    s.add_argument("--limit", type=int)
+    s.add_argument("--trace")
+    s.set_defaults(fn=cmd_slogans)
+
     s = sub.add_parser("embed")
     encoder_flags(s, "embedder alias: tags the catalog rows and picks the hermetic "
                      "architecture when --model-dir is absent")
@@ -577,13 +729,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also compare a checkpoint dir (repeatable)")
     device_flag(s)
     s.set_defaults(fn=cmd_compare_embedders)
+
+    s = sub.add_parser("ingest-tex")
+    s.add_argument("files", nargs="+")
+    s.add_argument("--title")
+    s.add_argument("--authors", nargs="*")
+    s.add_argument("--category", default="math.GM")
+    s.set_defaults(fn=cmd_ingest_tex)
+
+    s = sub.add_parser("quality")
+    s.add_argument("--sample", type=int, default=20)
+    s.set_defaults(fn=cmd_quality)
     return p
 
 
 def run(argv=None):
     """Parse `argv` and run its subcommand; returns the subcommand's
     result (the engine, the IVF index and its calibration, the losses,
-    the metrics) to an in-process caller."""
+    the metrics, the parse stats, the slogan cost) to an in-process
+    caller."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -28,13 +28,13 @@ import torch
 from ..core.config import BertEncoderConfig
 from ..kernels.layer_int8 import gelu_tanh
 from ..utils.device import resolve_device, tf32_off
-from .model import _DTYPES, params_from_jax
+from .model import _DTYPES, PooledEncoder, params_from_jax
 from .sharding import TP, is_sharded, place_params
 
 Params = dict[str, Any]
 
 __all__ = ["init_params", "params_from_jax", "forward", "encode_pooled", "param_sharding_rules",
-           "shard_params"]
+           "shard_params", "BertEncoder"]
 
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
 
@@ -204,3 +204,9 @@ def param_sharding_rules(mesh, tp_axis: str = "shard") -> Params:
 def shard_params(params: Params, mesh, tp_axis: str = "shard") -> Params:
     """Params placed on the mesh by the tp rules (fresh copies)."""
     return place_params(params, param_sharding_rules(mesh, tp_axis), mesh)
+
+
+class BertEncoder(PooledEncoder):
+    """The BERT tower's wrapper (default config `BertEncoderConfig()`)."""
+
+    default_config = BertEncoderConfig

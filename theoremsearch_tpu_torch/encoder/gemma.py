@@ -55,6 +55,7 @@ from ..kernels.layer_int8 import (
 from ..utils.device import resolve_device, tf32_off
 from .model import (  # the shared int8 machinery and the JAX carry-over
     _DTYPES,
+    PooledEncoder,
     _INT8_TP,
     _q_matmul,
     _quant_act,
@@ -68,7 +69,8 @@ from .sharding import TP, is_sharded, place_params
 Params = dict[str, Any]
 
 __all__ = ["init_params", "params_from_jax", "quantize_params_int8", "forward", "encode_pooled",
-           "is_global_layer", "GemmaAttentionCore", "param_sharding_rules", "shard_params"]
+           "is_global_layer", "GemmaAttentionCore", "param_sharding_rules", "shard_params",
+           "GemmaEncoder"]
 
 
 def is_global_layer(cfg: GemmaEncoderConfig, li: int) -> bool:
@@ -505,3 +507,9 @@ def param_sharding_rules(mesh, tp_axis: str = "shard") -> Params:
 def shard_params(params: Params, mesh, tp_axis: str = "shard") -> Params:
     """Params placed on the mesh by the tp rules (fresh copies)."""
     return place_params(params, param_sharding_rules(mesh, tp_axis), mesh)
+
+
+class GemmaEncoder(PooledEncoder):
+    """The gemma tower's wrapper (default config `GemmaEncoderConfig()`)."""
+
+    default_config = GemmaEncoderConfig

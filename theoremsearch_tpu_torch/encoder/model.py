@@ -439,3 +439,36 @@ def param_sharding_rules(mesh, tp_axis: str = "shard") -> Params:
 def shard_params(params: Params, mesh, tp_axis: str = "shard") -> Params:
     """Params placed on the mesh by the tp rules (fresh copies)."""
     return place_params(params, param_sharding_rules(mesh, tp_axis), mesh)
+
+
+class PooledEncoder:
+    """Convenience wrapper (the reference's QwenEncoder, GemmaEncoder and
+    BertEncoder): config + params + pooled encode, on `device` (default:
+    the card; "cpu" for a CPU run). Without params the family's
+    init_params draws them from a generator seeded `seed`. Calls take
+    token ids and masks as arrays or tensors and return the pooled
+    embeddings (B, D) f32 on the device."""
+
+    default_config = EncoderConfig
+
+    def __init__(self, cfg=None, params: Params | None = None, seed: int = 0, device=None):
+        from .families import family_module
+
+        self.device = resolve_device(device)
+        self.cfg = cfg or self.default_config()
+        self._mod = family_module(self.cfg)
+        if params is None:
+            params = self._mod.init_params(
+                self.cfg, torch.Generator(device=self.device).manual_seed(seed), device=self.device)
+        self.params = params
+
+    def __call__(self, input_ids, attention_mask) -> torch.Tensor:
+        ids, mask = (torch.as_tensor(np.asarray(a)) if not isinstance(a, torch.Tensor) else a
+                     for a in (input_ids, attention_mask))
+        with torch.no_grad():
+            return self._mod.encode_pooled(self.params, ids.to(self.device),
+                                           mask.to(self.device), self.cfg)
+
+
+class QwenEncoder(PooledEncoder):
+    """The qwen tower's wrapper (default config `EncoderConfig()`)."""

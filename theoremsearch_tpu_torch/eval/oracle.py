@@ -54,3 +54,10 @@ def exact_topk(
         top_i = torch.gather(all_i, 1, sel)
     top_i = torch.where(torch.isfinite(top_s), top_i, -1)
     return top_s.cpu().numpy(), top_i.to(torch.int32).cpu().numpy()
+
+
+def l2_normalize(x, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """Rows (or slices along `axis`) scaled to unit L2 norm in f32, on the
+    input's device: the reference's normalize_embeddings=True."""
+    x = _as_tensor(x).float()
+    return x / torch.clamp(torch.linalg.norm(x, dim=axis, keepdim=True), min=eps)

@@ -72,6 +72,13 @@ class FlatIndex:
     def dim(self) -> int:
         return int(self.vectors.shape[1])
 
+    def device_arrays(self, device=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+        """(vectors, ids int32, scales or None) on `device` (default: the
+        card; "cpu" for a CPU run)."""
+        dev = resolve_device(device)
+        scales = None if self.scales is None else self.scales.to(dev)
+        return self.vectors.to(dev), self.ids.to(device=dev, dtype=torch.int32), scales
+
     def memory_bytes(self) -> int:
         """Bytes of the packed arrays: vectors, ids, scales and, unlike the
         reference's flat index (which stops at the scales), the residual

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import tf32_off
+
 _CHUNK_ROWS = 262_144
 
 
@@ -92,3 +94,13 @@ def dequantize_residual_int8(codes_g, gscale: float, res_codes, res_scales) -> t
     """gscale * codes_g + res_scales * res_codes, in f32."""
     return (_as_tensor(codes_g).float() * float(np.float32(gscale))
             + _as_tensor(res_scales)[:, None] * _as_tensor(res_codes).float())
+
+
+def int8_scores(queries, codes, scales) -> torch.Tensor:
+    """The reference's plain int8 scoring: q @ codes.T with f32 products
+    and sums (TF32 off), then the per-row rescale. (B, N) f32, on the
+    queries' device."""
+    q = _as_tensor(queries).float()
+    with tf32_off():
+        s = q @ _as_tensor(codes, q.device).float().T
+    return s * _as_tensor(scales, q.device).float()[None, :]

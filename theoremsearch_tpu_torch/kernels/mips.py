@@ -602,6 +602,59 @@ def fused_mips_topk(
     return (s if qscales is None else s * qscales), i
 
 
+def xla_mips_topk_scan(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None = None,
+    n_valid: int | None = None,
+    bias: torch.Tensor | None = None,
+    *,
+    k: int = 10,
+    chunk: int = 65536,
+    bias_groups: torch.Tensor | None = None,
+    mask_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's plain exact scan (its XLA path, `lax.scan` over
+    corpus chunks with a running top-k): `fused_mips_topk`'s contract
+    computed by `mips_topk_plain` on any device, `chunk` rows at a time.
+    `bias_groups` (G, N_pad) with `mask_ids` (B,) gives each query its
+    own additive bias row, on top of `bias`."""
+    n_pad = corpus.shape[0]
+    if n_pad % chunk != 0:
+        raise ValueError(f"corpus rows {n_pad} not a multiple of chunk {chunk}")
+    n_valid = n_pad if n_valid is None else int(n_valid)
+    if corpus.dtype == torch.int8:
+        qk, qscales = quantize_queries(queries)
+    else:
+        qk, qscales = queries.to(corpus.dtype), None
+    if bias_groups is None:
+        s, i = mips_topk_plain(qk, corpus, scales, n_valid, bias, k, chunk_rows=chunk)
+    else:
+        mask_ids = torch.as_tensor(mask_ids).to(qk.device).long()
+        s = torch.empty((qk.shape[0], k), dtype=torch.float32, device=qk.device)
+        i = torch.empty((qk.shape[0], k), dtype=torch.int32, device=qk.device)
+        for g in torch.unique(mask_ids).tolist():
+            rows = torch.nonzero(mask_ids == g).squeeze(1)
+            bg = bias_groups[g].float() + (0.0 if bias is None else bias.float())
+            s[rows], i[rows] = mips_topk_plain(qk[rows], corpus, scales, n_valid, bg, k,
+                                               chunk_rows=chunk)
+    return (s if qscales is None else s * qscales), i
+
+
+def xla_mips_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None = None,
+    n_valid: int | None = None,
+    bias: torch.Tensor | None = None,
+    *,
+    k: int = 10,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's plain exact top-k over the whole score matrix:
+    `xla_mips_topk_scan` in one chunk."""
+    return xla_mips_topk_scan(queries, corpus, scales, n_valid, bias, k=k, chunk=corpus.shape[0])
+
+
 # ---------------------------------------------------------------------------
 # B6: IVF probe-major chunk scan (global-scale int8 slabs)
 # ---------------------------------------------------------------------------
