@@ -1,0 +1,9 @@
+"""Share of the traced window in which no kernel, copy or set ran on the
+card (the union of their intervals in the profiler's trace)."""
+
+
+def read(ctx):
+    s = ctx.summary
+    if s is None or s["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - s["busy_s"] / s["window_s"])
