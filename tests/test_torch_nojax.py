@@ -22,7 +22,8 @@ SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / 
                                        ROOT / "tools" / "torch_mp_train_probe.py",
                                        ROOT / "tests" / "torch_multihost_worker.py",
                                        ROOT / "tests" / "test_torch_distributed.py",
-                                       ROOT / "tests" / "test_torch_profiling.py"]
+                                       ROOT / "tests" / "test_torch_profiling.py",
+                                       ROOT / "tests" / "test_torch_spans.py"]
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -31,11 +31,22 @@ keeps the result on the device for the scan (one host sync per serving
 batch, at the results). Kernel launches are asynchronous, so the host
 prepares sub-batch i+1 while the card runs sub-batch i without a
 prefetch thread.
+
+`stats()` counts the work since construction (monotonic, under a lock):
+calls, texts, sub-batches, the token slots the forward ran (B_pad x W
+a sub-batch, the power-of-two rows included), the real tokens among
+them (the mask over the real rows) and the sub-batches by (B_pad, W).
+The host's stages run under the spans `ts.encoder.tokenize`,
+`ts.encoder.pad` (a sub-batch's `_prep_batch`), `ts.encoder.forward`
+(its upload and the launch of the tower) and `ts.encoder.to_host` (the
+copies back in `encode`, where the host waits on the card):
+`utils/profiling.py:span`.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -43,6 +54,7 @@ import torch
 
 from ..core.distributed import all_gather
 from ..utils.device import resolve_device, upload
+from ..utils.profiling import span
 from ..utils.shapes import pow2_bucket
 from ..kernels.layer_int8 import kernel_layout
 from .families import family_module
@@ -138,6 +150,31 @@ class BatchedEncoder:
         self.buckets = tuple(sorted(b for b in buckets if b <= cfg.max_seq_len)) or (
             cfg.max_seq_len,
         )
+        self._stats_lock = threading.Lock()
+        self._stats = {"calls": 0, "texts": 0, "sub_batches": 0, "token_slots": 0,
+                       "real_tokens": 0}
+        self._by_shape: dict[tuple[int, int], int] = {}
+
+    def stats(self) -> dict:
+        """Counts since construction: calls, texts, sub_batches,
+        token_slots (sum of B_pad x W), real_tokens (the mask over the real
+        rows) and by_shape ({(B_pad, W): sub-batches})."""
+        with self._stats_lock:
+            return {**self._stats, "by_shape": dict(self._by_shape)}
+
+    def _count_call(self, n_texts: int) -> None:
+        with self._stats_lock:
+            self._stats["calls"] += 1
+            self._stats["texts"] += n_texts
+
+    def _count_sub_batch(self, ids_mask: np.ndarray, n_real: int) -> None:
+        _, b_pad, width = ids_mask.shape
+        real = int(ids_mask[1, :n_real].sum())
+        with self._stats_lock:
+            self._stats["sub_batches"] += 1
+            self._stats["token_slots"] += b_pad * width
+            self._stats["real_tokens"] += real
+            self._by_shape[(b_pad, width)] = self._by_shape.get((b_pad, width), 0) + 1
 
     def _bucket_for(self, n_tokens: int) -> int:
         for b in self.buckets:
@@ -239,16 +276,20 @@ class BatchedEncoder:
 
     def _run(self, texts: list[str]) -> list[tuple[list[int], torch.Tensor]]:
         """Dispatch every sub-batch; (input indices, device embeddings)."""
-        tokenized = [self.tokenizer.tokenize(t) for t in texts]
-        if len(texts) <= self.batch_size:
-            order = list(range(len(texts)))
-        else:
-            order = sorted(range(len(texts)), key=lambda i: len(tokenized[i]))
+        with span("ts.encoder.tokenize"):
+            tokenized = [self.tokenizer.tokenize(t) for t in texts]
+            if len(texts) <= self.batch_size:
+                order = list(range(len(texts)))
+            else:
+                order = sorted(range(len(texts)), key=lambda i: len(tokenized[i]))
         pieces = []
         for start in range(0, len(order), self.batch_size):
             idx = order[start : start + self.batch_size]
-            ids_mask, n_real = self._prep_batch(texts, tokenized, idx)
-            pieces.append((idx, self._forward(ids_mask)[:n_real]))
+            with span("ts.encoder.pad"):
+                ids_mask, n_real = self._prep_batch(texts, tokenized, idx)
+                self._count_sub_batch(ids_mask, n_real)
+            with span("ts.encoder.forward"):
+                pieces.append((idx, self._forward(ids_mask)[:n_real]))
         return pieces
 
     def encode_device(self, texts: Sequence[str], role: str | None = None) -> torch.Tensor:
@@ -258,6 +299,7 @@ class BatchedEncoder:
         if not len(texts):
             return torch.zeros((0, self.cfg.embedding_dim), device=self.device)
         n = len(texts)
+        self._count_call(n)
         n_pad = pow2_bucket(n)
         texts = self._apply_prompt(texts, role) + [""] * (n_pad - n)
         pieces = self._run(texts)
@@ -272,7 +314,10 @@ class BatchedEncoder:
         """(len(texts), embedding_dim) f32 on the host, normalized per config."""
         if not len(texts):
             return np.zeros((0, self.cfg.embedding_dim), np.float32)
+        self._count_call(len(texts))
         out = np.zeros((len(texts), self.cfg.embedding_dim), np.float32)
-        for idx, emb in self._run(self._apply_prompt(texts, role)):
-            out[idx] = emb.float().cpu().numpy()
+        pieces = self._run(self._apply_prompt(texts, role))
+        with span("ts.encoder.to_host"):
+            for idx, emb in pieces:
+                out[idx] = emb.float().cpu().numpy()
         return out

@@ -6,6 +6,11 @@ batched, spools them into the resumable IndexBuilder and records the
 embedding manifest (the catalog commit is the checkpoint); packs the
 spool into a SearchEngine with the catalog's metadata joined; and keeps
 a running engine fresh as new slogans arrive.
+
+Each page's stages run under the spans `ts.pipeline.page` (the fetch of
+the page from the catalog), `ts.pipeline.encode`, `ts.pipeline.spool`
+(`IndexBuilder.add`) and `ts.pipeline.manifest` (the upserts):
+`utils/profiling.py:span`.
 """
 
 from __future__ import annotations
@@ -22,7 +27,21 @@ from .index.flat import PAD_ID, FlatIndex
 from .ingest.catalog import Catalog
 from .search.engine import SearchEngine
 from .search.metadata import CorpusMetadata
+from .utils.profiling import span
 from .utils.shapes import round_up
+
+
+def _pages(catalog: Catalog, embedder: str, page_size: int):
+    """The catalog's pages of slogans missing a vector, each fetch under
+    the `ts.pipeline.page` span."""
+    pages = iter(catalog.slogans_missing_embedding(embedder, page_size))
+    end = object()
+    while True:
+        with span("ts.pipeline.page"):
+            page = next(pages, end)
+        if page is end:
+            return
+        yield page
 
 
 def embed_missing_slogans(
@@ -35,7 +54,7 @@ def embed_missing_slogans(
 ) -> int:
     """Encode every latest-slogan lacking a vector; returns rows embedded."""
     done = 0
-    for page in catalog.slogans_missing_embedding(embedder, page_size):
+    for page in _pages(catalog, embedder, page_size):
         rows = [dict(r) for r in page]
         if limit is not None:
             rows = rows[: max(0, limit - done)]
@@ -43,14 +62,17 @@ def embed_missing_slogans(
                 break
         texts = [r["slogan"] or "" for r in rows]
         ids = np.array([r["slogan_id"] for r in rows], np.int64)
-        emb = np.asarray(encode_fn(texts), np.float32)
-        builder.add(ids, emb)
-        catalog.upsert_rows(
-            "embedding_manifest",
-            [{"embedder": embedder, "slogan_id": int(sid), "shard": builder.dir.name, "row": -1}
-             for sid in ids],
-            ["embedder", "slogan_id"],
-        )
+        with span("ts.pipeline.encode"):
+            emb = np.asarray(encode_fn(texts), np.float32)
+        with span("ts.pipeline.spool"):
+            builder.add(ids, emb)
+        with span("ts.pipeline.manifest"):
+            catalog.upsert_rows(
+                "embedding_manifest",
+                [{"embedder": embedder, "slogan_id": int(sid), "shard": builder.dir.name, "row": -1}
+                 for sid in ids],
+                ["embedder", "slogan_id"],
+            )
         done += len(rows)
         if limit is not None and done >= limit:
             break
@@ -132,24 +154,27 @@ def refresh_engine_from_catalog(
     added = 0
     shard = builder.dir.name if builder is not None else "live-delta"
     live_by_theorem: dict[tuple, int] | None = None
-    for page in catalog.slogans_missing_embedding(embedder, page_size):
+    for page in _pages(catalog, embedder, page_size):
         rows = [dict(r) for r in page]
         texts = [r["slogan"] or "" for r in rows]
         sids = np.array([r["slogan_id"] for r in rows], np.int64)
-        emb = np.asarray(encode_fn(texts), np.float32)
+        with span("ts.pipeline.encode"):
+            emb = np.asarray(encode_fn(texts), np.float32)
         meta_rows = slogan_meta_rows(catalog, sids) if engine.meta is not None else None
         if builder is not None:
             # the crash-safety order: spool (durable) -> manifest (marks
             # embedded) -> live add. A crash after the manifest loses only
             # live visibility until restart (the rebuild packs the spooled
             # vector); the reverse order re-added live docs on every poll.
-            builder.add(sids, emb)
-        catalog.upsert_rows(
-            "embedding_manifest",
-            [{"embedder": embedder, "slogan_id": int(sid), "shard": shard, "row": -1}
-             for sid in sids],
-            ["embedder", "slogan_id"],
-        )
+            with span("ts.pipeline.spool"):
+                builder.add(sids, emb)
+        with span("ts.pipeline.manifest"):
+            catalog.upsert_rows(
+                "embedding_manifest",
+                [{"embedder": embedder, "slogan_id": int(sid), "shard": shard, "row": -1}
+                 for sid in sids],
+                ["embedder", "slogan_id"],
+            )
         if meta_rows is not None:
             # a new latest slogan supersedes the theorem's current doc (the
             # reference serves the latest slogan per theorem): tombstone it,

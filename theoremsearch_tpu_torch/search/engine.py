@@ -64,6 +64,14 @@ alone, so every process joins the same collectives in the same order.
 Streams: queries, the delta and compact's device fold run on the current
 (default) stream, so their order is the stream's; only multi-GB host
 uploads go through a side stream (`utils/device.py:upload_into`).
+
+A search's host stages run under the spans (`utils/profiling.py:span`)
+`ts.engine.upload` (the queries padded and copied up), `ts.engine.scan`
+(B1 with the query quantization and the candidate selection; B5 on the
+exact route, the IVF searcher on its route), `ts.engine.rescore` (the
+device rescore and the row -> doc-id map), `ts.engine.to_host` (the
+copies back queued), and in `finalize` `ts.engine.wait` (the batch's
+event) and `ts.engine.finalize` (the host's work on the results).
 """
 
 from __future__ import annotations
@@ -88,6 +96,7 @@ from ..kernels.mips import (
     merge_topk, residual_rows,
 )
 from ..utils.device import resolve_device, upload, upload_into
+from ..utils.profiling import span
 from ..utils.shapes import pow2_bucket, round_up as _round_up
 from .filters import SearchFilters, compile_filter_mask, filter_key, infer_type
 from .metadata import CorpusMetadata
@@ -1342,14 +1351,16 @@ class SearchEngine:
         gs = self._global_scale
 
         def run(sh, qs, m, gm, mid):
-            _, li = fused_mips_topk_g(qs, sh["vectors"], gs, sh["valid"], m, k=kr,
-                                      row_block=self.row_block, gmasks=gm, mask_ids=mid)
-            if sh["res_codes"] is not None:
-                s_, li = device_rescore_residual(qs, li, sh["vectors"], gs, sh["res_codes"],
-                                                 sh["res_scales"], sh["valid"], k=k_loc)
-            else:
-                s_, li = device_rescore(qs, li, sh["rescore"], sh["valid"], k=k_loc)
-            return s_, self._to_doc_ids(li, sh["ids"])
+            with span("ts.engine.scan"):
+                _, li = fused_mips_topk_g(qs, sh["vectors"], gs, sh["valid"], m, k=kr,
+                                          row_block=self.row_block, gmasks=gm, mask_ids=mid)
+            with span("ts.engine.rescore"):
+                if sh["res_codes"] is not None:
+                    s_, li = device_rescore_residual(qs, li, sh["vectors"], gs, sh["res_codes"],
+                                                     sh["res_scales"], sh["valid"], k=k_loc)
+                else:
+                    s_, li = device_rescore(qs, li, sh["rescore"], sh["valid"], k=k_loc)
+                return s_, self._to_doc_ids(li, sh["ids"])
 
         return self._over_shards(q, k, k_loc, run, mask, gmasks, mask_ids)
 
@@ -1362,16 +1373,18 @@ class SearchEngine:
         if self._shards is not None:
             return self._sharded_speed_search(q, k_q, mask, gmasks, mask_ids)
         kr = min(self._candidate_width(k_q, base_k), self.padded_rows)
-        _, li = fused_mips_topk_g(q, self.vectors, self._global_scale, self.n_valid, mask,
-                                  k=kr, row_block=self.row_block, gmasks=gmasks,
-                                  mask_ids=mask_ids)
-        if self._res_codes_device is not None:
-            s, li = device_rescore_residual(q, li, self.vectors, self._global_scale,
-                                            self._res_codes_device, self._res_scales_device,
-                                            self.n_valid, k=k_q)
-        else:
-            s, li = device_rescore(q, li, self._rescore_device, self.n_valid, k=k_q)
-        return s, self._to_doc_ids(li, self.ids)
+        with span("ts.engine.scan"):
+            _, li = fused_mips_topk_g(q, self.vectors, self._global_scale, self.n_valid, mask,
+                                      k=kr, row_block=self.row_block, gmasks=gmasks,
+                                      mask_ids=mask_ids)
+        with span("ts.engine.rescore"):
+            if self._res_codes_device is not None:
+                s, li = device_rescore_residual(q, li, self.vectors, self._global_scale,
+                                                self._res_codes_device, self._res_scales_device,
+                                                self.n_valid, k=k_q)
+            else:
+                s, li = device_rescore(q, li, self._rescore_device, self.n_valid, k=k_q)
+            return s, self._to_doc_ids(li, self.ids)
 
     def _ivf_fn(self, k: int):
         """The IVF route's searcher for k, built once per k (the list-
@@ -1390,29 +1403,33 @@ class SearchEngine:
         once a shard under a mesh (the reference's `_local_topk`)."""
         if self._shards is not None:
             def run(sh, qs, b_s):
-                s_, li = fused_mips_topk(qs, sh["vectors"], sh["scales"], sh["valid"], b_s,
-                                         k=k_dev, row_block=self.row_block)
-                return s_, self._to_doc_ids(li, sh["ids"])
+                with span("ts.engine.scan"):
+                    s_, li = fused_mips_topk(qs, sh["vectors"], sh["scales"], sh["valid"], b_s,
+                                             k=k_dev, row_block=self.row_block)
+                    return s_, self._to_doc_ids(li, sh["ids"])
 
             return self._over_shards(q, k_dev, k_dev, run, bias)
-        s, li = fused_mips_topk(q, self.vectors, self.scales, self.n_valid, bias,
-                                k=k_dev, row_block=self.row_block)
-        return s, self._to_doc_ids(li, self.ids)
+        with span("ts.engine.scan"):
+            s, li = fused_mips_topk(q, self.vectors, self.scales, self.n_valid, bias,
+                                    k=k_dev, row_block=self.row_block)
+            return s, self._to_doc_ids(li, self.ids)
 
     def _pad_queries(self, query_vecs) -> tuple[torch.Tensor, int]:
         """(padded device queries, real batch): batches pad to the next
         power of two (min 8), so a serving mix sees few distinct shapes."""
-        if isinstance(query_vecs, torch.Tensor):
-            q = query_vecs.to(self.device, torch.float32)
-        else:
-            q = upload(np.asarray(query_vecs, dtype=np.float32), self.device)
-        if q.ndim == 1:
-            q = q[None, :]
-        b = q.shape[0]
-        b_pad = pow2_bucket(b)
-        if b_pad != b:
-            q = torch.cat([q, torch.zeros((b_pad - b, q.shape[1]), dtype=q.dtype, device=q.device)])
-        return q.contiguous(), b
+        with span("ts.engine.upload"):
+            if isinstance(query_vecs, torch.Tensor):
+                q = query_vecs.to(self.device, torch.float32)
+            else:
+                q = upload(np.asarray(query_vecs, dtype=np.float32), self.device)
+            if q.ndim == 1:
+                q = q[None, :]
+            b = q.shape[0]
+            b_pad = pow2_bucket(b)
+            if b_pad != b:
+                q = torch.cat([q, torch.zeros((b_pad - b, q.shape[1]), dtype=q.dtype,
+                                              device=q.device)])
+            return q.contiguous(), b
 
     @staticmethod
     def _to_host(*tensors):
@@ -1420,20 +1437,21 @@ class SearchEngine:
         (host tensors, event or None); None entries stay None. The event,
         not the stream, is synchronized later, so later batches keep
         running."""
-        live = [t for t in tensors if t is not None]
-        if not live or live[0].device.type != "cuda":
-            return tensors, None
-        out = []
-        for t in tensors:
-            if t is None:
-                out.append(None)
-                continue
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            out.append(h)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(live[0].device))
-        return tuple(out), done
+        with span("ts.engine.to_host"):
+            live = [t for t in tensors if t is not None]
+            if not live or live[0].device.type != "cuda":
+                return tensors, None
+            out = []
+            for t in tensors:
+                if t is None:
+                    out.append(None)
+                    continue
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                out.append(h)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(live[0].device))
+            return tuple(out), done
 
     @staticmethod
     def _merge_delta(s2, i2, ds_h, di_h, b: int, k: int):
@@ -1515,7 +1533,8 @@ class SearchEngine:
         elif (mask is None and drop_mask is None and self.ivf is not None
               and b <= self.ivf_max_batch):
             route = "ivf"       # rescored on the device; doc ids already
-            s, i = self._ivf_fn(k_q)(q)
+            with span("ts.engine.scan"):
+                s, i = self._ivf_fn(k_q)(q)
             on_device = True
         elif mask is None:
             route = ("overfetch" if (drop_mask is not None or tomb_drop is not None)
@@ -1538,7 +1557,12 @@ class SearchEngine:
             if s is None and ds is None:
                 return (np.full((b, k), NEG_INF, np.float32), np.full((b, k), PAD_ID, np.int32))
             if done is not None:
-                done.synchronize()
+                with span("ts.engine.wait"):
+                    done.synchronize()
+            with span("ts.engine.finalize"):
+                return finish()
+
+        def finish() -> tuple[np.ndarray, np.ndarray]:
             if s is None:
                 s2 = np.full((b, k), NEG_INF, np.float32)
                 i2 = np.full((b, k), PAD_ID, np.int32)
@@ -1645,13 +1669,15 @@ class SearchEngine:
 
         def finalize() -> tuple[np.ndarray, np.ndarray]:
             if done is not None:
-                done.synchronize()
-            s2, i2 = host[0].numpy()[:n_rows, :k], host[1].numpy()[:n_rows, :k]
-            if ds is not None:
-                s2, i2 = self._merge_delta(s2, i2, host[2].numpy(), host[3].numpy(), n_rows, k)
-            if self._generation != gen0:
-                i2 = self._translate_ids(i2, gen0)
-            return s2, np.where(np.isfinite(s2), i2, PAD_ID)
+                with span("ts.engine.wait"):
+                    done.synchronize()
+            with span("ts.engine.finalize"):
+                s2, i2 = host[0].numpy()[:n_rows, :k], host[1].numpy()[:n_rows, :k]
+                if ds is not None:
+                    s2, i2 = self._merge_delta(s2, i2, host[2].numpy(), host[3].numpy(), n_rows, k)
+                if self._generation != gen0:
+                    i2 = self._translate_ids(i2, gen0)
+                return s2, np.where(np.isfinite(s2), i2, PAD_ID)
 
         return finalize
 

@@ -1,6 +1,6 @@
-"""Profiling: torch.profiler traces and a steady-state kernel timer (port
-of theoremsearch_tpu/utils/profiling.py, whose `trace` wraps
-`jax.profiler`).
+"""Profiling: torch.profiler traces, the program's spans and a
+steady-state kernel timer (port of theoremsearch_tpu/utils/profiling.py,
+whose `trace` wraps `jax.profiler`).
 
 - `trace(log_dir, device=None)`: a context manager around
   `torch.profiler.profile`, CPU activity and, on the card, CUDA activity;
@@ -8,6 +8,16 @@ of theoremsearch_tpu/utils/profiling.py, whose `trace` wraps
   (`trace-<pid>-<n>.json`, viewable in chrome://tracing or Perfetto) is
   written under `log_dir`. It yields the profiler, whose
   `key_averages()` sums the time by op and kernel.
+- `span(name)`: a context manager that marks a stage of the host's work
+  in the profiler's trace. While a torch profiler records on this thread
+  it is `torch.profiler.record_function(name)`, so the span lands in the
+  same Chrome trace as the kernels, on the same clock; otherwise it is one
+  check of the profiler's flag and a shared no-op context. Spans live
+  only in the profiler's trace: nothing is kept or written unless a
+  profiler is recording. Names are `ts.<layer>.<stage>` (`ts.pipeline.page`,
+  `ts.encoder.forward`, `ts.engine.scan`, ...); a span's parent is the span
+  that encloses it on the thread, and the spans of a path are leaves or
+  shallow, so that together they tile the host's time on it.
 - `KernelTimer(iters=20)`: the reference's `measure(name, fn, *args)` /
   `report()` surface. On the card: one warm call, then `iters` calls
   between two CUDA events (device time of the queued launches); on the
@@ -19,6 +29,7 @@ of the port; pass device="cpu" for a CPU run.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import tempfile
@@ -31,6 +42,20 @@ import torch
 from .device import resolve_device
 
 _trace_seq = itertools.count()
+
+# the C++ flag that record_function itself obeys: true only while a
+# profiler records on the calling thread
+_profiler_on = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`record_function(name)` while a profiler records on this thread, else
+    the shared no-op context (an unguarded record_function costs a
+    dispatcher call even with no profiler)."""
+    if _profiler_on():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextmanager
