@@ -19,6 +19,13 @@ exits non-zero (there is no CPU path):
              and 8/4 at (32, 64) (mesh_train's data rows).
  4g. b2g     B2's gemma form vs plain: H=3/1, Dh=256, bidirectional, scale
              256^-1/2, S in {32, 64, 128} at B=64 and (512, 64), ragged masks.
+ 4l. b2long  B2's long form (H=16/8, Dh=128, causal) at the encoder's
+             (64, 256) and (64, 512) sub-batches, ragged masks with an
+             item of no real token and one of a single token: against its
+             own plain version (the same arithmetic: at most 0.5% of the
+             bf16 outputs differ, by at most 1% of max|ref|) and against
+             the S <= 128 forms' softmax over the whole key range (cosine
+             > 0.9999, max error <= 2e-2 of max|ref|); a repeat bit-equal.
  4b. b3b4    the whole-layer int8 kernels B4 (MLP block) and B3
              (attention block) vs their plain versions on one full-width
              layer of random weights quantized by quantize_params_int8:
@@ -61,7 +68,12 @@ exits non-zero (there is no CPU path):
              step's seconds, papers parsed and slogans embedded a second.
  5. encoder  full-width Qwen3-0.6B-class encoder (28 layers, random bf16
              weights from a seeded generator): kernel path vs plain path
-             cosine, then 4,096 slogans through BatchedEncoder.
+             cosine, then 4,096 slogans through BatchedEncoder; then 64
+             texts of the 256-wide bucket and 64 of the 512-wide one
+             (encoder_long): kernel vs plain pooled cosine at (64, 512),
+             and B2's long form launched once a layer a sub-batch of those
+             widths (BatchedEncoder.stats()'s by_shape), in bf16 and in
+             the int8 op-chain.
  5b. encoder_int8  the same encoder in int8 (w8a8) serving mode, every
              layer on B3 and B4: kernel vs plain pooled cosine, the plain
              path at B 256 vs 512 (the stack's own floor), int8 vs bf16,
@@ -139,7 +151,10 @@ exits non-zero (there is no CPU path):
              (library_ms), and on int8 at B=8 and 64 (bit-equal to plain
              there first), with the year bias (and its computed-group
              share) and at k=400, as device time and back to back; B2, B3
-             and B4 at (512, 64); B6
+             and B4 at (512, 64); B2's long form at (64, 512) and (64,
+             256), lengths uniform in [S/2, S], beside
+             scaled_dot_product_attention on the same heads (library_ms;
+             the port never calls it); B6
              at the ivf phase's B=8 search and the b6 shapes, as device
              time: its launches queued behind a sleep kernel, between
              CUDA events), B2 in both forms at (64, 64) too, B3 and B4's
@@ -2493,8 +2508,9 @@ def main(argv=None) -> int:
     from theoremsearch_tpu_torch.kernels import _build
     from theoremsearch_tpu_torch.kernels.attention import (
         attention_bwd_launches, attention_gemma_launches, attention_launches,
-        fused_qknorm_rope_attention, fused_qknorm_rope_attention_bwd,
-        fused_qknorm_rope_attention_bwd_plain, fused_qknorm_rope_attention_plain,
+        attention_long_launches, fused_qknorm_rope_attention, fused_qknorm_rope_attention_bwd,
+        fused_qknorm_rope_attention_bwd_plain, fused_qknorm_rope_attention_long_plain,
+        fused_qknorm_rope_attention_plain,
     )
     from theoremsearch_tpu_torch.kernels.layer_int8 import (
         attn_int8_gemma_launches, attn_int8_launches, fused_attn_int8_layer,
@@ -2532,6 +2548,7 @@ def main(argv=None) -> int:
         "qknorm_rope_attention_gemma": attention_gemma_launches,
         "fused_attn_int8_layer_gemma": attn_int8_gemma_launches,
         "fused_mlp_int8_layer_gemma": mlp_int8_gemma_launches,
+        "qknorm_rope_attention_long": attention_long_launches,
     }
     main_launches = dict.fromkeys(counters, 0)
 
@@ -2686,6 +2703,40 @@ def main(argv=None) -> int:
         emit("b2g", S=S, B=BB, heads=[GH, GHK, GDH], cosine=cosv, max_abs_err=err, max_abs_plain=ref)
         if not (cosv > 0.9999 and err <= 2e-2 * ref):
             raise AssertionError(f"B2's gemma form disagrees with its plain version at S={S}")
+
+    # ---- 4l. B2's long form vs its plain version and the whole-range one ----
+    for BB, S in ((64, 256), (64, 512)):
+        qa = (torch.randn((BB, S, H * DH), generator=g, device=dev) * 2).to(torch.bfloat16)
+        ka = (torch.randn((BB, S, HK * DH), generator=g, device=dev) * 2).to(torch.bfloat16)
+        va = torch.randn((BB, S, HK * DH), generator=g, device=dev).to(torch.bfloat16)
+        qw = 1.0 + 0.1 * torch.randn((DH,), generator=g, device=dev)
+        kw = 1.0 + 0.1 * torch.randn((DH,), generator=g, device=dev)
+        lens = torch.randint(1, S + 1, (BB,), generator=g, device=dev)
+        lens[:2] = torch.tensor([0, 1], device=dev)
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+        pos = torch.clamp(mask.cumsum(1) - 1, min=0).float()
+        ang = pos[..., None] * (1.0 / (1e6 ** (torch.arange(0, DH, 2, device=dev).float() / DH)))
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        kwargs = dict(num_heads=H, num_kv_heads=HK, head_dim=DH, eps=1e-6, causal=True)
+        args_ = (qa, ka, va, qw, kw, cos, sin, mask)
+        n0 = attention_long_launches.n
+        ok_ = fused_qknorm_rope_attention(*args_, **kwargs)
+        again = fused_qknorm_rope_attention(*args_, **kwargs)
+        lp = fused_qknorm_rope_attention_long_plain(*args_, scale=1.0 / np.sqrt(DH), **kwargs)
+        wp = fused_qknorm_rope_attention_plain(*args_, scale=1.0 / np.sqrt(DH), **kwargs)
+        torch.cuda.synchronize()
+        mismatch = float((ok_ != lp).float().mean())
+        _, err_l, ref_l = agreement(ok_.float(), lp.float())
+        cosv, err, ref = agreement(ok_.float(), wp.float())
+        err_of["qknorm_rope_attention_long"] = max(err_of["qknorm_rope_attention_long"], err_l)
+        emit("b2long", S=S, B=BB, heads=[H, HK, DH], mismatch_vs_long_plain=mismatch,
+             max_err_vs_long_plain=err_l, cosine_vs_whole_range=cosv, max_abs_err_vs_whole_range=err,
+             max_abs_plain=ref, mismatch_vs_whole_range=float((ok_ != wp).float().mean()),
+             repeat_bit_equal=bool(torch.equal(ok_, again)), launches=attention_long_launches.n - n0)
+        if not (mismatch <= 5e-3 and err_l <= 1e-2 * ref_l and cosv > 0.9999 and err <= 2e-2 * ref
+                and torch.equal(ok_, again) and attention_long_launches.n - n0 == 2):
+            raise AssertionError(f"B2's long form disagrees with its plain versions at (B, S) = "
+                                 f"({BB}, {S})")
 
     # ---- 4b. B3 and B4 vs plain on one full-width int8 layer ----
     cfg = EncoderConfig()
@@ -2845,6 +2896,18 @@ def main(argv=None) -> int:
         p8p = encode_pooled(params, t[0], t[1], cfg, fused="plain", qlayers=ql, fused_layers=True)
         p8h = encode_pooled(params, t[0][:256], t[1][:256], cfg, fused="plain", qlayers=ql,
                             fused_layers=True)
+    # texts of the 256- and 512-wide buckets (140-250 and 260-500 words)
+    rng_l = np.random.default_rng(3)
+    words_l = ["".join(chr(97 + i // 26 ** j % 26) for j in range(3)) for i in range(5000)]
+    long_texts = [[" ".join(rng_l.choice(words_l, n_)) for n_ in rng_l.integers(lo, hi, 64)]
+                  for lo, hi in ((140, 250), (260, 500))]
+    lim, _ = encoder._prep_batch(long_texts[1], [encoder.tokenizer.tokenize(t_) for t_ in long_texts[1]],
+                                 list(range(64)))
+    tl = torch.from_numpy(lim).to(dev)
+    with torch.inference_mode():
+        plk = encode_pooled(params, tl[0], tl[1], cfg, fused="on")
+        plp = encode_pooled(params, tl[0], tl[1], cfg, fused="plain")
+        plo = encode_pooled(params, tl[0], tl[1], cfg, fused="off")
     # the text -> ids path runs from here to the end of phase 7; the
     # comparison launches above are not counted
     path_start()
@@ -2882,6 +2945,33 @@ def main(argv=None) -> int:
     if not (cos8 > 0.999 and vs_bf16 > 0.98 and min(int8_enc_launches) >= cfg.num_layers
             and np.isfinite(slogan_emb8).all() and slogan_emb8.shape == (4096, cfg.embedding_dim)):
         raise AssertionError("encoder_int8 phase failed")
+    # the 256- and 512-wide buckets through BatchedEncoder, bf16 and int8:
+    # one long-form launch a layer a sub-batch of those widths
+    long_rows, long_subs, long_n = {}, {}, {}
+    for name_, enc_ in (("bf16", encoder), ("int8", encoder8)):
+        shapes0 = enc_.stats()["by_shape"]
+        n0 = attention_long_launches.n
+        t0 = time.perf_counter()
+        long_rows[name_] = np.concatenate([enc_.encode(part) for part in long_texts])
+        long_s = time.perf_counter() - t0
+        shapes1 = enc_.stats()["by_shape"]
+        long_subs[name_] = {k_: v_ - shapes0.get(k_, 0) for k_, v_ in shapes1.items()
+                            if v_ - shapes0.get(k_, 0)}
+        long_n[name_] = (attention_long_launches.n - n0, long_s)
+    want_long = {n_: cfg.num_layers * sum(v_ for (_, w_), v_ in subs.items() if w_ > 128)
+                 for n_, subs in long_subs.items()}
+    lcos = float((plk.double() * plp.double()).sum(1).min())
+    lcos_off = float((plk.double() * plo.double()).sum(1).min())
+    lself = float(np.min(np.sum(long_rows["int8"] * long_rows["bf16"], axis=1)))
+    emit("encoder_long", width=int(tl.shape[2]), cos_kernel_vs_plain_min=lcos,
+         cos_kernel_vs_reference_composition_min=lcos_off, cos_int8_vs_bf16_min=lself,
+         sub_batches={n_: {str(k_): v_ for k_, v_ in subs.items()} for n_, subs in long_subs.items()},
+         long_launches={n_: v_[0] for n_, v_ in long_n.items()},
+         want_launches=want_long, encode_128_s={n_: round(v_[1], 3) for n_, v_ in long_n.items()},
+         finite=bool(all(np.isfinite(r_).all() for r_ in long_rows.values())))
+    if not (lcos > 0.9999 and lself > 0.98 and all(want_long[n_] == long_n[n_][0] > 0 for n_ in want_long)
+            and all(np.isfinite(r_).all() for r_ in long_rows.values())):
+        raise AssertionError("encoder_long phase failed")
 
     # ---- 6. index and recall gate ----
     NC = 1_048_576
@@ -4020,6 +4110,33 @@ def main(argv=None) -> int:
           lambda: fused_qknorm_rope_attention_plain(
               qa, ka, va, wq, wq, cos, sin, msk, scale=1.0 / np.sqrt(DH), **kwargs),
           att_bytes, {"bf16": att_ops}, plain_iters=5)
+    # B2's long form at the encoder's 256- and 512-wide sub-batches, lengths
+    # uniform in [S/2, S]; library_ms: scaled_dot_product_attention on the
+    # same heads, causal, the mask left out (the yardstick only)
+    long_at = {}
+    for S_ in (256, 512):
+        lens_ = torch.randint(S_ // 2, S_ + 1, (64,), generator=g, device=dev)
+        mk_ = (torch.arange(S_, device=dev)[None] < lens_[:, None]).to(torch.int32)
+        cs_, sn_ = _rope_tables(torch.clamp(mk_.cumsum(1) - 1, min=0), DH, cfg.rope_theta)
+        ql_ = (torch.randn((64, S_, H * DH), generator=g, device=dev) * 2).to(torch.bfloat16)
+        kl_ = (torch.randn((64, S_, HK * DH), generator=g, device=dev) * 2).to(torch.bfloat16)
+        vl_ = torch.randn((64, S_, HK * DH), generator=g, device=dev).to(torch.bfloat16)
+        live_ = mk_.sum(1).double()
+        largs = (ql_, kl_, vl_, wq, wq, cs_, sn_, mk_)
+        timed("qknorm_rope_attention_long",
+              lambda: fused_qknorm_rope_attention(*largs, **kwargs),
+              lambda: fused_qknorm_rope_attention_long_plain(*largs, scale=1.0 / np.sqrt(DH), **kwargs),
+              ql_.numel() * 2 * 2 + kl_.numel() * 2 * 2 + cs_.numel() * 4 * 2 + mk_.numel() * 4 + DH * 4 * 2,
+              {"bf16": float(4 * H * DH * (live_ * (live_ + 1) / 2).sum())}, plain_iters=3)
+        qh_ = ql_.view(64, S_, H, DH).transpose(1, 2)
+        kh_, vh_ = (x_.view(64, S_, HK, DH).transpose(1, 2).repeat_interleave(H // HK, dim=1)
+                    for x_ in (kl_, vl_))
+        times["qknorm_rope_attention_long"]["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qh_, kh_, vh_, is_causal=True), 10)
+        long_at[f"64x{S_}"] = times.pop("qknorm_rope_attention_long")
+        del ql_, kl_, vl_, qh_, kh_, vh_
+    times["qknorm_rope_attention_long"] = {**long_at["64x512"], "shape": [64, 512],
+                                           "at_64x256": long_at["64x256"]}
     # B3 and B4 at (512, 64) on the phase-4b layer: x read and the output
     # written once, the int8 weights and scales read once
     T, DM, HQ, HKD, I = x512.shape[0] * x512.shape[1], cfg.hidden_size, H * DH, HK * DH, cfg.intermediate_size
@@ -4573,6 +4690,8 @@ def main(argv=None) -> int:
                                         "theoremsearch_tpu/kernels/layer_int8.py:274"),
         "fused_mlp_int8_layer_gemma": ("theoremsearch_tpu_torch/csrc/layer_int8.cu",
                                        "theoremsearch_tpu/kernels/layer_int8.py:151"),
+        "qknorm_rope_attention_long": ("theoremsearch_tpu_torch/csrc/attention.cu",
+                                       "theoremsearch_tpu/encoder/model.py:119 (XLA, S > 128)"),
     }
     missing = [n for n, c in main_launches.items() if c < 1]
     if missing:

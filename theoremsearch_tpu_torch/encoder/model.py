@@ -9,10 +9,13 @@ Params are a plain dict of tensors with the reference's pytree layout
 and names, so `params_from_jax` carries JAX weights over as numpy. The
 attention block goes through the fused kernel
 (`kernels/attention.py`, CUDA on the card) exactly where the reference
-takes its fused Pallas kernel (`_fused_ok`: head_dim 128, S <= 128);
-longer buckets run the plain composition, as in the reference. The
-projections, the MLP and the embedding gather stay torch ops, as the
-reference left them to XLA.
+takes its fused Pallas kernel (`_fused_ok`: head_dim 128, S <= 128).
+With no gradient recorded, the 256- and 512-wide buckets (128 < S <=
+512) take the same core through kernel B2's long form (`_long_core_ok`;
+CPU tensors its plain version), where the reference runs its XLA
+composition; training keeps that composition there (the backward, B7,
+has no long form). The projections, the MLP and the embedding gather
+stay torch ops, as the reference left them to XLA.
 
 int8 (w8a8) serving mode: `quantize_params_int8` gives per-layer int8
 weights with per-output-column scales; `forward(qlayers=...)` runs every
@@ -182,6 +185,19 @@ def _fused_ok(cfg: EncoderConfig, s: int, b: int) -> bool:
     )
 
 
+def _long_core_ok(cfg: EncoderConfig, s: int) -> bool:
+    """Where the attention core runs through kernel B2's long form, which
+    the reference does not have (its XLA composition runs above S = 128):
+    head_dim 128, H a multiple of Hk, 128 < S <= 512 and no gradient
+    recorded. Training keeps the composition (B7 has no long form)."""
+    return (
+        cfg.head_dim == 128
+        and cfg.num_heads % cfg.num_kv_heads == 0
+        and 128 < s <= 512
+        and not torch.is_grad_enabled()
+    )
+
+
 def _attention_core(layer, q, k, v, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:
     """The fused attention core on projected q/k/v, through the autograd
     Function: kernel B2 forward and kernel B7 backward, or their plain
@@ -292,8 +308,9 @@ def forward(
 ) -> torch.Tensor:
     """Hidden states (B, S, H) after the final norm.
 
-    fused: "on" = the fused attention block where the shapes qualify (the
-    CUDA kernel for CUDA tensors); "plain" = the same block through the
+    fused: "on" = the fused attention block where the shapes qualify
+    (`_fused_ok`, or `_long_core_ok` for B2's long form; the CUDA kernel
+    for CUDA tensors); "plain" = the same block through the
     kernel's plain version, with the kernel's casts (the counterpart of
     the reference's fused="interpret"); "off" = the reference's plain
     composition throughout.
@@ -317,7 +334,7 @@ def forward(
     mask = attention_mask.bool()
     rope_cs = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     b, s = input_ids.shape
-    use_fused = fused != "off" and _fused_ok(cfg, s, b)
+    use_fused = fused != "off" and (_fused_ok(cfg, s, b) or _long_core_ok(cfg, s))
     plain = fused == "plain"
     if fused_layers and qlayers is not None and fused != "off" and _fused_layer_ok(cfg, s, b):
         attn_layer = fused_attn_int8_layer_plain if plain else fused_attn_int8_layer
@@ -347,15 +364,16 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
     """`forward` over sharded params (`shard_params`, or a data row's view
     of them, `sharding.row_params`), on the devices of their shards; the
     hidden states come back on the first. The same attention dispatch as
-    the unsharded path (`_fused_ok` on the whole batch), with the core on
-    each shard's heads where the kv heads divide over the shards."""
+    the unsharded path (`_fused_ok` on the whole batch, or `_long_core_ok`),
+    with the core on each shard's heads where the kv heads divide over the
+    shards."""
     tp = TP(params["embed"])
     ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
     x = tp.embed(params["embed"], ids).to(_DTYPES[cfg.dtype])
     positions = torch.clamp(torch.cumsum(am.to(torch.int32), dim=1) - 1, min=0)
     rope_cs = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     b, s = ids.shape
-    use_fused = fused != "off" and _fused_ok(cfg, s, b)
+    use_fused = fused != "off" and (_fused_ok(cfg, s, b) or _long_core_ok(cfg, s))
     plain = fused == "plain"
     eps = cfg.rms_norm_eps
     on = {d: (rope_cs[0].to(d), rope_cs[1].to(d), am.to(d), am.bool().to(d)) for d in set(tp.devices)}

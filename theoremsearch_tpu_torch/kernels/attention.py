@@ -2,11 +2,18 @@
 backward.
 
 Port of theoremsearch_tpu/kernels/attention.py. The TPU kernel
-`_attn_kernel` (the forward, B2) becomes the hand-written CUDA kernel in
-`csrc/attention.cu`; `fused_qknorm_rope_attention_plain` is its plain
-PyTorch version with the kernel's own casts (q scaled before its bf16
-cast, k normed/rotated then cast, f32 logits and softmax, bf16 probs,
-f32 P.V, bf16 out). The TPU kernel `_attn_bwd_kernel` (the backward, B7)
+`_attn_kernel` (the forward, B2, S <= 128) becomes the hand-written CUDA
+kernel in `csrc/attention.cu`; `fused_qknorm_rope_attention_plain` is its
+plain PyTorch version with the kernel's own casts (q scaled before its
+bf16 cast, k normed/rotated then cast, f32 logits and softmax over the
+whole key range, bf16 probs, f32 P.V, bf16 out). B2's long form, the
+qwen form at 128 < S <= 512, has no TPU kernel behind it: the reference
+runs its XLA composition there. Its kernel streams K and V through
+shared memory in key tiles with a running softmax (bf16 of the
+unnormalized probabilities, the output divided by the row sum at the
+end), so it has a plain version of its own,
+`fused_qknorm_rope_attention_long_plain`; `plain_version` picks a
+form's. The TPU kernel `_attn_bwd_kernel` (the backward, B7)
 becomes `csrc/attention_bwd.cu`, with `fused_qknorm_rope_attention_bwd_plain`
 beside it. `QKNormRopeAttention` ties the two into one autograd Function,
 which the encoder calls in training and serving alike. A CPU tensor goes
@@ -23,8 +30,9 @@ import torch
 from ..utils.device import tf32_off
 from ._build import LaunchCounter, check, load
 
-attention_launches = LaunchCounter()          # the qwen form, head_dim 128
+attention_launches = LaunchCounter()          # the qwen form, head_dim 128, S <= 128
 attention_gemma_launches = LaunchCounter()    # the gemma form, head_dim 256
+attention_long_launches = LaunchCounter()     # the long form, head_dim 128, 128 < S <= 512
 attention_bwd_launches = LaunchCounter()
 
 
@@ -41,12 +49,12 @@ def qk_rms_inv(x: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.rsqrt(ss / x.shape[-1] + eps)
 
 
-def fused_qknorm_rope_attention_plain(
-    q, k, v, q_norm_w, k_norm_w, cos, sin, mask, *,
-    num_heads: int, num_kv_heads: int, head_dim: int, eps: float, causal: bool,
-    scale: float,
-) -> torch.Tensor:
-    """Plain version: (B, S, H*Dh) bf16 from the raw projections."""
+def _masked_logits(q, k, v, q_norm_w, k_norm_w, cos, sin, mask, *, num_heads, num_kv_heads,
+                   head_dim, eps, causal, scale):
+    """The plain versions' common front: q normed, rotated, scaled and cast
+    to bf16, k normed, rotated and cast, v in bf16, both repeated over the
+    GQA groups; the f32 logits (B, H, S, S) plus -1e30 where masked, and
+    v as (B, S, H, Dh) f32."""
     b, s, _ = q.shape
     h, hk, dh = num_heads, num_kv_heads, head_dim
     half = dh // 2
@@ -69,11 +77,69 @@ def fused_qknorm_rope_attention_plain(
     with tf32_off():
         logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float())
         logits = logits + torch.where(valid, 0.0, -1e30)
+    return logits, vh.float()
+
+
+def fused_qknorm_rope_attention_plain(
+    q, k, v, q_norm_w, k_norm_w, cos, sin, mask, *,
+    num_heads: int, num_kv_heads: int, head_dim: int, eps: float, causal: bool,
+    scale: float,
+) -> torch.Tensor:
+    """Plain version of the S <= 128 forms: (B, S, H*Dh) bf16 from the raw
+    projections, the softmax over the whole key range."""
+    b, s, _ = q.shape
+    logits, vh = _masked_logits(q, k, v, q_norm_w, k_norm_w, cos, sin, mask,
+                                num_heads=num_heads, num_kv_heads=num_kv_heads,
+                                head_dim=head_dim, eps=eps, causal=causal, scale=scale)
+    with tf32_off():
         m = logits.amax(dim=-1, keepdim=True)
         e = torch.exp(logits - m)
         probs = (e / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vh.float())
-    return out.to(torch.bfloat16).reshape(b, s, h * dh)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vh)
+    return out.to(torch.bfloat16).reshape(b, s, num_heads * head_dim)
+
+
+LONG_STEP = 32   # keys a step of the long form's running softmax
+
+
+def fused_qknorm_rope_attention_long_plain(
+    q, k, v, q_norm_w, k_norm_w, cos, sin, mask, *,
+    num_heads: int, num_kv_heads: int, head_dim: int, eps: float, causal: bool,
+    scale: float,
+) -> torch.Tensor:
+    """Plain version of B2's long form: the same q/k casts and masked f32
+    logits, then a running softmax over the keys in steps of LONG_STEP, in
+    order, as the kernel takes them: m the running row max, p = exp(l - m)
+    in f32, the row sum s <- s exp(m_old - m) + sum(p) and the output
+    o <- o exp(m_old - m) + bf16(p) V, both f32; out = bf16(o / s). A step
+    whose keys a row may not see leaves it unchanged (p = 0, or, before the
+    row's first real key, a sum that the first real logit scales to 0), so
+    the kernel skips such steps and the result is the same."""
+    b, s, _ = q.shape
+    logits, vh = _masked_logits(q, k, v, q_norm_w, k_norm_w, cos, sin, mask,
+                                num_heads=num_heads, num_kv_heads=num_kv_heads,
+                                head_dim=head_dim, eps=eps, causal=causal, scale=scale)
+    m = torch.full((*logits.shape[:3], 1), -torch.inf, device=q.device)
+    tot = torch.zeros_like(m)
+    o = torch.zeros((*logits.shape[:3], head_dim), device=q.device)
+    with tf32_off():
+        for k0 in range(0, s, LONG_STEP):
+            x = logits[..., k0:k0 + LONG_STEP]
+            m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+            r = torch.exp(m - m_new)
+            p = torch.exp(x - m_new)
+            tot = tot * r + p.sum(dim=-1, keepdim=True)
+            o = o * r + torch.einsum("bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(),
+                                     vh[:, k0:k0 + LONG_STEP])
+            m = m_new
+    out = (o / tot).to(torch.bfloat16)
+    return out.transpose(1, 2).reshape(b, s, num_heads * head_dim)
+
+
+def plain_version(s: int, head_dim: int):
+    """The plain version of the form of B2 that takes (S, head_dim)."""
+    return fused_qknorm_rope_attention_long_plain if head_dim == 128 and s > 128 else (
+        fused_qknorm_rope_attention_plain)
 
 
 def fused_qknorm_rope_attention(
@@ -96,18 +162,22 @@ def fused_qknorm_rope_attention(
     """Fused attention block output (B, S, H*Dh) bf16 (before wo).
     The kernel takes S <= 128 and head_dim 128 (the qwen form,
     `encoder/model.py:_fused_ok`) or 256 (the gemma form, bidirectional,
-    `encoder/gemma.py:_fused_ok`); each form counts its own launches."""
+    `encoder/gemma.py:_fused_ok`), and 128 < S <= 512 at head_dim 128 (the
+    long form, `encoder/model.py:_long_core_ok`); each form counts its own
+    launches."""
     scale = float(scale) if scale is not None else 1.0 / np.sqrt(head_dim)
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               eps=eps, causal=causal, scale=scale)
+    b, s, _ = q.shape
     if q.device.type == "cpu":
-        return fused_qknorm_rope_attention_plain(
-            q, k, v, q_norm_w, k_norm_w, cos, sin, mask, **kw)
+        return plain_version(s, head_dim)(q, k, v, q_norm_w, k_norm_w, cos, sin, mask, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"fused_qknorm_rope_attention: unsupported device {q.device}")
-    b, s, _ = q.shape
-    if head_dim not in (128, 256) or not 1 <= s <= 128 or num_heads % num_kv_heads or b > 65535:
-        raise ValueError(f"attention kernel takes head_dim 128 or 256, S <= 128; got {head_dim}, {s}")
+    long_form = head_dim == 128 and 128 < s <= 512
+    if (head_dim not in (128, 256) or not (1 <= s <= 128 or long_form)
+            or num_heads % num_kv_heads or b > 65535):
+        raise ValueError(f"attention kernel takes head_dim 128 or 256 at S <= 128, and head_dim "
+                         f"128 at S <= 512; got {head_dim}, {s}")
     for name, t, width in (("q", q, num_heads), ("k", k, num_kv_heads), ("v", v, num_kv_heads)):
         if t.dtype != torch.bfloat16 or t.shape != (b, s, width * head_dim):
             raise ValueError(f"{name}: want bf16 {(b, s, width * head_dim)}, got {t.dtype} {tuple(t.shape)}")
@@ -123,18 +193,24 @@ def fused_qknorm_rope_attention(
         raise ValueError("norm weights must be (head_dim,)")
     if cs.shape != (b, s, head_dim // 2) or sn.shape != cs.shape or m.shape != (b, s):
         raise ValueError("cos/sin must be (B, S, Dh/2) and mask (B, S)")
+    if long_form:   # the long form copies q, k, v, cos and sin in 16-byte pieces
+        q, k, v, cs, sn = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, cs, sn))
     out = torch.empty_like(q)
     lib = load()
+    fn = lib.ts_qknorm_rope_attention_long if long_form else lib.ts_qknorm_rope_attention
     # the launch and cudaFuncSetAttribute act on the current device
     with torch.cuda.device(dev):
-        err = lib.ts_qknorm_rope_attention(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(), kw_.data_ptr(),
             cs.data_ptr(), sn.data_ptr(), m.data_ptr(), out.data_ptr(),
             b, s, num_heads, num_kv_heads, head_dim, float(eps), float(scale), int(causal),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
         )
     check(lib, err, "fused_qknorm_rope_attention")
-    (attention_gemma_launches if head_dim == 256 else attention_launches).bump()
+    if long_form:
+        attention_long_launches.bump()
+    else:
+        (attention_gemma_launches if head_dim == 256 else attention_launches).bump()
     return out
 
 
@@ -287,7 +363,9 @@ class QKNormRopeAttention(torch.autograd.Function):
     plain=True), the counterpart of the reference's custom VJP
     (theoremsearch_tpu/encoder/model.py:_make_attn_core). Only the
     inputs are saved; the backward recomputes the rest. cos, sin and the
-    mask get no gradient: nothing upstream of them is a parameter.
+    mask get no gradient: nothing upstream of them is a parameter. B7
+    takes S <= 128 only, so the encoder reaches B2's long form through
+    here with no gradient recorded (`encoder/model.py:_long_core_ok`).
 
         QKNormRopeAttention.apply(q, k, v, q_norm_w, k_norm_w, cos, sin, mask,
                                   num_heads, num_kv_heads, head_dim, eps, causal,
@@ -301,9 +379,8 @@ class QKNormRopeAttention(torch.autograd.Function):
                   eps=eps, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, q_norm_w, k_norm_w, cos, sin, mask)
         ctx.kw, ctx.plain = kw, plain
-        if plain:
-            return fused_qknorm_rope_attention_plain(q, k, v, q_norm_w, k_norm_w, cos, sin, mask, **kw)
-        return fused_qknorm_rope_attention(q, k, v, q_norm_w, k_norm_w, cos, sin, mask, **kw)
+        fn = plain_version(q.shape[1], head_dim) if plain else fused_qknorm_rope_attention
+        return fn(q, k, v, q_norm_w, k_norm_w, cos, sin, mask, **kw)
 
     @staticmethod
     def backward(ctx, g):

@@ -11,6 +11,12 @@ JSON line of CUDA-event times, in ms, at the encoder's serving shape
 - B2 (`fused_qknorm_rope_attention`), qwen form (16/8 heads of 128,
   causal) and gemma form (3/1 heads of 256, bidirectional), at (512, 64)
   and at (64, 64) with full masks;
+- B2's long form (qwen form, causal) at the embed cell's sub-batches
+  (64, 256) and (64, 512), lengths uniform in [S/2, S], beside its plain
+  version, `scaled_dot_product_attention` on the normed heads (the
+  yardstick only: the port never calls it; a checkout whose wrapper
+  refuses S > 128 reads null for the kernel) and the full-width qwen
+  bf16 forward (`encode_pooled`) at those shapes;
 - B3 and B4 in both forms on one full-width layer of random int8 weights;
 - B1 (`mips_g_scan`) on a 1,048,576 x 1024 int8 corpus (row block 4096,
   merge tiles 4: the speed engine's geometry) at B = 1024, 64 and 8:
@@ -40,7 +46,7 @@ JSON line of CUDA-event times, in ms, at the encoder's serving shape
 
 Every input is made from fixed seeds, so two checkouts timed in one call
 (parent, change, change, parent) see the same data. `--only b5,b7` times
-those sections alone (b2, b3b4, b1, b5, exact, b7, train, fwd). Needs one
+those sections alone (b2, b2long, b3b4, b1, b5, exact, b7, train, fwd). Needs one
 CUDA card.
 """
 
@@ -92,7 +98,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="checkout whose theoremsearch_tpu_torch to time")
     ap.add_argument("--label", default=None, help="name printed with the result")
-    ap.add_argument("--only", default="b2,b3b4,b1,b5,exact,b7,train,fwd",
+    ap.add_argument("--only", default="b2,b2long,b3b4,b1,b5,exact,b7,train,fwd",
                     help="comma-separated sections to time")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
@@ -148,6 +154,42 @@ def main(argv=None) -> int:
             res[f"b2_{name}_64x64"] = cuda_ms(
                 lambda: fused_qknorm_rope_attention(q64, k64, v64, w[0], w[1], c64, s64, full, **kw), 50)
             del q, k, v
+
+    # B2's long form at the embed cell's 256- and 512-wide sub-batches
+    if "b2long" in only:
+        from theoremsearch_tpu_torch.kernels.attention import fused_qknorm_rope_attention_plain
+
+        h, hk, dh, bl = 16, 8, 128, 64
+        ecfg = EncoderConfig()
+        params = init_params(ecfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+        for sl in (256, 512):
+            lens_l = torch.randint(sl // 2, sl + 1, (bl,), generator=g, device=dev)
+            m_l = (torch.arange(sl, device=dev)[None] < lens_l[:, None]).to(torch.int32)
+            cs, sn = _rope_tables(torch.clamp(m_l.cumsum(1) - 1, min=0), dh, 1e6)
+            q = (torch.randn((bl, sl, h * dh), generator=g, device=dev) * 2).to(torch.bfloat16)
+            k = (torch.randn((bl, sl, hk * dh), generator=g, device=dev) * 2).to(torch.bfloat16)
+            v = torch.randn((bl, sl, hk * dh), generator=g, device=dev).to(torch.bfloat16)
+            w = 1.0 + 0.1 * torch.randn((2, dh), generator=g, device=dev)
+            kw = dict(num_heads=h, num_kv_heads=hk, head_dim=dh, eps=1e-6, causal=True,
+                      scale=dh ** -0.5)
+            args = (q, k, v, w[0], w[1], cs, sn, m_l)
+            try:
+                res[f"b2long_{bl}x{sl}"] = cuda_ms(lambda: fused_qknorm_rope_attention(*args, **kw), 20)
+            except ValueError:
+                res[f"b2long_{bl}x{sl}"] = None
+            res[f"b2long_plain_{bl}x{sl}"] = cuda_ms(
+                lambda: fused_qknorm_rope_attention_plain(*args, **kw), 3)
+            qh = q.view(bl, sl, h, dh).transpose(1, 2)
+            kh = k.view(bl, sl, hk, dh).transpose(1, 2).repeat_interleave(h // hk, dim=1)
+            vh = v.view(bl, sl, hk, dh).transpose(1, 2).repeat_interleave(h // hk, dim=1)
+            res[f"b2long_sdpa_{bl}x{sl}"] = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
+            ids = torch.randint(3, 1000, (bl, sl), generator=g, device=dev) * m_l
+            with torch.inference_mode():
+                res[f"fwd_qwen_bf16_{bl}x{sl}"] = cuda_ms(lambda: encode_pooled(params, ids, m_l, ecfg), 5)
+            del q, k, v, qh, kh, vh
+        del params
+        torch.cuda.empty_cache()
 
     # B3 and B4 on one full-width layer, both forms
     if "b3b4" in only:
