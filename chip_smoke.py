@@ -26,6 +26,13 @@ exits non-zero (there is no CPU path):
              bf16 outputs differ, by at most 1% of max|ref|) and against
              the S <= 128 forms' softmax over the whole key range (cosine
              > 0.9999, max error <= 2e-2 of max|ref|); a repeat bit-equal.
+ 4m. moe     the expert layer's kernels (csrc/moe.cu) vs their plain
+             versions at Moonlight-16B-A3B's widths (2048 x 1408, 64
+             experts, top 6), 4,096 and 28,000 real tokens, Zipf-like loads
+             with one expert empty: the plan's offsets and counters equal,
+             the grouped gate/up and down products with at most 2% of the
+             bf16 outputs off by at most 2% of max|plain|, repeats
+             bit-equal, the combine bit-equal.
  4b. b3b4    the whole-layer int8 kernels B4 (MLP block) and B3
              (attention block) vs their plain versions on one full-width
              layer of random weights quantized by quantize_params_int8:
@@ -66,6 +73,15 @@ exits non-zero (there is no CPU path):
              the speed route (B1 + the residual rescore), min recall@10
              >= 0.99 over 5 draws of 1,024 vs the fp32 oracle. Each
              step's seconds, papers parsed and slogans embedded a second.
+ 5m. encoder_moe  the full Moonlight-16B-A3B tower (27 layers, 15.6B
+             random bf16 parameters) through BatchedEncoder: 64 texts at
+             each width bucket and the 512-wide ones again (bit-equal),
+             the grouped, plan and combine launches of that window equal to
+             26 expert layers x the sub-batches and to stats()["moe"]; a
+             forward a width under sync debug mode "error"; at widths 64
+             and 512 the pooled rows against the expert layer's plain
+             versions in the kernels' place, forced to the kernels'
+             routing (min cosine > 0.999).
  5. encoder  full-width Qwen3-0.6B-class encoder (28 layers, random bf16
              weights from a seeded generator): kernel path vs plain path
              cosine, then 4,096 slogans through BatchedEncoder; then 64
@@ -154,7 +170,11 @@ exits non-zero (there is no CPU path):
              and B4 at (512, 64); B2's long form at (64, 512) and (64,
              256), lengths uniform in [S/2, S], beside
              scaled_dot_product_attention on the same heads (library_ms;
-             the port never calls it); B6
+             the port never calls it); the expert layer (phase 4m's
+             inputs, 28,000 real tokens and 4,096): the two grouped
+             launches beside one dense bf16 matmul chain of the same FLOPs
+             (library_ms), the plan (sort, inverse, plan kernel) and the
+             combine; B6
              at the ivf phase's B=8 search and the b6 shapes, as device
              time: its launches queued behind a sleep kernel, between
              CUDA events), B2 in both forms at (64, 64) too, B3 and B4's
@@ -354,7 +374,7 @@ exits non-zero (there is no CPU path):
              B2 at the training shape (64, 64, 16, 8, 128), the train step
              "on" and "off", and the script's total seconds.
 
-Each path (phases 25, 5-7, 7b, 9, 11, 11r, 11l, 11c, 11s, 12, 15, 16, 16l,
+Each path (phases 25, 5m, 5-7, 7b, 9, 11, 11r, 11l, 11c, 11s, 12, 15, 16, 16l,
 16m, 16t, 18, 18m, 18g, 20, 21, 23) runs with every launch counter set to 0 just before it
 and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
@@ -2474,6 +2494,250 @@ def mp_tp_gates(a: list, b: list, gpu: str, a_s: float, b_s: float) -> None:
         raise AssertionError(f"multiproc_tp: gates missed: {missed}")
 
 
+# the expert layer at Moonlight-16B-A3B's widths (hidden, expert width,
+# experts, picks a token), and the real tokens of a 64-wide sub-batch of
+# the embed mix (~4k) and of a 512-wide one (16k-33k)
+MOE_H, MOE_I, MOE_E, MOE_K = 2048, 1408, 64, 6
+MOE_TOKENS = (4096, 28_000)
+# word counts of texts that land in each width bucket (the hash
+# tokenizer gives a token a word, plus two specials)
+MOE_WORDS = {64: (10, 62), 128: (70, 126), 256: (140, 254), 512: (270, 510)}
+
+
+def moe_uneven_picks(t: int, seed: int, dev):
+    """(T, K) distinct experts a token, drawn with Zipf-like weights: a few
+    experts take most rows, expert 5 none."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    w = 1.0 / torch.arange(1, MOE_E + 1, dtype=torch.float64) ** 1.2
+    w[5] = 0.0
+    return torch.multinomial(w.expand(t, MOE_E).contiguous(), MOE_K, replacement=False,
+                             generator=gen).to(dev)
+
+
+def moe_kernels(dev, err_of: dict) -> dict:
+    """Phase 4m: the expert layer's kernels (`kernels/moe.py`) against their
+    plain versions at MOE_TOKENS real tokens, uneven loads with one expert
+    empty: the plan's offsets and counters equal, the grouped gate/up and
+    down products with at most 2% of the bf16 outputs off, each by at most
+    2% of the largest (another summation order), a repeat bit-equal, the
+    combine bit-equal. Returns the kernels line's times: the two grouped
+    launches, the plan kernel and the combine, at 28,000 tokens (at 4,096
+    under `at_4096`)."""
+    import torch
+
+    from theoremsearch_tpu_torch.kernels import moe
+
+    H_, I_, E_, K_ = MOE_H, MOE_I, MOE_E, MOE_K
+    out = {}
+    for t in MOE_TOKENS:
+        g = torch.Generator(device=dev).manual_seed(t)
+        x = torch.randn((t, H_), generator=g, device=dev).to(torch.bfloat16)
+        wg, wu = (torch.randn((E_, I_, H_), generator=g, device=dev, dtype=torch.bfloat16) * 0.02
+                  for _ in range(2))
+        wd = torch.randn((E_, H_, I_), generator=g, device=dev, dtype=torch.bfloat16) * 0.02
+        top = moe_uneven_picks(t, t, dev)
+        acc = torch.zeros(4, dtype=torch.int64, device=dev)
+        rows, offsets, inv = moe.route_plan(top, E_, acc)
+        keys = torch.sort(top.reshape(-1).to(torch.int32), stable=True).values
+        acc_p = torch.zeros(4, dtype=torch.int64, device=dev)
+        plan_ok = torch.equal(offsets, moe.route_offsets_plain(keys, E_, t, acc_p)) and torch.equal(
+            acc, acc_p)
+        cnt = (offsets[1:] - offsets[:-1]).tolist()
+        h = moe.grouped_swiglu(x, rows, offsets, wg, wu)
+        y = moe.grouped_down(h, offsets, wd)
+        hp = moe.grouped_swiglu_plain(x, rows, offsets, wg, wu)
+        yp = moe.grouped_down_plain(h, offsets, wd)
+        repeat = (torch.equal(h, moe.grouped_swiglu(x, rows, offsets, wg, wu))
+                  and torch.equal(y, moe.grouped_down(h, offsets, wd)))
+        gw = torch.Generator(device=dev).manual_seed(1)
+        w = torch.rand((t, K_), generator=gw, device=dev)
+        shared = (torch.randn((t, H_), generator=gw, device=dev) * 0.1).to(torch.bfloat16)
+        tokens = torch.randperm(2 * t, generator=gw, device=dev)[:t].to(torch.int32)
+        base = torch.randn((2 * t, H_), generator=gw, device=dev).to(torch.bfloat16)
+        xk, xp = base.clone(), base.clone()
+        moe.combine_into(xk, tokens, y, inv, w, shared)
+        moe.combine_into_plain(xp, tokens, y, inv, w, shared)
+        torch.cuda.synchronize()
+        stats = {}
+        for what, got, want in (("gate_up", h, hp), ("down", y, yp)):
+            diff = (got.float() - want.float()).abs()
+            scale = float(want.float().abs().max())
+            stats[what] = {"share_off": float((diff > 0).float().mean()),
+                           "max_abs_err": float(diff.max()), "max_abs_plain": scale}
+            err_of["moe_grouped_gemm"] = max(err_of["moe_grouped_gemm"], float(diff.max()))
+        combine_equal = torch.equal(xk, xp)
+        emit("moe", tokens=t, experts=E_, top_k=K_, widths=[H_, I_], rows_min_max=[min(cnt), max(cnt)],
+             plan_equal=plan_ok, combine_bit_equal=combine_equal, repeat_bit_equal=repeat, **stats)
+        if not (plan_ok and combine_equal and repeat and cnt[5] == 0
+                and all(v["share_off"] <= 0.02 and v["max_abs_err"] <= 2e-2 * v["max_abs_plain"]
+                        for v in stats.values())):
+            raise AssertionError(f"the expert layer's kernels disagree with their plain versions "
+                                 f"at {t} tokens")
+        # times: the two grouped launches together; bytes = the touched
+        # experts' three matrices and the pairs' rows in and out of both
+        # products, operations 2 x pairs x 3 x H x I in bf16
+        p_ = t * K_
+        touched = sum(1 for c in cnt if c)
+        lib_a = torch.randn((p_, H_), generator=g, device=dev).to(torch.bfloat16)
+        lib_gu = torch.randn((H_, 2 * I_), generator=g, device=dev).to(torch.bfloat16)
+        lib_d = torch.randn((I_, H_), generator=g, device=dev).to(torch.bfloat16)
+        at = {
+            "moe_grouped_gemm": {
+                "ms": cuda_ms(lambda: moe.grouped_down(moe.grouped_swiglu(x, rows, offsets, wg, wu),
+                                                       offsets, wd), 10),
+                "plain_ms": cuda_ms(lambda: moe.grouped_down_plain(
+                    moe.grouped_swiglu_plain(x, rows, offsets, wg, wu), offsets, wd), 2, warmup=1),
+                **bound(touched * 3 * H_ * I_ * 2 + p_ * (H_ * 2 + I_ * 2) * 2,
+                        {"bf16": 2.0 * p_ * 3 * H_ * I_}),
+                # the yardstick: one dense cuBLAS chain of the same FLOPs
+                "library_ms": cuda_ms(lambda: (lib_a @ lib_gu)[:, :I_].contiguous() @ lib_d, 10)},
+            "moe_plan": {
+                "ms": cuda_ms(lambda: moe.route_plan(top, E_, acc), 20),
+                "plain_ms": cuda_ms(lambda: moe.route_offsets_plain(
+                    torch.sort(top.reshape(-1).to(torch.int32), stable=True).values, E_, t, acc_p), 20),
+                **bound(p_ * (4 + 8) * 2 + p_ * 4 * 3 + (E_ + 1) * 4, {}), "library_ms": None},
+            "moe_combine": {
+                "ms": cuda_ms(lambda: moe.combine_into(xk, tokens, y, inv, w, shared), 20),
+                "plain_ms": cuda_ms(lambda: moe.combine_into_plain(xp, tokens, y, inv, w, shared), 5),
+                **bound(p_ * (H_ * 2 + 4 + 4) + t * (H_ * 2 * 3 + 4), {}), "library_ms": None},
+        }
+        for name, v in at.items():
+            out.setdefault(name, {})[t] = {**v, "shape": [t, E_, K_, H_, I_]}
+        del x, wg, wu, wd, h, y, hp, yp, lib_a, lib_gu, lib_d, xk, xp, base
+        torch.cuda.empty_cache()
+    lo, hi = MOE_TOKENS
+    return {name: {**v[hi], f"at_{lo}": v[lo]} for name, v in out.items()}
+
+
+def moe_encoder(dev, gpu: str, path_start, path_end) -> dict:
+    """Phase 5m: the full Moonlight-16B-A3B tower (27 layers, random bf16
+    weights from a seeded generator, e_score_correction_bias 0.02 N(0, 1))
+    through `BatchedEncoder`: 64 texts at each width bucket, then the
+    512-wide ones again (bit-equal), in a main-path window; the launches
+    counted there and in `stats()["moe"]` (two grouped launches, a plan and
+    a combine an expert layer a sub-batch). Outside the window: a forward
+    at each width under sync debug mode "error" (no read back to the host),
+    and at widths 64 and 512 the pooled rows with the expert layer's plain
+    versions in place of its kernels, routed as the kernels' forward
+    routed (min cosine > 0.999). Returns the window's launches."""
+    import gc
+
+    import torch
+
+    from theoremsearch_tpu_torch.encoder import deepseek as ds
+    from theoremsearch_tpu_torch.encoder.batching import BatchedEncoder
+    from theoremsearch_tpu_torch.kernels import moe
+    from theoremsearch_tpu_torch.utils.device import tf32_off
+
+    cfg = ds.DeepseekEncoderConfig()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = ds.init_params(cfg, gen, device=dev)
+    for layer in params["layers"]:
+        if "router_bias" in layer:
+            layer["router_bias"].copy_(torch.randn((cfg.n_routed_experts,), generator=gen, device=dev)
+                                       * 0.02)
+    n_params = sum(t_.numel() for t_ in (params["embed"], params["final_norm"])) + sum(
+        t_.numel() for layer in params["layers"] for v in layer.values()
+        for t_ in (v.values() if isinstance(v, dict) else [v]))
+    be = BatchedEncoder(params, cfg, device=dev)
+    rng = np.random.default_rng(21)
+    words = ["".join(chr(97 + i // 26 ** j % 26) for j in range(3)) for i in range(5000)]
+    texts = {w: [" ".join(rng.choice(words, n)) for n in rng.integers(lo, hi, 64)]
+             for w, (lo, hi) in MOE_WORDS.items()}
+    batches = {}
+    for w, part in texts.items():
+        ids_mask, n_real = be._prep_batch(part, [be.tokenizer.tokenize(t_) for t_ in part],
+                                          list(range(64)))
+        batches[w] = (ids_mask, n_real)
+        be.encode(part)                 # warm: the library, the allocator, each shape
+    torch.cuda.synchronize()
+    # no read back to the host in the forward, at every width
+    for w, (ids_mask, n_real) in batches.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            be._forward(ids_mask, n_real, list(range(64)))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    stats0 = be.stats()
+    path_start()
+    rows, ms = {}, {}
+    for w, part in texts.items():
+        t0 = time.perf_counter()
+        rows[w] = be.encode(part)
+        ms[w] = 1e3 * (time.perf_counter() - t0)
+    again = be.encode(texts[512])
+    win = path_end()
+    stats1 = be.stats()
+    subs = {f"{b_}x{w_}": n_ - stats0["by_shape"].get((b_, w_), 0)
+            for (b_, w_), n_ in stats1["by_shape"].items() if n_ - stats0["by_shape"].get((b_, w_), 0)}
+    counted = {w: stats1["moe"][w]["launches"] - stats0["moe"][w]["launches"] for w in stats1["moe"]}
+    real = {w: stats1["moe"][w]["real_tokens"] - stats0["moe"][w]["real_tokens"] for w in stats1["moe"]}
+    n_sub = sum(subs.values())
+    layers = cfg.n_moe_layers
+    # the expert layer's plain versions in the kernels' place (the plan on
+    # the host), at widths 64 and 512, outside the window, routed as the
+    # kernels' forward routed: left to route itself, a sub-batch of random
+    # weights parts from it at a near-tie and the flips cascade down the
+    # layers (81% of the picks shared, cosine 0.79, on an H100)
+    kernels = {n_: getattr(moe, n_) for n_ in ("route_plan", "grouped_swiglu", "grouped_down",
+                                                "combine_into")}
+    sound_route = ds.route
+
+    def plain_plan(top, n_experts, acc=None):
+        return tuple(t_.to(top.device) for t_ in kernels["route_plan"](top.cpu(), n_experts))
+
+    cos = {}
+    for w in (64, 512):
+        ids_mask, n_real = batches[w]
+        t = torch.from_numpy(ids_mask).to(dev)
+        tokens = torch.from_numpy(ds.real_token_rows(ids_mask[1, :n_real])).to(dev)
+        rec = []
+        with torch.inference_mode():
+            pk = ds.encode_pooled(params, t[0], t[1], cfg, tokens=tokens, record=rec)
+            picks = iter(rec[0])
+
+            def forced_route(layer, xr, cfg_):
+                top = next(picks).long()
+                with tf32_off():
+                    scores = torch.sigmoid(xr.float() @ layer["router"].float().T)
+                wt = scores.gather(1, top)
+                return top, wt / (wt.sum(dim=-1, keepdim=True) + 1e-20) * cfg_.routed_scaling_factor
+
+            moe.route_plan, moe.grouped_swiglu = plain_plan, moe.grouped_swiglu_plain
+            moe.grouped_down, moe.combine_into = moe.grouped_down_plain, moe.combine_into_plain
+            ds.route = forced_route
+            try:
+                pp = ds.encode_pooled(params, t[0], t[1], cfg, tokens=tokens)
+            finally:
+                for n_, f_ in kernels.items():
+                    setattr(moe, n_, f_)
+                ds.route = sound_route
+        cos[w] = float((pk[:n_real].double() * pp[:n_real].double()).sum(1).min())
+    emb = np.concatenate(list(rows.values()))
+    norms = np.linalg.norm(emb, axis=1)
+    out = dict(layers=cfg.num_layers, params=n_params, gpu=gpu, sub_batches=subs,
+               encode_64_ms=ms, real_tokens=real, launches=win, stats_launches=counted,
+               repeat_bit_equal=bool(np.array_equal(again, rows[512])),
+               cos_kernel_vs_plain_min=cos,
+               memory_peak_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2),
+               finite=bool(np.isfinite(emb).all()), norm_max_err=float(np.abs(norms - 1).max()))
+    emit("encoder_moe", **out)
+    ok = (win["moe_grouped_gemm"] == 2 * layers * n_sub == sum(counted.values())
+          and win["moe_plan"] == win["moe_combine"] == layers * n_sub
+          and sorted(counted) == sorted(MOE_WORDS) and all(counted[w] > 0 for w in MOE_WORDS)
+          and out["repeat_bit_equal"] and out["finite"] and out["norm_max_err"] < 1e-3
+          and min(cos.values()) > 0.999)
+    del params, be, rows, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("encoder_moe phase failed")
+    return win
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2506,6 +2770,7 @@ def main(argv=None) -> int:
     from theoremsearch_tpu_torch.index.ivf import IVFIndex, calibrate_nprobe
     from theoremsearch_tpu_torch.index.quant import quantize_global_int8, quantize_residual_int8
     from theoremsearch_tpu_torch.kernels import _build
+    from theoremsearch_tpu_torch.kernels import moe as moe_kernels_mod
     from theoremsearch_tpu_torch.kernels.attention import (
         attention_bwd_launches, attention_gemma_launches, attention_launches,
         attention_long_launches, fused_qknorm_rope_attention, fused_qknorm_rope_attention_bwd,
@@ -2549,6 +2814,8 @@ def main(argv=None) -> int:
         "fused_attn_int8_layer_gemma": attn_int8_gemma_launches,
         "fused_mlp_int8_layer_gemma": mlp_int8_gemma_launches,
         "qknorm_rope_attention_long": attention_long_launches,
+        "moe_grouped_gemm": moe_kernels_mod.grouped_launches,
+        "moe_plan": moe_kernels_mod.plan_launches, "moe_combine": moe_kernels_mod.combine_launches,
     }
     main_launches = dict.fromkeys(counters, 0)
 
@@ -2858,6 +3125,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"B6 kernel disagrees with its plain version at {[bb, p6, r6, D]}")
     del sl6, ck, cp
 
+    # ---- 4m. the expert layer's kernels vs plain ----
+    moe_times = moe_kernels(dev, err_of)
+
     # ---- 25. ingest_cli: a week of synthetic arXiv sources to ids through
     # the port's ingest library and CLI. It runs before any phase that
     # starts threads or allocates the 1M corpora: the parse driver forks a
@@ -2873,6 +3143,10 @@ def main(argv=None) -> int:
     unlaunched = [k for k in ("mips_g_scan", "qknorm_rope_attention") if path_ic[k] < 1]
     if unlaunched:
         raise AssertionError(f"ingest_cli: kernels never launched in its window: {unlaunched}")
+
+    # ---- 5m. the Moonlight-16B-A3B tower through BatchedEncoder (its own
+    # window; its 31 GB freed before phase 5) ----
+    moe_encoder(dev, gpu, path_start, path_end)
 
     # ---- 5. encoder at full width ----
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
@@ -3956,7 +4230,7 @@ def main(argv=None) -> int:
     q8, qs = quantize_queries(qb)
     nrows = engine.padded_rows
     out_bytes = 1024 * (nrows // (rb * m)) * 128 * 4
-    times = {}
+    times = dict(moe_times)
 
     def timed(name, kernel, plain, nbytes, ops, plain_iters=3):
         times[name] = {"ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, plain_iters),
@@ -4692,6 +4966,9 @@ def main(argv=None) -> int:
                                        "theoremsearch_tpu/kernels/layer_int8.py:151"),
         "qknorm_rope_attention_long": ("theoremsearch_tpu_torch/csrc/attention.cu",
                                        "theoremsearch_tpu/encoder/model.py:119 (XLA, S > 128)"),
+        "moe_grouped_gemm": ("theoremsearch_tpu_torch/csrc/moe.cu", "none (no expert layer)"),
+        "moe_plan": ("theoremsearch_tpu_torch/csrc/moe.cu", "none (no expert layer)"),
+        "moe_combine": ("theoremsearch_tpu_torch/csrc/moe.cu", "none (no expert layer)"),
     }
     missing = [n for n, c in main_launches.items() if c < 1]
     if missing:

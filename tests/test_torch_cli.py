@@ -135,7 +135,9 @@ def _flags(parser) -> dict:
 def test_help_lists_the_device_subcommands():
     """`--help` lists the reference's fourteen subcommands, in its order;
     each takes the reference's flags with its defaults, plus `--device` on
-    the seven device subcommands and on no host subcommand."""
+    the seven device subcommands and on no host subcommand, and
+    `--embedder` takes the port's own deepseek tower beside the
+    reference's families."""
     from theoremsearch_tpu.cli import build_parser as jax_build_parser
 
     res = subprocess.run([sys.executable, "-m", "theoremsearch_tpu_torch", "--help"], cwd=ROOT,
@@ -152,7 +154,12 @@ def test_help_lists_the_device_subcommands():
             assert mine.pop("device")[0] == ["--device"], cmd
         else:
             assert "device" not in mine and "--device" not in parser.format_help(), cmd
-        assert mine == _flags(ref[cmd]), cmd
+        theirs = _flags(ref[cmd])
+        if "embedder" in theirs:
+            opts, ref_opts = mine.pop("embedder"), theirs.pop("embedder")
+            assert opts[2] == [*ref_opts[2], "deepseek"], cmd
+            assert opts[:2] + opts[3:] == ref_opts[:2] + ref_opts[3:], cmd
+        assert mine == theirs, cmd
 
 
 @pytest.mark.parametrize("cmd", DEVICE_CMDS)

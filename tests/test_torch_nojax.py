@@ -23,7 +23,8 @@ SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / 
                                        ROOT / "tests" / "torch_multihost_worker.py",
                                        ROOT / "tests" / "test_torch_distributed.py",
                                        ROOT / "tests" / "test_torch_profiling.py",
-                                       ROOT / "tests" / "test_torch_spans.py"]
+                                       ROOT / "tests" / "test_torch_spans.py",
+                                       ROOT / "tests" / "test_torch_moe_cuda.py"]
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -64,11 +65,11 @@ def test_module_list_covers_the_slice():
                  "eval.harness", "cli", "encoder.gemma", "encoder.bert", "encoder.families",
                  "encoder.loader", "core.meshes", "core.distributed", "utils.profiling",
                  "ingest.parse_driver", "ingest.latex.extract", "slogans.generate", "eval.quality",
-                 "serve.ui"):
+                 "serve.ui", "encoder.deepseek", "encoder.towers", "kernels.moe"):
         assert f"theoremsearch_tpu_torch.{want}" in MODULES
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
         "mips_g.cu", "mips_topk.cu", "attention.cu", "attention_bwd.cu", "layer_int8.cu",
-        "ivf_scores.cu", "int8_mma.cuh"}
+        "ivf_scores.cu", "int8_mma.cuh", "moe.cu"}
     importlib.import_module("theoremsearch_tpu_torch.kernels._build")
 
 

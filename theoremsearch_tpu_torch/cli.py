@@ -27,7 +27,7 @@ train; default: the card; no CPU fallback). The host subcommands
 take no `--device` and touch no device: ingest-arxiv, locate-s3 and the
 tex / plastex parse methods need the network, boto3, pdflatex or plasTeX,
 as in the reference. `--model-dir` loads a local HuggingFace checkpoint
-of any of the three families (qwen, gemma, BERT: detected from its
+of any of the four towers (qwen, gemma, BERT, deepseek: detected from its
 config.json), with its tokenizer when the directory holds one and its
 sentence-transformers role prompts; without it the encoder is the
 hermetic one of `--embedder` (its family's tiny() config, weights from a
@@ -58,7 +58,7 @@ def _catalog(args):
 
 def _batched_encoder(args):
     """The checkpoint encoder of --model-dir (family from its config.json:
-    qwen, gemma or bert; its tokenizer when transformers loads one from
+    qwen, gemma, bert or deepseek; its tokenizer when transformers loads one from
     the directory, else the hermetic one), else the hermetic encoder of
     --embedder, on --device (default: the card), in --quant mode. A
     checkpoint tokenizer that maps text to no tokens raises: some
@@ -68,8 +68,9 @@ def _batched_encoder(args):
 
     from .core.config import BertEncoderConfig, EncoderConfig, GemmaEncoderConfig
     from .encoder.batching import BatchedEncoder
-    from .encoder.families import family_module
+    from .encoder.deepseek import DeepseekEncoderConfig
     from .encoder.tokenizer import get_tokenizer
+    from .encoder.towers import tower_module
     from .utils.device import resolve_device
 
     device = resolve_device(getattr(args, "device", None))
@@ -77,11 +78,12 @@ def _batched_encoder(args):
     if model_dir:
         from .encoder.loader import (
             detect_family, load_hf_bert_checkpoint, load_hf_checkpoint,
-            load_hf_gemma_checkpoint, load_st_prompts,
+            load_hf_deepseek_checkpoint, load_hf_gemma_checkpoint, load_st_prompts,
         )
 
-        loader = {"gemma": load_hf_gemma_checkpoint, "bert": load_hf_bert_checkpoint}.get(
-            detect_family(model_dir), load_hf_checkpoint)
+        loader = {"gemma": load_hf_gemma_checkpoint, "bert": load_hf_bert_checkpoint,
+                  "deepseek": load_hf_deepseek_checkpoint}.get(detect_family(model_dir),
+                                                                load_hf_checkpoint)
         params, cfg = loader(model_dir, device=device)
         tok = get_tokenizer(model_dir, cfg.vocab_size)
         if not tok.tokenize("every compact group"):
@@ -89,10 +91,11 @@ def _batched_encoder(args):
                              "give the checkpoint its tokenizer files")
         prompts = load_st_prompts(model_dir)
     else:
-        cls = {"gemma": GemmaEncoderConfig, "bert": BertEncoderConfig}.get(
-            getattr(args, "embedder", "qwen"), EncoderConfig)
+        cls = {"gemma": GemmaEncoderConfig, "bert": BertEncoderConfig,
+               "deepseek": DeepseekEncoderConfig}.get(getattr(args, "embedder", "qwen"),
+                                                      EncoderConfig)
         cfg = cls.tiny()
-        params = family_module(cfg).init_params(
+        params = tower_module(cfg).init_params(
             cfg, torch.Generator(device=device).manual_seed(0), device=device)
         tok = get_tokenizer(None, cfg.vocab_size)
         prompts = {}
@@ -584,8 +587,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     def encoder_flags(s, embedder_help):
         s.add_argument("--model-dir",
-                       help="local HF checkpoint dir (qwen, gemma or bert, from its config.json)")
-        s.add_argument("--embedder", default="qwen", choices=["qwen", "gemma", "bert"],
+                       help="local HF checkpoint dir (qwen, gemma, bert or deepseek, from its "
+                            "config.json)")
+        s.add_argument("--embedder", default="qwen", choices=["qwen", "gemma", "bert", "deepseek"],
                        help=embedder_help)
         device_flag(s)
 

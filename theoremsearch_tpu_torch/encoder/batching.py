@@ -1,7 +1,7 @@
 """Batched, padding-bucketed encoder inference (port of
-theoremsearch_tpu/encoder/batching.py), for the three towers: the config's
-type picks the model module (`families.family_module`: qwen, gemma or
-BERT).
+theoremsearch_tpu/encoder/batching.py), for the four towers: the config's
+type picks the model module (`towers.tower_module`: qwen, gemma, BERT or
+the port's deepseek tower).
 
 On a mesh (`mesh=`; the reference shards the batch over its `data` axis)
 each sub-batch is padded to a multiple of the data axis, split over it,
@@ -41,6 +41,13 @@ The host's stages run under the spans `ts.encoder.tokenize`,
 (its upload and the launch of the tower) and `ts.encoder.to_host` (the
 copies back in `encode`, where the host waits on the card):
 `utils/profiling.py:span`.
+
+The deepseek tower routes only the real tokens: each sub-batch's rows of
+them (its real rows' mask, on the host) are uploaded with the ids, so
+its forward reads nothing back. Its expert layers add to one
+`deepseek.MoECounters` a width bucket (`stats()["moe"]`), and
+`start_routing_record()` / `stop_routing_record()` keep each sub-batch's
+picks (the records, off by default). It runs on one device, in bf16.
 """
 
 from __future__ import annotations
@@ -57,10 +64,11 @@ from ..utils.device import resolve_device, upload
 from ..utils.profiling import span
 from ..utils.shapes import pow2_bucket
 from ..kernels.layer_int8 import kernel_layout
-from .families import family_module
+from .deepseek import MoECounters, real_token_rows
 from .model import Params
 from .sharding import is_sharded, row_params, unshard_params
 from .tokenizer import SimpleTokenizer
+from .towers import routes_real_tokens, tower_module
 
 DEFAULT_BUCKETS = (64, 128, 256, 512)
 
@@ -102,7 +110,10 @@ class BatchedEncoder:
             params, sharded = unshard_params(params), False
         self.mesh = mesh
         self.cfg = cfg
-        self._mod = family_module(cfg)
+        self._mod = tower_module(cfg)
+        self._routed = routes_real_tokens(cfg)
+        if self._routed and (mesh is not None or sharded):
+            raise ValueError("the deepseek tower runs on one device (no mesh, no tp placement)")
         if mesh is not None:
             self.device = mesh.first_device
             if device is not None and resolve_device(device) != self.device:
@@ -154,13 +165,34 @@ class BatchedEncoder:
         self._stats = {"calls": 0, "texts": 0, "sub_batches": 0, "token_slots": 0,
                        "real_tokens": 0}
         self._by_shape: dict[tuple[int, int], int] = {}
+        self._moe: dict[int, MoECounters] = {}     # a width bucket's expert-layer counters
+        self._routing: list | None = None
 
     def stats(self) -> dict:
         """Counts since construction: calls, texts, sub_batches,
         token_slots (sum of B_pad x W), real_tokens (the mask over the real
-        rows) and by_shape ({(B_pad, W): sub-batches})."""
+        rows) and by_shape ({(B_pad, W): sub-batches}); for the deepseek
+        tower also moe ({W: launches, pairs, real_tokens, experts_touched,
+        max_rows}: `deepseek.MoECounters.read`, which waits for the card)."""
         with self._stats_lock:
-            return {**self._stats, "by_shape": dict(self._by_shape)}
+            out = {**self._stats, "by_shape": dict(self._by_shape)}
+        if self._routed:
+            out["moe"] = {w: c.read() for w, c in sorted(self._moe.items())}
+        return out
+
+    def start_routing_record(self) -> None:
+        """Keep each sub-batch's picks from now on (deepseek tower): one
+        record a sub-batch, {"rows": the call's input indices of its real
+        rows, "lengths": their real tokens, "picks": (n_moe_layers, T, k)
+        uint8 on the card, T the real tokens row after row}."""
+        if not self._routed:
+            raise ValueError("only the deepseek tower routes tokens")
+        self._routing = []
+
+    def stop_routing_record(self) -> list:
+        """The records since `start_routing_record`; recording stops."""
+        out, self._routing = self._routing or [], None
+        return out
 
     def _count_call(self, n_texts: int) -> None:
         with self._stats_lock:
@@ -236,11 +268,16 @@ class BatchedEncoder:
         return functools.partial(self.encode, role=role)
 
     @torch.inference_mode()
-    def _forward(self, ids_mask: np.ndarray) -> torch.Tensor:
+    def _forward(self, ids_mask: np.ndarray, n_real: int | None = None,
+                 idx: list | None = None) -> torch.Tensor:
         """Pooled rows of one padded sub-batch (2, B, W), on self.device:
         split over the data axis (B is a multiple of its size), one
         forward a data row this process runs, gathered in order (over the
-        mesh's column group when other processes run other rows)."""
+        mesh's column group when other processes run other rows). The
+        first n_real rows (default: all) are real, input indices idx."""
+        if self._routed:
+            return self._forward_routed(ids_mask, ids_mask.shape[1] if n_real is None else n_real,
+                                        idx)
         parts = np.split(ids_mask, self._n_data, axis=1)
         outs = []
         for (dev, params, qlayers), r in zip(self._rows, self._local_rows):
@@ -251,6 +288,25 @@ class BatchedEncoder:
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
         if self._group is not None:
             out = torch.cat(all_gather(out, self._group))
+        return out
+
+    def _forward_routed(self, ids_mask: np.ndarray, n_real: int, idx) -> torch.Tensor:
+        """The deepseek tower's forward: the real rows' real tokens (from
+        the host mask) ride in the ids' upload."""
+        w = ids_mask.shape[2]
+        rows = real_token_rows(ids_mask[1, :n_real])
+        buf = upload(np.concatenate([ids_mask.reshape(-1), rows]), self.device)
+        t = buf[: ids_mask.size].view(ids_mask.shape)
+        counters = self._moe.get(w)
+        if counters is None:
+            counters = self._moe[w] = MoECounters(self.device)
+        record = [] if self._routing is not None else None
+        out = self._mod.encode_pooled(self.params, t[0], t[1], self.cfg, tokens=buf[ids_mask.size :],
+                                      counters=counters, record=record)
+        if record:
+            self._routing.append({"rows": list(idx if idx is not None else range(n_real)),
+                                  "lengths": ids_mask[1, :n_real].sum(axis=1).tolist(),
+                                  "picks": record[0]})
         return out
 
     def _prep_batch(self, texts, tokenized, idx):
@@ -289,7 +345,7 @@ class BatchedEncoder:
                 ids_mask, n_real = self._prep_batch(texts, tokenized, idx)
                 self._count_sub_batch(ids_mask, n_real)
             with span("ts.encoder.forward"):
-                pieces.append((idx, self._forward(ids_mask)[:n_real]))
+                pieces.append((idx, self._forward(ids_mask, n_real, idx)[:n_real]))
         return pieces
 
     def encode_device(self, texts: Sequence[str], role: str | None = None) -> torch.Tensor:

@@ -24,6 +24,16 @@ Name mapping, gemma (Gemma3TextModel, with or without a "model." prefix):
     mlp.{gate,up,down}_proj -> w_gate/w_up/w_down; the sentence-transformers
     Dense dirs (2_Dense, 3_Dense) -> head_w1/head_b1, head_w2/head_b2.
 BERT (BertModel, with or without a "bert." prefix): see _BERT_LAYER_MAPPING.
+Name mapping, deepseek (DeepseekV3 / Moonlight, model_type deepseek_v3; a
+port-only tower, `encoder/deepseek.py`): embed_tokens.weight -> embed,
+norm.weight -> final_norm, layers.{i}.{input_layernorm,
+post_attention_layernorm} -> attn_norm, mlp_norm; self_attn.{q_proj,
+kv_a_proj_with_mqa, kv_a_layernorm, kv_b_proj, o_proj} -> wq, wkv_a,
+kv_norm, wkv_b, wo; dense layers mlp.{gate,up,down}_proj -> w_gate, w_up,
+w_down; expert layers mlp.gate.{weight, e_score_correction_bias} ->
+router, router_bias (f32, as stored), mlp.experts.{e}.{gate,up,down}_proj
+-> experts_gate[e], experts_up[e], experts_down[e] (kept (out, in)), and
+mlp.shared_experts.{gate,up,down}_proj -> shared.{w_gate, w_up, w_down}.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import torch
 
 from ..core.config import BertEncoderConfig, EncoderConfig, GemmaEncoderConfig
 from ..utils.device import resolve_device
+from .deepseek import DeepseekEncoderConfig
 from .model import _DTYPES
 
 # safetensors dtype tags -> numpy; BF16 is read as its uint16 bits
@@ -169,9 +180,12 @@ def load_hf_checkpoint(model_dir: str | Path, dtype: str = "bfloat16",
 
 def detect_family(model_dir: str | Path) -> str:
     """'gemma' for Gemma3-text checkpoints, 'bert' for BERT-class ones,
-    'qwen' otherwise (the reference's rule)."""
+    'qwen' otherwise (the reference's rule); and 'deepseek' for model_type
+    deepseek_v3, the port's own tower."""
     cfg = json.loads((Path(model_dir) / "config.json").read_text())
     mt = str(cfg.get("model_type", "")).lower()
+    if mt == "deepseek_v3":
+        return "deepseek"
     if mt.startswith("gemma") or "use_bidirectional_attention" in cfg:
         return "gemma"
     archs = [str(a).lower() for a in cfg.get("architectures", [])]
@@ -379,4 +393,108 @@ def load_hf_bert_checkpoint(model_dir: str | Path, dtype: str = "bfloat16",
     missing = [i for i, layer in enumerate(layers) if len(layer) != len(_BERT_LAYER_MAPPING)]
     if "embed" not in params or missing:
         raise ValueError(f"incomplete bert checkpoint: missing layers {missing[:4]}...")
+    return params, cfg
+
+
+# ---------------------------------------------------------------------------
+# deepseek tower (port-only)
+# ---------------------------------------------------------------------------
+
+
+def deepseek_config_from_hf(model_dir: str | Path) -> DeepseekEncoderConfig:
+    """The DeepseekEncoderConfig of a deepseek_v3 checkpoint's config.json.
+    Raises on what the tower does not run: a low-rank W_q, grouped routing
+    (n_group > 1), RoPE scaling, a layer pattern other than dense layers
+    first."""
+    cfg = json.loads((Path(model_dir) / "config.json").read_text())
+    if cfg.get("n_group", 1) != 1 or cfg.get("topk_group", 1) != 1:
+        raise ValueError("the deepseek tower takes n_group 1 (every expert in one group)")
+    if cfg.get("rope_scaling") is not None:
+        raise ValueError("the deepseek tower takes rope_scaling null")
+    if cfg.get("moe_layer_freq", 1) != 1:
+        raise ValueError("the deepseek tower takes moe_layer_freq 1")
+    return DeepseekEncoderConfig(
+        vocab_size=cfg["vocab_size"], hidden_size=cfg["hidden_size"],
+        num_layers=cfg["num_hidden_layers"], num_heads=cfg["num_attention_heads"],
+        q_lora_rank=cfg.get("q_lora_rank"), kv_lora_rank=cfg["kv_lora_rank"],
+        qk_nope_head_dim=cfg["qk_nope_head_dim"], qk_rope_head_dim=cfg["qk_rope_head_dim"],
+        v_head_dim=cfg["v_head_dim"], first_k_dense_replace=cfg["first_k_dense_replace"],
+        intermediate_size=cfg["intermediate_size"],
+        moe_intermediate_size=cfg["moe_intermediate_size"],
+        n_routed_experts=cfg["n_routed_experts"], num_experts_per_tok=cfg["num_experts_per_tok"],
+        n_shared_experts=cfg["n_shared_experts"],
+        routed_scaling_factor=float(cfg["routed_scaling_factor"]),
+        norm_topk_prob=bool(cfg["norm_topk_prob"]), scoring_func=cfg["scoring_func"],
+        topk_method=cfg["topk_method"], rope_theta=float(cfg["rope_theta"]),
+        rms_norm_eps=cfg["rms_norm_eps"], max_seq_len=512, embedding_dim=cfg["hidden_size"])
+
+
+_DEEPSEEK_LAYER_MAPPING = {
+    "input_layernorm.weight": ("attn_norm", False, True),
+    "post_attention_layernorm.weight": ("mlp_norm", False, True),
+    "self_attn.q_proj.weight": ("wq", True, False),
+    "self_attn.kv_a_proj_with_mqa.weight": ("wkv_a", True, False),
+    "self_attn.kv_a_layernorm.weight": ("kv_norm", False, True),
+    "self_attn.kv_b_proj.weight": ("wkv_b", True, False),
+    "self_attn.o_proj.weight": ("wo", True, False),
+    "mlp.gate_proj.weight": ("w_gate", True, False),
+    "mlp.up_proj.weight": ("w_up", True, False),
+    "mlp.down_proj.weight": ("w_down", True, False),
+    "mlp.gate.weight": ("router", False, True),
+    "mlp.gate.e_score_correction_bias": ("router_bias", False, True),
+}
+_DEEPSEEK_EXPERT_KEYS = {"gate_proj": "experts_gate", "up_proj": "experts_up",
+                         "down_proj": "experts_down"}
+
+
+def load_hf_deepseek_checkpoint(model_dir: str | Path, dtype: str = "bfloat16",
+                                device=None) -> tuple[dict, DeepseekEncoderConfig]:
+    """(params, config) of a local deepseek_v3 checkpoint (with or without
+    a "model." prefix; lm_head skipped), on `device` (default: the card).
+    Each expert's matrices are copied into the layer's stacked (E, out,
+    in) tensors as they are read."""
+    model_dir = Path(model_dir)
+    device = resolve_device(device)
+    cfg = deepseek_config_from_hf(model_dir)
+    pdtype = _DTYPES[dtype]
+    h, e, i = cfg.hidden_size, cfg.n_routed_experts, cfg.moe_intermediate_size
+    layers: list[dict] = [dict() for _ in range(cfg.num_layers)]
+    seen: list[set] = [set() for _ in range(cfg.num_layers)]
+    params: dict = {"layers": layers}
+    for name, t in _iter_safetensors(model_dir):
+        name = name[len("model."):] if name.startswith("model.") else name
+        if name == "embed_tokens.weight":
+            params["embed"] = _to_param(t, False, False, pdtype, device)
+        elif name == "norm.weight":
+            params["final_norm"] = _to_param(t, False, True, pdtype, device)
+        elif name.startswith("layers."):
+            li_s, sub = name[len("layers."):].split(".", 1)
+            li = int(li_s)
+            layer = layers[li]
+            if sub in _DEEPSEEK_LAYER_MAPPING:
+                key, tr, f32 = _DEEPSEEK_LAYER_MAPPING[sub]
+                layer[key] = _to_param(t, tr, f32, pdtype, device)
+                seen[li].add(key)
+            elif sub.startswith("mlp.shared_experts."):
+                proj = sub.split(".")[2]
+                key = {"gate_proj": "w_gate", "up_proj": "w_up", "down_proj": "w_down"}[proj]
+                layer.setdefault("shared", {})[key] = _to_param(t, True, False, pdtype, device)
+                seen[li].add("shared." + key)
+            elif sub.startswith("mlp.experts."):
+                _, _, ei, proj, _ = sub.split(".")
+                key = _DEEPSEEK_EXPERT_KEYS[proj]
+                if key not in layer:
+                    shape = (e, h, i) if key == "experts_down" else (e, i, h)
+                    layer[key] = torch.empty(shape, dtype=pdtype, device=device)
+                layer[key][int(ei)].copy_(t.to(pdtype))
+                seen[li].add(f"{key}.{ei}")
+    dense = {"attn_norm", "mlp_norm", "wq", "wkv_a", "kv_norm", "wkv_b", "wo", "w_gate", "w_up",
+             "w_down"}
+    routed = (dense - {"w_gate", "w_up", "w_down"}) | {"router", "router_bias"} | {
+        f"shared.{k}" for k in ("w_gate", "w_up", "w_down")} | {
+        f"{k}.{j}" for k in _DEEPSEEK_EXPERT_KEYS.values() for j in range(e)}
+    missing = [li for li in range(cfg.num_layers)
+               if seen[li] != (dense if li < cfg.first_k_dense_replace else routed)]
+    if "embed" not in params or "final_norm" not in params or missing:
+        raise ValueError(f"incomplete deepseek checkpoint: layers {missing[:4]} ...")
     return params, cfg

@@ -71,6 +71,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ts_attn_int8_out.restype = i
     lib.ts_ivf_scores.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.ts_ivf_scores.restype = i
+    lib.ts_moe_plan.argtypes = [p, i, i, i, p, p, p]
+    lib.ts_moe_plan.restype = i
+    lib.ts_moe_grouped_swiglu.argtypes = [*[p] * 6, i, i, i, i, p]
+    lib.ts_moe_grouped_swiglu.restype = i
+    lib.ts_moe_grouped_down.argtypes = [*[p] * 4, i, i, i, i, p]
+    lib.ts_moe_grouped_down.restype = i
+    lib.ts_moe_combine.argtypes = [*[p] * 6, i, i, i, p]
+    lib.ts_moe_combine.restype = i
     lib.ts_error_string.argtypes = [i]
     lib.ts_error_string.restype = ctypes.c_char_p
 

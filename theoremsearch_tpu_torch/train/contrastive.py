@@ -67,10 +67,19 @@ import torch.nn.functional as F
 
 from ..core.config import EncoderConfig, TrainConfig
 from ..encoder.families import family_module
+from ..encoder.towers import routes_real_tokens
 from ..encoder.model import Params, params_from_jax
 from ..core.distributed import all_gather, all_reduce_flat, gather_rows
 from ..encoder.sharding import ShardedTensor, row_params
 from ..utils.device import resolve_device, tf32_off
+
+
+def _tower(enc_cfg):
+    """The tower module of a trainable config: qwen, gemma or BERT (the
+    deepseek tower runs inference only)."""
+    if routes_real_tokens(enc_cfg):
+        raise ValueError("the deepseek tower runs inference only: training it is not supported")
+    return family_module(enc_cfg)
 
 
 def tree_leaves(tree) -> list:
@@ -289,7 +298,7 @@ def init_train_state(enc_cfg: EncoderConfig, train_cfg: TrainConfig,
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
-    params = family_module(enc_cfg).init_params(enc_cfg, generator, device=device)
+    params = _tower(enc_cfg).init_params(enc_cfg, generator, device=device)
     return TrainState(params, make_optimizer(train_cfg).init(params), 0)
 
 
@@ -303,7 +312,7 @@ def init_sharded_train_state(enc_cfg: EncoderConfig, train_cfg: TrainConfig, mes
     device = mesh.first_device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
-    mod = family_module(enc_cfg)
+    mod = _tower(enc_cfg)
     params = mod.shard_params(mod.init_params(enc_cfg, generator, device=device), mesh)
     return TrainState(params, make_optimizer(train_cfg).init(params), 0)
 
@@ -313,7 +322,7 @@ def shard_train_state(state: TrainState, mesh, enc_cfg: EncoderConfig) -> TrainS
     placed on the mesh: the params by the tower's tp rules, each moment
     split as its param (a replicated one copied to the mesh's first
     device), the count and step kept. The input state is left as it was."""
-    params = family_module(enc_cfg).shard_params(state.params, mesh)
+    params = _tower(enc_cfg).shard_params(state.params, mesh)
     first = mesh.first_device
 
     def like(tree):
@@ -363,7 +372,7 @@ def info_nce_loss(
     data row (across processes every process encodes them, and they carry
     gradient on the processes of the first data row only: column-group
     rank 0)."""
-    encode_pooled = family_module(enc_cfg).encode_pooled
+    encode_pooled = _tower(enc_cfg).encode_pooled
     if mesh is None:
         q = encode_pooled(params, q_ids, q_mask, enc_cfg, fused=fused)   # (B, D) f32, normalized
         p = encode_pooled(params, p_ids, p_mask, enc_cfg, fused=fused)
@@ -395,7 +404,7 @@ def _encode_rows(params, ids: torch.Tensor, mask: torch.Tensor, enc_cfg, fused: 
     n = mesh.shape[mesh.axis_names[0]]
     if ids.shape[0] % n:
         raise ValueError(f"a batch of {ids.shape[0]} does not split over the {n}-way data axis")
-    encode_pooled = family_module(enc_cfg).encode_pooled
+    encode_pooled = _tower(enc_cfg).encode_pooled
     ids_rows, mask_rows = torch.tensor_split(ids, n), torch.tensor_split(mask, n)
     outs = []
     for r, dev in zip(mesh.local_rows, mesh.data_devices):
