@@ -170,7 +170,9 @@ exits non-zero (there is no CPU path):
              and B4 at (512, 64); B2's long form at (64, 512) and (64,
              256), lengths uniform in [S/2, S], beside
              scaled_dot_product_attention on the same heads (library_ms;
-             the port never calls it); the expert layer (phase 4m's
+             the port never calls it); BERT's attention kernel at the same
+             shapes (12 heads of 64, biases folded in) beside
+             scaled_dot_product_attention under the padding mask; the expert layer (phase 4m's
              inputs, 28,000 real tokens and 4,096): the two grouped
              launches beside one dense bf16 matmul chain of the same FLOPs
              (library_ms), the plan (sort, inverse, plan kernel) and the
@@ -241,12 +243,14 @@ exits non-zero (there is no CPU path):
              Qwen3 family's padded vocabulary: the reference's vocab
              sharding refuses the odd 151,669) on (1, 4) over [cuda:0] * 4,
              head-local at 4/2 heads a shard; gemma (3/1 heads, gathered on
-             the first device) and BERT-base (no kernel) on (1, 2); 4,096
+             the first device) and BERT-base (12 heads, head-local at 6 a
+             shard) on (1, 2); 4,096
              slogans each against the single-device encoder: pooled cosine
              >= 0.999; the same tower in f32 throughout on 512 slogans at
              a pooled row distance <= 1e-4 from one device (f32 rounding:
              the same function); int8 on the tp mesh refused ("dp-only"), B2 4 a
-             layer a batch (qwen), B2's gemma form once a layer a batch;
+             layer a batch (qwen), B2's gemma form once a layer a batch,
+             BERT's kernel 2 a layer a batch;
              tp and one-device encode seconds.
 20. encoder_gemma / encoder_gemma_int8  the embeddinggemma-300m-class
              tower at full width (GemmaEncoderConfig(): 24 layers, d 768,
@@ -260,9 +264,16 @@ exits non-zero (there is no CPU path):
              embeddings); B1 at D = 768 bit-equal to plain once; then
              SearchService + scheduler + HTTP with the gemma encoder, 128
              POST /search, overlap@10 vs the direct path, in bf16 and int8.
-22. bert     BertEncoderConfig() (12 x 768, no kernel): 4,096 slogans
-             through BatchedEncoder, forward ms at (512, 64), pooled cosine
-             of the card vs a CPU run of the same weights on 8 items.
+22. bert     BertEncoderConfig() (12 x 768, q/k/v/o biases off zero): 4,096
+             slogans through BatchedEncoder, BERT's attention kernel 12
+             times a sub-batch; forward ms at (512, 64), pooled cosine of
+             the card vs a CPU run of the same weights (the kernel's plain
+             version) on 8 items; the forward at (64, W), W = 64, 128, 256
+             and 512, lengths uniform in [W/2, W], with the kernel and with
+             fused="off" (the composition), pooled cosine > 0.9999 between
+             them; the kernel against its plain version at (64, W) for each
+             W and at (512, 64), the main path's shape, a row of one real
+             key in each: at most 0.5% of the bf16 outputs differ at any.
 17. b7       the fused attention backward kernel vs its plain version,
              H=16/8, Dh=128, (B, S) = (64, 32), (64, 64), (64, 128) with
              ragged masks (mask[:, 0] = 1, g zero on padded rows) and the
@@ -375,7 +386,7 @@ exits non-zero (there is no CPU path):
              "on" and "off", and the script's total seconds.
 
 Each path (phases 25, 5m, 5-7, 7b, 9, 11, 11r, 11l, 11c, 11s, 12, 15, 16, 16l,
-16m, 16t, 18, 18m, 18g, 20, 21, 23) runs with every launch counter set to 0 just before it
+16m, 16t, 18, 18m, 18g, 20, 21, 22, 23) runs with every launch counter set to 0 just before it
 and read just after; kernel-vs-plain comparisons run
 outside those windows, so the `launches` in the kernels line count only
 launches made by the main paths (BatchedEncoder, SearchEngine, the HTTP
@@ -1926,7 +1937,8 @@ def mesh_encode_tp(dev, gpu: str, counters: dict, path_start, path_end, *, texts
     odd 151,669) on (1, 4), its 16/8 heads head-local at 4/2 a shard (B2
     once a shard a layer a batch); gemma on (1, 2), its 3/1 heads gathered
     on the first device (B2's gemma form once a layer a batch); BERT-base
-    on (1, 2), no kernel. Gates: the pooled cosine >= 0.999 (the
+    on (1, 2), its 12 heads head-local at 6 a shard (BERT's kernel once a
+    shard a layer a batch). Gates: the pooled cosine >= 0.999 (the
     reference's tp gate), the same tower in f32 on the first batch's
     texts at a row distance <= 1e-4 from one device (`tp_f32_distance`,
     outside the launch window), int8 on the tp mesh refused ("dp-only"),
@@ -1978,14 +1990,15 @@ def mesh_encode_tp(dev, gpu: str, counters: dict, path_start, path_end, *, texts
         # the attention core's heads a call (q, kv) and the launches the
         # encode must make: once a shard a layer a batch where the kv heads
         # divide over the shards, else once a layer a batch, gathered
-        if mod is bert_mod:
-            layout, heads, want = "no kernel", None, {}
-        elif cfg.num_kv_heads % shards == 0:
-            layout, heads = "head-local", [cfg.num_heads // shards, cfg.num_kv_heads // shards]
-            want = {"qknorm_rope_attention": shards * cfg.num_layers * n_batches}
+        # (BERT: every head its own kv head)
+        kv = cfg.num_heads if mod is bert_mod else cfg.num_kv_heads
+        kernel = ("bert_attention" if mod is bert_mod else
+                  "qknorm_rope_attention_gemma" if mod is gemma_mod else "qknorm_rope_attention")
+        if kv % shards == 0:
+            layout, heads = "head-local", [cfg.num_heads // shards, kv // shards]
+            want = {kernel: shards * cfg.num_layers * n_batches}
         else:
-            layout, heads = "gathered", [cfg.num_heads, cfg.num_kv_heads]
-            kernel = "qknorm_rope_attention_gemma" if mod is gemma_mod else "qknorm_rope_attention"
+            layout, heads = "gathered", [cfg.num_heads, kv]
             want = {kernel: cfg.num_layers * n_batches}
         want = {k: want.get(k, 0) for k in counters}
         emit("mesh_encode_tp", tower=name, shards=shards, layout=layout, heads_a_call=heads,
@@ -2777,6 +2790,9 @@ def main(argv=None) -> int:
         fused_qknorm_rope_attention_bwd_plain, fused_qknorm_rope_attention_long_plain,
         fused_qknorm_rope_attention_plain,
     )
+    from theoremsearch_tpu_torch.kernels.attention_bert import (
+        attention_bert_launches, bert_attention, bert_attention_plain,
+    )
     from theoremsearch_tpu_torch.kernels.layer_int8 import (
         attn_int8_gemma_launches, attn_int8_launches, fused_attn_int8_layer,
         fused_attn_int8_layer_gemma, fused_attn_int8_layer_gemma_plain,
@@ -2816,6 +2832,7 @@ def main(argv=None) -> int:
         "qknorm_rope_attention_long": attention_long_launches,
         "moe_grouped_gemm": moe_kernels_mod.grouped_launches,
         "moe_plan": moe_kernels_mod.plan_launches, "moe_combine": moe_kernels_mod.combine_launches,
+        "bert_attention": attention_bert_launches,
     }
     main_launches = dict.fromkeys(counters, 0)
 
@@ -4194,13 +4211,51 @@ def main(argv=None) -> int:
                 and path_gs["mips_g_scan"] >= 1 and min(path_gs[n_] for n_ in need) >= 1):
             raise AssertionError(f"serve_gemma ({mode}) phase failed")
 
-    # ---- 22. the BERT tower at full width (no kernel) ----
+    # ---- 22. the BERT tower at full width, its attention core on BERT's kernel ----
     bcfg = BertEncoderConfig()
     bparams = bert_mod.init_params(bcfg, torch.Generator(device=dev).manual_seed(41), device=dev)
+    gb_ = torch.Generator(device=dev).manual_seed(42)
+    for l_ in bparams["layers"]:      # biases off zero, so the folded bias adds show
+        for n_ in ("bq", "bk", "bv", "bo"):
+            l_[n_] = 0.1 * torch.randn(l_[n_].shape, generator=gb_, device=dev)
     benc = BatchedEncoder(bparams, bcfg, batch_size=512, device=dev)
+    path_start()
     t0 = time.perf_counter()
     b_emb = benc.encode(texts)
     benc_s = time.perf_counter() - t0
+    path_b = path_end()
+    b_subs = sum(benc.stats()["by_shape"].values())
+    # the kernel against the composition (fused="off") at (64, W), lengths
+    # uniform in [W/2, W]: forward ms both ways, pooled cosine
+    b_fwd, b_cos_off = {}, 1.0
+    with torch.inference_mode():
+        for w_ in (64, 128, 256, 512):
+            lens_ = torch.randint(w_ // 2, w_ + 1, (64,), generator=gb_, device=dev)
+            mk_ = (torch.arange(w_, device=dev)[None] < lens_[:, None]).to(torch.int32)
+            ids_ = torch.randint(3, bcfg.vocab_size, (64, w_), generator=gb_, device=dev) * mk_
+            b_fwd[f"64x{w_}"] = {
+                "kernel_ms": cuda_ms(lambda: bert_mod.encode_pooled(bparams, ids_, mk_, bcfg), 5),
+                "off_ms": cuda_ms(lambda: bert_mod.encode_pooled(bparams, ids_, mk_, bcfg, fused="off"), 5)}
+            on_, off_ = (bert_mod.encode_pooled(bparams, ids_, mk_, bcfg, fused=f_).double()
+                         for f_ in ("on", "off"))
+            b_cos_off = min(b_cos_off, float((on_ * off_).sum(1).min()))
+        # the kernel against its plain version, the tower's heads, at each
+        # width's (64, W) and at the main path's (512, 64): the share of bf16
+        # outputs that differ and the largest difference
+        b_mismatch = {}
+        bias_ = tuple(bparams["layers"][0][n_] for n_ in ("bq", "bk", "bv"))
+        for bb_, w_ in ((64, 64), (64, 128), (64, 256), (64, 512), (512, 64)):
+            lens_ = torch.randint(w_ // 2, w_ + 1, (bb_,), generator=gb_, device=dev)
+            lens_[-1] = 1       # a row whose only real key is the first
+            mk_ = (torch.arange(w_, device=dev)[None] < lens_[:, None]).to(torch.int32)
+            qb_, kb_, vb_ = ((torch.randn((bb_, w_, bcfg.hidden_size), generator=gb_, device=dev) * 2)
+                             .to(torch.bfloat16) for _ in range(3))
+            ko_ = bert_attention(qb_, kb_, vb_, mk_, num_heads=bcfg.num_heads, bias=bias_)
+            po_ = bert_attention_plain(qb_, kb_, vb_, mk_, num_heads=bcfg.num_heads, bias=bias_)
+            err_of["bert_attention"] = max(err_of["bert_attention"],
+                                           float((ko_.float() - po_.float()).abs().max()))
+            b_mismatch[f"{bb_}x{w_}"] = float((ko_ != po_).float().mean())
+            del qb_, kb_, vb_, ko_, po_
     bim, _ = benc._prep_batch(texts[:512], [benc.tokenizer.tokenize(t_) for t_ in texts[:512]],
                               list(range(512)))
     bt = torch.from_numpy(bim).to(dev)
@@ -4213,8 +4268,13 @@ def main(argv=None) -> int:
     b_cos = float((bcard * bcpu).sum(1).min())
     emit("bert", layers=bcfg.num_layers, hidden=bcfg.hidden_size, width=int(bt.shape[2]),
          encode_4096_s=round(benc_s, 3), forward_ms_512x64=bert_ms, cos_card_vs_cpu_min=b_cos,
-         finite=bool(np.isfinite(b_emb).all()))
-    if not (b_cos > 0.999 and np.isfinite(b_emb).all() and b_emb.shape == (4096, bcfg.embedding_dim)):
+         forward_ms=b_fwd, cos_kernel_vs_off_min=b_cos_off, kernel_vs_plain_mismatch=b_mismatch,
+         kernel_vs_plain_mismatch_max=max(b_mismatch.values()),
+         kernel_vs_plain_max_abs=err_of["bert_attention"], launches=path_b["bert_attention"],
+         sub_batches=b_subs, finite=bool(np.isfinite(b_emb).all()))
+    if not (b_cos > 0.999 and b_cos_off > 0.9999 and max(b_mismatch.values()) <= 5e-3
+            and path_b["bert_attention"] == bcfg.num_layers * b_subs
+            and np.isfinite(b_emb).all() and b_emb.shape == (4096, bcfg.embedding_dim)):
         raise AssertionError("bert phase failed")
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_b:
         bert_mod.encode_pooled(bparams, bt[0], bt[1], bcfg)
@@ -4411,6 +4471,31 @@ def main(argv=None) -> int:
         del ql_, kl_, vl_, qh_, kh_, vh_
     times["qknorm_rope_attention_long"] = {**long_at["64x512"], "shape": [64, 512],
                                            "at_64x256": long_at["64x256"]}
+    # BERT's attention kernel at the same sub-batches, 12 heads of 64 with
+    # the bias adds folded in; library_ms: scaled_dot_product_attention on
+    # the biased heads under the padding mask (the yardstick only)
+    bert_at = {}
+    for S_ in (256, 512):
+        lens_ = torch.randint(S_ // 2, S_ + 1, (64,), generator=g, device=dev)
+        mk_ = (torch.arange(S_, device=dev)[None] < lens_[:, None]).to(torch.int32)
+        qkv_ = [(torch.randn((64, S_, 768), generator=g, device=dev) * 2).to(torch.bfloat16)
+                for _ in range(3)]
+        bias_ = tuple(0.1 * torch.randn((768,), generator=g, device=dev) for _ in range(3))
+        live_ = mk_.sum(1).double()
+        # bytes: the real rows of q, k and v (padded rows are neither needed
+        # nor read), the whole output, the mask and the biases
+        timed("bert_attention", lambda: bert_attention(*qkv_, mk_, num_heads=12, bias=bias_),
+              lambda: bert_attention_plain(*qkv_, mk_, num_heads=12, bias=bias_),
+              3 * int(live_.sum()) * 768 * 2 + qkv_[0].numel() * 2 + mk_.numel() * 4 + 3 * 768 * 4,
+              {"bf16": float(4 * 768 * (live_ * live_).sum())}, plain_iters=3)
+        qh_, kh_, vh_ = ((x_ + b_.to(torch.bfloat16)).view(64, S_, 12, 64).transpose(1, 2)
+                         for x_, b_ in zip(qkv_, bias_))
+        times["bert_attention"]["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh_, kh_, vh_, attn_mask=mk_.bool()[:, None, None, :]), 10)
+        bert_at[f"64x{S_}"] = times.pop("bert_attention")
+        del qkv_, qh_, kh_, vh_
+    times["bert_attention"] = {**bert_at["64x512"], "shape": [64, 512], "at_64x256": bert_at["64x256"]}
     # B3 and B4 at (512, 64) on the phase-4b layer: x read and the output
     # written once, the int8 weights and scales read once
     T, DM, HQ, HKD, I = x512.shape[0] * x512.shape[1], cfg.hidden_size, H * DH, HK * DH, cfg.intermediate_size
@@ -4969,6 +5054,8 @@ def main(argv=None) -> int:
         "moe_grouped_gemm": ("theoremsearch_tpu_torch/csrc/moe.cu", "none (no expert layer)"),
         "moe_plan": ("theoremsearch_tpu_torch/csrc/moe.cu", "none (no expert layer)"),
         "moe_combine": ("theoremsearch_tpu_torch/csrc/moe.cu", "none (no expert layer)"),
+        "bert_attention": ("theoremsearch_tpu_torch/csrc/attention_bert.cu",
+                           "theoremsearch_tpu/encoder/bert.py (XLA composition)"),
     }
     missing = [n for n, c in main_launches.items() if c < 1]
     if missing:

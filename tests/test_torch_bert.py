@@ -1,4 +1,5 @@
-"""Port parity: the BERT tower (encoder/bert.py, no kernel) against the
+"""Port parity: the BERT tower (encoder/bert.py; at head_dim 64 its
+attention core on BERT's kernel, the plain version on the CPU) against the
 JAX package with JAX weights carried over, against transformers'
 BertModel built from a config in code, and through BatchedEncoder."""
 
@@ -56,6 +57,48 @@ def test_tower_matches_jax(act):
     hid = PB.forward(tp, torch.from_numpy(ids), torch.from_numpy(mask), cfg)
     jhid = np.asarray(JB.forward(jp, jnp.asarray(ids), jnp.asarray(mask), jcfg), np.float32)
     assert hid.dtype == torch.bfloat16
+    assert (_cos(hid.float().numpy()[mask > 0], jhid[mask > 0]) > 0.9999).all()
+
+
+# BERT-base's head width (64), so the default route takes BERT's attention
+# kernel: its plain version for CPU tensors
+HEAD64 = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2, num_heads=2,
+              max_seq_len=512, embedding_dim=128)
+
+
+@pytest.mark.parametrize("s", [64, 256])
+def test_kernel_route_matches_jax(s, monkeypatch):
+    """The tower at head_dim 64 under inference, fused="on" (the attention
+    core on the kernel's plain version) against the reference's
+    composition on the same ids and mask: pooled cosine > 0.9999, hidden
+    states at the real rows > 0.9999; the composition never runs."""
+    import theoremsearch_tpu_torch.kernels.attention_bert as KB
+
+    ran = []
+
+    def plain(*a, **kw):
+        ran.append("plain")
+        return KB_plain(*a, **kw)
+
+    def composition(*a, **kw):
+        ran.append("composition")
+        return PB_core(*a, **kw)
+
+    KB_plain, PB_core = KB.bert_attention_plain, PB._attention_core
+    monkeypatch.setattr(KB, "bert_attention_plain", plain)
+    monkeypatch.setattr(PB, "_attention_core", composition)
+    jcfg = JBertConfig(**{**JBertConfig.tiny().__dict__, **HEAD64})
+    cfg = BertEncoderConfig(**{**BertEncoderConfig.tiny().__dict__, **HEAD64})
+    jp, tp = _carry(jcfg, seed=4)
+    ids, mask = _batch(6, s, cfg.vocab_size, seed=5)
+    tids, tmask = torch.from_numpy(ids), torch.from_numpy(mask)
+    with torch.inference_mode():
+        out = PB.encode_pooled(tp, tids, tmask, cfg, fused="on")
+        hid = PB.forward(tp, tids, tmask, cfg)
+    assert ran == ["plain"] * (2 * cfg.num_layers)
+    ref = np.asarray(JB.encode_pooled(jp, jnp.asarray(ids), jnp.asarray(mask), jcfg))
+    assert (_cos(out.numpy(), ref) > 0.9999).all()
+    jhid = np.asarray(JB.forward(jp, jnp.asarray(ids), jnp.asarray(mask), jcfg), np.float32)
     assert (_cos(hid.float().numpy()[mask > 0], jhid[mask > 0]) > 0.9999).all()
 
 

@@ -9,8 +9,12 @@ or tanh for hidden_act "gelu_new") -> Linear; mean pooling over valid
 tokens and L2 normalize. bf16 params and activations with f32 LayerNorm
 and softmax, as the reference.
 
-There is no kernel on this tower: the reference runs BERT on its XLA
-composition (`encode_pooled` drops `fused`), and so does the port.
+The reference runs BERT on its XLA composition (its `encode_pooled`
+drops `fused`); the port runs the attention core through a kernel of
+BERT's own (`kernels/attention_bert.py`: head_dim 64, S <= 512, bf16, no
+gradient recorded; `_core`), with the q/k/v bias adds folded in, and
+keeps the composition (`_attention_core`) for fused="off", for training
+and for the shapes the kernel does not take.
 
 Tensor parallelism as the qwen tower's (`encoder/model.py`), by the
 reference's rules: q/k/v and w_in column-sharded with their biases, wo
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.config import BertEncoderConfig
+from ..kernels.attention_bert import HEAD_DIM, MAX_S, bert_attention, bert_attention_plain
 from ..kernels.layer_int8 import gelu_tanh
 from ..utils.device import resolve_device, tf32_off
 from .model import _DTYPES, PooledEncoder, params_from_jax
@@ -97,30 +102,56 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: tor
     return out.to(dtype).reshape(b, s, nh * dh)
 
 
-def _attention(layer, x: torch.Tensor, mask: torch.Tensor, cfg: BertEncoderConfig) -> torch.Tensor:
+def _core(fused: str, cfg: BertEncoderConfig, s: int):
+    """The attention core's kernel form for a forward at width `s`, or None
+    for the composition: `bert_attention` (the kernel on the card, its plain
+    version for CPU tensors) for fused="on", `bert_attention_plain` for
+    "plain", where the kernel takes the shapes: head_dim 64, bf16
+    activations, S <= 512 and no gradient recorded (the kernel has no
+    backward; training keeps the composition)."""
+    if fused not in ("on", "plain", "off"):
+        raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
+    if (fused == "off" or cfg.hidden_size // cfg.num_heads != HEAD_DIM or s > MAX_S
+            or _DTYPES[cfg.dtype] != torch.bfloat16 or torch.is_grad_enabled()):
+        return None
+    return bert_attention_plain if fused == "plain" else bert_attention
+
+
+def _attention(layer, x: torch.Tensor, mask: torch.Tensor, am: torch.Tensor,
+               cfg: BertEncoderConfig, core) -> torch.Tensor:
     h = x.shape[-1]
-    q, k, v = (x @ layer[w] + layer[bias].to(x.dtype)
-               for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
-    out = _attention_core(q, k, v, mask, cfg.num_heads, h // cfg.num_heads)
+    if core is None:
+        q, k, v = (x @ layer[w] + layer[bias].to(x.dtype)
+                   for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+        out = _attention_core(q, k, v, mask, cfg.num_heads, h // cfg.num_heads)
+    else:   # the bias adds happen inside the core
+        out = core(x @ layer["wq"], x @ layer["wk"], x @ layer["wv"], am, num_heads=cfg.num_heads,
+                   bias=(layer["bq"], layer["bk"], layer["bv"]))
     return out @ layer["wo"] + layer["bo"].to(x.dtype)
 
 
 def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-            cfg: BertEncoderConfig) -> torch.Tensor:
+            cfg: BertEncoderConfig, fused: str = "on") -> torch.Tensor:
     """Hidden states (B, S, H) after the last layer. Position ids are
-    arange(S) whatever the padding; single-segment inputs (type 0)."""
-    if is_sharded(params):
-        return _forward_tp(params, input_ids, attention_mask, cfg)
-    dtype = _DTYPES[cfg.dtype]
+    arange(S) whatever the padding; single-segment inputs (type 0).
+
+    fused: "on" = the attention core through BERT's kernel where `_core`
+    takes the shapes (its plain version for CPU tensors); "plain" = the
+    plain version there; "off" = the reference's composition throughout.
+    The kernel forms write 0 on padded query rows."""
     s = input_ids.shape[1]
+    core = _core(fused, cfg, s)
+    if is_sharded(params):
+        return _forward_tp(params, input_ids, attention_mask, cfg, core)
+    dtype = _DTYPES[cfg.dtype]
     mask = attention_mask.bool()
     x = (params["embed"][input_ids.long()] + params["pos_embed"][:s][None]
          + params["type_embed"][0][None, None]).to(dtype)
     x = _layer_norm(x, params["embed_ln_g"], params["embed_ln_b"], cfg.layer_norm_eps)
     act = gelu_tanh if cfg.hidden_act == "gelu_new" else _gelu_exact
     for layer in params["layers"]:
-        x = _layer_norm(x + _attention(layer, x, mask, cfg), layer["attn_ln_g"],
-                        layer["attn_ln_b"], cfg.layer_norm_eps)
+        x = _layer_norm(x + _attention(layer, x, mask, attention_mask, cfg, core),
+                        layer["attn_ln_g"], layer["attn_ln_b"], cfg.layer_norm_eps)
         ff = act((x @ layer["w_in"] + layer["b_in"].to(x.dtype)).float()).to(x.dtype)
         ff = ff @ layer["w_out"] + layer["b_out"].to(x.dtype)
         x = _layer_norm(x + ff, layer["mlp_ln_g"], layer["mlp_ln_b"], cfg.layer_norm_eps)
@@ -128,12 +159,14 @@ def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tenso
 
 
 def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                cfg: BertEncoderConfig) -> torch.Tensor:
+                cfg: BertEncoderConfig, attn_core) -> torch.Tensor:
     """`forward` over sharded params (`shard_params`): the LayerNorms and
     residuals on the first device, the biased projections and the GELU on
-    each shard's blocks, the heads local or gathered (`sharding.TP.attention`)."""
+    each shard's blocks, the heads local or gathered (`sharding.TP.attention`),
+    the core `attn_core` (`_core`) on each shard's heads, else the composition."""
     tp = TP(params["embed"])
-    ids, mask = input_ids.to(tp.first), attention_mask.to(tp.first).bool()
+    ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
+    mask = am.bool()
     dtype = _DTYPES[cfg.dtype]
     eps = cfg.layer_norm_eps
     s = ids.shape[1]
@@ -142,10 +175,12 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
     x = _layer_norm(x, params["embed_ln_g"], params["embed_ln_b"], eps)
     act = gelu_tanh if cfg.hidden_act == "gelu_new" else _gelu_exact
     dh = cfg.hidden_size // cfg.num_heads
-    masks = {d: mask.to(d) for d in set(tp.devices)}
+    masks = {d: (mask.to(d), am.to(d)) for d in set(tp.devices)}
 
     def core(q, k, v, dev, div):
-        return _attention_core(q, k, v, masks[dev], cfg.num_heads // div, dh)
+        if attn_core is None:
+            return _attention_core(q, k, v, masks[dev][0], cfg.num_heads // div, dh)
+        return attn_core(q, k, v, masks[dev][1], num_heads=cfg.num_heads // div)
 
     for layer in params["layers"]:
         xs = tp.bcast(x)
@@ -160,12 +195,10 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
 
 
 def encode_pooled(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                  cfg: BertEncoderConfig, fused: str = "off") -> torch.Tensor:
-    """Mean pooling over valid tokens and L2 normalize, (B, D) f32.
-    `fused` is taken for the families' common interface and ignored: the
-    tower has no kernel."""
-    del fused
-    hidden = forward(params, input_ids, attention_mask, cfg)
+                  cfg: BertEncoderConfig, fused: str = "on") -> torch.Tensor:
+    """Mean pooling over valid tokens and L2 normalize, (B, D) f32; `fused`
+    as `forward`'s."""
+    hidden = forward(params, input_ids, attention_mask, cfg, fused=fused)
     m = attention_mask[:, :, None].float()
     pooled = (hidden.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1e-9)
     if cfg.normalize:

@@ -63,6 +63,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ts_qknorm_rope_attention_long.restype = i
     lib.ts_qknorm_rope_attention_bwd.argtypes = [*[p] * 15, i, i, i, i, i, f, f, i, p]
     lib.ts_qknorm_rope_attention_bwd.restype = i
+    lib.ts_bert_attention.argtypes = [*[p] * 8, i, i, i, p]
+    lib.ts_bert_attention.restype = i
     lib.ts_mlp_int8_layer.argtypes = [*[p] * 16, i, i, i, i, f, p]
     lib.ts_mlp_int8_layer.restype = i
     lib.ts_attn_int8_qkv.argtypes = [*[p] * 13, i, i, i, i, f, p]
