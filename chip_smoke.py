@@ -408,6 +408,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from portbench.counts import bound
+from portbench.meta import MIX36
 
 _T0 = time.perf_counter()
 
@@ -652,19 +654,12 @@ def slogans(n: int) -> list[str]:
 
 
 # The serving benchmark's filtered traffic (tools/serve_bench.py): its
-# metadata layout and its 3- and 36-signature mixes, copied here as the
-# UI filter dicts that POST /search takes.
+# metadata layout and its 3- and 36-signature mixes (`MIX36` from
+# portbench/meta.py), as the UI filter dicts that POST /search takes.
 CATS = [f"math.{c}" for c in
         "AG AT AP CA CO CT DG DS FA GM GN GR GT HO KT LO MG NT OA PR RA RT".split()]
 MIX3 = [{"year_range": [2005, 2013]}, {"tags": ["math.NT", "math.AG", "math.CO"]},
         {"journal_status": "Preprint Only"}]
-MIX36 = ([{"year_range": [1996 + j, 2001 + j]} for j in range(16)]
-         + [{"tags": [f"math.{c}"]} for c in ("AG", "NT", "CO", "PR", "CA", "DG", "FA", "GT")]
-         + [{"citation_range": [50 * j, 50 * j + 120]} for j in range(8)]
-         + [{"year_range": [2004, 2015], "tags": ["math.AG", "math.NT"]},
-            {"journal_status": "Journal Article", "citation_range": [10, 500]},
-            {"year_range": [2010, 2020], "journal_status": "Preprint Only"},
-            {"tags": ["math.CO"], "citation_range": [0, 99]}])
 
 
 def bench_metadata(n: int, texts: list[str], cls):
@@ -686,20 +681,6 @@ def bench_metadata(n: int, texts: list[str], cls):
         slogan=texts + [""] * (n - m),
         theorem_body=[f"$x_{{{i}}}$ is bounded." if i < m else "" for i in range(n)],
     )
-
-
-# H100 SXM data-sheet peaks (dense): what `bound_ms` divides by
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
-
-
-def bound(nbytes: float, ops: dict) -> dict:
-    """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate for their type
-    (`ops` maps a type to its count; the times of the types add)."""
-    tb = nbytes / HBM_BYTES_S
-    to = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
-    return {"bound_ms": 1e3 * max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
 
 
 def agreement(out, ref) -> tuple[float, float, float]:

@@ -223,8 +223,8 @@ def test_tp_forward_takes_the_core_on_each_shard(calls):
     with torch.inference_mode():
         got = B.encode_pooled(sharded, ids, mask, cfg)
         # 2 heads over 2 shards: the core once a shard a layer, on its one
-        # head, the biases already added by the column-sharded projections
-        assert calls == [("kernel", 64, False)] * (2 * cfg.num_layers)
+        # head, each shard's q/k/v bias blocks added inside it
+        assert calls == [("kernel", 64, True)] * (2 * cfg.num_layers)
         one = B.encode_pooled(params, ids, mask, cfg)
     assert _cos_min(got, one) > 0.9999
     calls.clear()
@@ -284,6 +284,35 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         bert_attention(q, k, v, mask, num_heads=4)         # heads of 32
     with pytest.raises(ValueError):
         bert_attention(q.float(), k.float(), v.float(), mask, num_heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [2, 8])
+def test_tp_forward_takes_the_kernel_with_each_shards_biases(cuda, shard):
+    """BERT-base's heads (12 of 64) over a tp mesh of `shard` shards on one
+    card: head-local at 2 (six heads a shard: the kernel once a shard a
+    layer, on its bias blocks), gathered at 8 (once a layer, on the whole
+    biases); the pooled rows against the one-device forward's."""
+    from theoremsearch_tpu_torch.core.config import MeshConfig
+    from theoremsearch_tpu_torch.core.meshes import make_mesh
+
+    cfg = BertEncoderConfig(vocab_size=1024, num_layers=2)
+    params = B.init_params(cfg, torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for layer in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            layer[name] = 0.1 * torch.randn(layer[name].shape, generator=g, device=cuda)
+    sharded = B.shard_params(params, make_mesh(MeshConfig(shard=shard), devices=[cuda] * shard))
+    lens = torch.tensor([256, 200, 37, 1], device=cuda)
+    mask = (torch.arange(256, device=cuda)[None] < lens[:, None]).to(torch.int32)
+    ids = torch.randint(3, cfg.vocab_size, (4, 256), generator=g, device=cuda) * mask
+    with torch.inference_mode():
+        before = attention_bert_launches.n
+        got = B.encode_pooled(sharded, ids, mask, cfg)
+        launches = attention_bert_launches.n - before
+        one = B.encode_pooled(params, ids, mask, cfg)
+    assert launches == cfg.num_layers * (shard if cfg.num_heads % shard == 0 else 1)
+    assert _cos_min(got, one) > 0.9999
 
 
 @pytest.mark.cuda

@@ -18,7 +18,6 @@ MODULES = sorted(
     m.name for m in pkgutil.walk_packages([str(PKG)], "theoremsearch_tpu_torch.")
 )
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_kernel_ab.py",
-                                       ROOT / "tools" / "torch_serve_ab.py",
                                        ROOT / "tools" / "torch_mp_train_probe.py",
                                        ROOT / "tests" / "torch_multihost_worker.py",
                                        ROOT / "tests" / "test_torch_distributed.py",

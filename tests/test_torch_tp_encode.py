@@ -11,6 +11,8 @@ gathered (qwen tiny on 4 shards, gemma's one kv head, BERT tiny on 8).
 The JAX side runs its mesh default, fused "off" (its Pallas kernels are
 opaque to GSPMD). The port's meshes repeat "cpu"."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,8 +97,12 @@ def test_tp_encode_pooled_matches_jax_sharded_forward(case):
     jmesh, mesh = _meshes(shard, data)
     ts = mod.shard_params(tp, mesh)
     ids, mask = _batch(8, 32, cfg.vocab_size, seed=1)
-    want = np.asarray(jmod.encode_pooled(jmod.shard_params(jp, jmesh), jnp.asarray(ids),
-                                         jnp.asarray(mask), jcfg))
+    # one program, as the JAX package's encoders run it: op by op its forward
+    # dispatches hundreds of small collective programs over the 8 CPU devices
+    # without waiting, and under load XLA:CPU's rendezvous between them can
+    # deadlock (7 of 8 devices arrive; its 40 s watchdog aborts the process)
+    encode = jax.jit(functools.partial(jmod.encode_pooled, cfg=jcfg))
+    want = np.asarray(encode(jmod.shard_params(jp, jmesh), jnp.asarray(ids), jnp.asarray(mask)))
     for fused in ("on", "off"):
         got = mod.encode_pooled(ts, torch.from_numpy(ids), torch.from_numpy(mask), cfg, fused=fused)
         one = mod.encode_pooled(tp, torch.from_numpy(ids), torch.from_numpy(mask), cfg, fused=fused)

@@ -16,10 +16,12 @@ gradient recorded; `_core`), with the q/k/v bias adds folded in, and
 keeps the composition (`_attention_core`) for fused="off", for training
 and for the shapes the kernel does not take.
 
-Tensor parallelism as the qwen tower's (`encoder/model.py`), by the
-reference's rules: q/k/v and w_in column-sharded with their biases, wo
-and w_out row-sharded (their biases added once after the reduction), the
-word embedding vocab-sharded, the position and type tables replicated.
+Tensor parallelism as the qwen tower's (`encoder/model.py`: one layer
+loop on the params' placement), by the reference's rules: q/k/v and w_in
+column-sharded with their biases, wo and w_out row-sharded (their biases
+added once after the reduction), the word embedding vocab-sharded, the
+position and type tables replicated. With the kernel core each shard's
+q/k/v bias blocks are added inside it, as on one device.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..kernels.attention_bert import HEAD_DIM, MAX_S, bert_attention, bert_atten
 from ..kernels.layer_int8 import gelu_tanh
 from ..utils.device import resolve_device, tf32_off
 from .model import _DTYPES, PooledEncoder, params_from_jax
-from .sharding import TP, is_sharded, place_params
+from .sharding import place_params, placement
 
 Params = dict[str, Any]
 
@@ -102,6 +104,9 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: tor
     return out.to(dtype).reshape(b, s, nh * dh)
 
 
+_QKV = (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))
+
+
 def _core(fused: str, cfg: BertEncoderConfig, s: int):
     """The attention core's kernel form for a forward at width `s`, or None
     for the composition: `bert_attention` (the kernel on the card, its plain
@@ -117,19 +122,6 @@ def _core(fused: str, cfg: BertEncoderConfig, s: int):
     return bert_attention_plain if fused == "plain" else bert_attention
 
 
-def _attention(layer, x: torch.Tensor, mask: torch.Tensor, am: torch.Tensor,
-               cfg: BertEncoderConfig, core) -> torch.Tensor:
-    h = x.shape[-1]
-    if core is None:
-        q, k, v = (x @ layer[w] + layer[bias].to(x.dtype)
-                   for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
-        out = _attention_core(q, k, v, mask, cfg.num_heads, h // cfg.num_heads)
-    else:   # the bias adds happen inside the core
-        out = core(x @ layer["wq"], x @ layer["wk"], x @ layer["wv"], am, num_heads=cfg.num_heads,
-                   bias=(layer["bq"], layer["bk"], layer["bv"]))
-    return out @ layer["wo"] + layer["bo"].to(x.dtype)
-
-
 def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
             cfg: BertEncoderConfig, fused: str = "on") -> torch.Tensor:
     """Hidden states (B, S, H) after the last layer. Position ids are
@@ -138,54 +130,37 @@ def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tenso
     fused: "on" = the attention core through BERT's kernel where `_core`
     takes the shapes (its plain version for CPU tensors); "plain" = the
     plain version there; "off" = the reference's composition throughout.
-    The kernel forms write 0 on padded query rows."""
+    The kernel forms write 0 on padded query rows.
+
+    On sharded params (`shard_params`) the same loop runs on their
+    shards' devices (`sharding.TP`): the LayerNorms and residuals on the
+    first, the biased projections and the GELU on each shard's blocks,
+    the heads local or gathered."""
     s = input_ids.shape[1]
     core = _core(fused, cfg, s)
-    if is_sharded(params):
-        return _forward_tp(params, input_ids, attention_mask, cfg, core)
-    dtype = _DTYPES[cfg.dtype]
-    mask = attention_mask.bool()
-    x = (params["embed"][input_ids.long()] + params["pos_embed"][:s][None]
-         + params["type_embed"][0][None, None]).to(dtype)
-    x = _layer_norm(x, params["embed_ln_g"], params["embed_ln_b"], cfg.layer_norm_eps)
-    act = gelu_tanh if cfg.hidden_act == "gelu_new" else _gelu_exact
-    for layer in params["layers"]:
-        x = _layer_norm(x + _attention(layer, x, mask, attention_mask, cfg, core),
-                        layer["attn_ln_g"], layer["attn_ln_b"], cfg.layer_norm_eps)
-        ff = act((x @ layer["w_in"] + layer["b_in"].to(x.dtype)).float()).to(x.dtype)
-        ff = ff @ layer["w_out"] + layer["b_out"].to(x.dtype)
-        x = _layer_norm(x + ff, layer["mlp_ln_g"], layer["mlp_ln_b"], cfg.layer_norm_eps)
-    return x
-
-
-def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                cfg: BertEncoderConfig, attn_core) -> torch.Tensor:
-    """`forward` over sharded params (`shard_params`): the LayerNorms and
-    residuals on the first device, the biased projections and the GELU on
-    each shard's blocks, the heads local or gathered (`sharding.TP.attention`),
-    the core `attn_core` (`_core`) on each shard's heads, else the composition."""
-    tp = TP(params["embed"])
+    tp = placement(params["embed"])
     ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
-    mask = am.bool()
     dtype = _DTYPES[cfg.dtype]
     eps = cfg.layer_norm_eps
-    s = ids.shape[1]
+    mask = am.bool()
     x = (tp.embed(params["embed"], ids) + params["pos_embed"][:s][None]
          + params["type_embed"][0][None, None]).to(dtype)
     x = _layer_norm(x, params["embed_ln_g"], params["embed_ln_b"], eps)
     act = gelu_tanh if cfg.hidden_act == "gelu_new" else _gelu_exact
     dh = cfg.hidden_size // cfg.num_heads
-    masks = {d: (mask.to(d), am.to(d)) for d in set(tp.devices)}
+    on = tp.on_devices(mask, am)
 
-    def core(q, k, v, dev, div):
-        if attn_core is None:
-            return _attention_core(q, k, v, masks[dev][0], cfg.num_heads // div, dh)
-        return attn_core(q, k, v, masks[dev][1], num_heads=cfg.num_heads // div)
+    def attend(q, k, v, dev, div, *bias):
+        mask_d, am_d = on[dev]
+        if core is None:
+            return _attention_core(q, k, v, mask_d, cfg.num_heads // div, dh)
+        return core(q, k, v, am_d, num_heads=cfg.num_heads // div, bias=bias)
 
+    fold = core is not None     # the kernel core adds the q/k/v biases itself
     for layer in params["layers"]:
         xs = tp.bcast(x)
-        attn = tp.attention(tp.col(xs, layer["wq"], layer["bq"]), tp.col(xs, layer["wk"], layer["bk"]),
-                            tp.col(xs, layer["wv"], layer["bv"]), cfg.num_heads, core)
+        qkv = [tp.col(xs, layer[w], None if fold else layer[b]) for w, b in _QKV]
+        attn = tp.attention(*qkv, cfg.num_heads, attend, *(layer[b] for _, b in _QKV if fold))
         attn = tp.row(attn, layer["wo"]) + layer["bo"].to(dtype)
         x = _layer_norm(x + attn, layer["attn_ln_g"], layer["attn_ln_b"], eps)
         ff = [act(h.float()).to(dtype) for h in tp.col(tp.bcast(x), layer["w_in"], layer["b_in"])]

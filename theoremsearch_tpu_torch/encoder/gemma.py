@@ -29,14 +29,16 @@ int8 (w8a8) serving mode shares the qwen tower's quantizer; with
 `fused_layers=True` each sandwich sub-block whose shapes qualify is one
 whole-layer call in its gemma form (kernels B3 and B4 on the card).
 
-Tensor parallelism as the qwen tower's (`encoder/model.py`): the
-reference's rules with the ST head's head_w1 column- and head_w2
-row-sharded; with the full model's 3/1 heads the core runs gathered on
-the first device (one kv head does not divide over the shards).
+Tensor parallelism as the qwen tower's (`encoder/model.py`: one layer
+loop on the params' placement): the reference's rules with the ST head's
+head_w1 column- and head_w2 row-sharded, the head run on the same
+placement; with the full model's 3/1 heads the core runs gathered on the
+first device (one kv head does not divide over the shards).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -57,14 +59,16 @@ from .model import (  # the shared int8 machinery and the JAX carry-over
     _DTYPES,
     PooledEncoder,
     _INT8_TP,
+    _gated_mlp,
     _q_matmul,
     _quant_act,
     _rmsnorm_quant_act,
     _rope,
+    _shard_cfg,
     params_from_jax,
     quantize_params_int8,
 )
-from .sharding import TP, is_sharded, place_params
+from .sharding import is_sharded, place_params, placement
 
 Params = dict[str, Any]
 
@@ -144,17 +148,17 @@ def _rope_tables(positions: torch.Tensor, dh: int, theta: float, scaling_factor:
     return torch.cos(angles), torch.sin(angles)
 
 
-def _attention_math(layer, q, k, v, valid, rope_cs, cfg: GemmaEncoderConfig) -> torch.Tensor:
+def _attention_math(q, k, v, q_norm, k_norm, valid, cos, sin,
+                    cfg: GemmaEncoderConfig) -> torch.Tensor:
     """The reference's composition after the projections: (1 + w) q/k
     norms, RoPE, GQA repeat, the scaled masked softmax and PV. `valid` is
     the (B, 1, S, S) pair mask (padding and, on sliding layers, the
     window). (B, S, H*Dh) pre-wo."""
     b, s, _ = q.shape
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    cos, sin = rope_cs
     dtype = q.dtype
-    q = _rope(_gemma_rms_norm(q.reshape(b, s, h, dh), layer["q_norm"], cfg.rms_norm_eps), cos, sin)
-    k = _rope(_gemma_rms_norm(k.reshape(b, s, hk, dh), layer["k_norm"], cfg.rms_norm_eps), cos, sin)
+    q = _rope(_gemma_rms_norm(q.reshape(b, s, h, dh), q_norm, cfg.rms_norm_eps), cos, sin)
+    k = _rope(_gemma_rms_norm(k.reshape(b, s, hk, dh), k_norm, cfg.rms_norm_eps), cos, sin)
     rep = h // hk
     k = k.repeat_interleave(rep, dim=2)
     v = v.reshape(b, s, hk, dh).repeat_interleave(rep, dim=2)
@@ -165,12 +169,6 @@ def _attention_math(layer, q, k, v, valid, rope_cs, cfg: GemmaEncoderConfig) -> 
         probs = torch.softmax(logits, dim=-1).to(dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(dtype).reshape(b, s, h * dh)
-
-
-def _attention(layer, x, valid, rope_cs, cfg) -> torch.Tensor:
-    out = _attention_math(layer, x @ layer["wq"], x @ layer["wk"], x @ layer["wv"], valid,
-                          rope_cs, cfg)
-    return out @ layer["wo"]
 
 
 def _core_composition(q, k, v, qw1, kw1, cos, sin, mask, h, hk, dh, eps, scale):
@@ -255,25 +253,31 @@ def _fused_layer_ok(cfg: GemmaEncoderConfig, s: int, b: int) -> bool:
     )
 
 
-def _attention_core(layer, q, k, v, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:
+def _fused_core(q, k, v, q_norm, k_norm, attention_mask, cos, sin, cfg,
+                plain: bool = False) -> torch.Tensor:
+    """The gemma form of the fused core on projected q/k/v
+    (`GemmaAttentionCore`). (B, S, H*Dh) bf16 pre-wo."""
     return GemmaAttentionCore.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), 1.0 + layer["q_norm"].float(),
-        1.0 + layer["k_norm"].float(), rope_cs[0], rope_cs[1], attention_mask.to(torch.int32),
+        q.contiguous(), k.contiguous(), v.contiguous(), 1.0 + q_norm.float(),
+        1.0 + k_norm.float(), cos, sin, attention_mask.to(torch.int32),
         cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rms_norm_eps,
         float(cfg.query_pre_attn_scalar) ** -0.5, plain)
 
 
-def _attention_fused(layer, x, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:
-    attn = _attention_core(layer, x @ layer["wq"], x @ layer["wk"], x @ layer["wv"],
-                           attention_mask, rope_cs, cfg, plain)
-    return attn.to(x.dtype) @ layer["wo"]
+_fused_core_plain = functools.partial(_fused_core, plain=True)
 
 
-def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
-    """GeGLU with the tanh GELU, the gate in f32."""
-    gate = gelu_tanh((x @ layer["w_gate"]).float()).to(x.dtype)
-    up = x @ layer["w_up"]
-    return (gate * up) @ layer["w_down"]
+def _core(fused: str, cfg: GemmaEncoderConfig, s: int, b: int):
+    """The attention core for a forward of `b` rows at width `s`, or None
+    for the reference's composition: kernel B2's gemma form
+    (`_fused_core`: the CUDA kernel for CUDA tensors) for fused="on", its
+    plain version (`_fused_core_plain`) for "plain", where `_fused_ok`
+    takes the shapes."""
+    if fused not in ("on", "plain", "off"):
+        raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
+    if fused == "off" or not _fused_ok(cfg, s, b):
+        return None
+    return _fused_core_plain if fused == "plain" else _fused_core
 
 
 # ---------------------------------------------------------------------------
@@ -289,9 +293,10 @@ def _attention_int8(layer, lq, x, attention_mask, valid, rope_cs, cfg, use_fused
     xq, sx = _rmsnorm_quant_act(x, layer["attn_norm"], cfg.rms_norm_eps, w_offset=1.0)
     q, k, v = (_q_matmul(xq, sx, lq[n], x.dtype) for n in ("wq", "wk", "wv"))
     if use_fused:
-        attn = _attention_core(layer, q, k, v, attention_mask, rope_cs, cfg, plain)
+        attn = _fused_core(q, k, v, layer["q_norm"], layer["k_norm"], attention_mask, *rope_cs, cfg,
+                           plain)
     else:
-        attn = _attention_math(layer, q, k, v, valid, rope_cs, cfg)
+        attn = _attention_math(q, k, v, layer["q_norm"], layer["k_norm"], valid, *rope_cs, cfg)
     aq, sa = _quant_act(attn.to(x.dtype))
     return _q_matmul(aq, sa, lq["wo"], x.dtype)
 
@@ -325,73 +330,17 @@ def forward(
     fused_layers: with qlayers set and fused not "off", each sandwich
     sub-block is one whole-layer call in its gemma form where
     `_fused_layer_ok` qualifies the shapes (kernels B3 and B4 on the card,
-    their plain versions for fused="plain" or CPU tensors)."""
-    if fused not in ("on", "plain", "off"):
-        raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
-    if is_sharded(params):
-        if qlayers is not None:
-            raise ValueError(_INT8_TP)
-        return _forward_tp(params, input_ids, attention_mask, cfg, fused)
-    dtype = _DTYPES[cfg.dtype]
-    eps = cfg.rms_norm_eps
-    # the sqrt(hidden) scale lives in the model dtype (HF rounds it so)
-    embed_scale = float(torch.tensor(np.sqrt(cfg.hidden_size), dtype=dtype))
-    x = (params["embed"][input_ids.long()].float() * embed_scale).to(dtype)
-    positions = torch.clamp(torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1, min=0)
-    mask = attention_mask.bool()
-    rope_global = _rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_factor)
-    rope_local = _rope_tables(positions, cfg.head_dim, cfg.rope_local_theta)
-    b, s = input_ids.shape
-    use_fused = fused != "off" and _fused_ok(cfg, s, b)
-    plain = fused == "plain"
-    if fused_layers and qlayers is not None and fused != "off" and _fused_layer_ok(cfg, s, b):
-        attn_layer = fused_attn_int8_layer_gemma_plain if plain else fused_attn_int8_layer_gemma
-        mlp_layer = fused_mlp_int8_layer_plain if plain else fused_mlp_int8_layer
-        for li, (layer, lq) in enumerate(zip(params["layers"], qlayers)):
-            rope_cs = rope_global if is_global_layer(cfg, li) else rope_local
-            x = attn_layer(x, layer, lq, attention_mask, rope_cs, cfg)
-            x = mlp_layer(x, 1.0 + layer["pre_mlp_norm"].float(), lq["w_gate"], lq["w_up"],
-                          lq["w_down"], 1.0 + layer["post_mlp_norm"].float(), eps=eps,
-                          act="gelu_tanh")
-        return _gemma_rms_norm(x, params["final_norm"], eps)
-    valid_full = mask[:, None, None, :].expand(b, 1, s, s)
-    # the raw window split across both directions on real positions:
-    # |d| < W // 2 + 1 (HF's bidirectional rewrite of sliding_window);
-    # where use_fused holds it cannot bind
-    dist = (positions[:, :, None] - positions[:, None, :]).abs()
-    valid_sliding = valid_full & (dist < cfg.sliding_window // 2 + 1)[:, None]
-    for li, layer in enumerate(params["layers"]):
-        glob = is_global_layer(cfg, li)
-        rope_cs = rope_global if glob else rope_local
-        valid = valid_full if glob else valid_sliding
-        if qlayers is not None:
-            attn = _attention_int8(layer, qlayers[li], x, attention_mask, valid, rope_cs, cfg,
-                                   use_fused, plain)
-        else:
-            xa = _gemma_rms_norm(x, layer["attn_norm"], eps)
-            if use_fused:
-                attn = _attention_fused(layer, xa, attention_mask, rope_cs, cfg, plain)
-            else:
-                attn = _attention(layer, xa, valid, rope_cs, cfg)
-        x = x + _gemma_rms_norm(attn, layer["post_attn_norm"], eps)
-        if qlayers is not None:
-            mlp = _mlp_int8(layer, qlayers[li], x, eps)
-        else:
-            mlp = _mlp(layer, _gemma_rms_norm(x, layer["pre_mlp_norm"], eps))
-        x = x + _gemma_rms_norm(mlp, layer["post_mlp_norm"], eps)
-    return _gemma_rms_norm(x, params["final_norm"], eps)
+    their plain versions for fused="plain" or CPU tensors).
 
-
-def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                cfg: GemmaEncoderConfig, fused: str) -> torch.Tensor:
-    """`forward` over sharded params, as the qwen tower's `_forward_tp`:
-    the sandwich norms, residuals and masks on the first device, the
-    projections and GeGLU on each shard's blocks, the core head-local or
-    gathered (`sharding.TP.attention`)."""
-    tp = TP(params["embed"])
+    On sharded params the same loop runs on their shards' devices
+    (`sharding.TP`), as the qwen tower's; int8 runs on one device only."""
+    if qlayers is not None and is_sharded(params):
+        raise ValueError(_INT8_TP)
+    tp = placement(params["embed"])
     ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
     dtype = _DTYPES[cfg.dtype]
     eps = cfg.rms_norm_eps
+    # the sqrt(hidden) scale lives in the model dtype (HF rounds it so)
     embed_scale = float(torch.tensor(np.sqrt(cfg.hidden_size), dtype=dtype))
     x = (tp.embed(params["embed"], ids).float() * embed_scale).to(dtype)
     positions = torch.clamp(torch.cumsum(am.to(torch.int32), dim=1) - 1, min=0)
@@ -399,49 +348,58 @@ def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
     rope_global = _rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_factor)
     rope_local = _rope_tables(positions, cfg.head_dim, cfg.rope_local_theta)
     b, s = ids.shape
-    use_fused = fused != "off" and _fused_ok(cfg, s, b)
+    core = _core(fused, cfg, s, b)
     plain = fused == "plain"
+    if fused_layers and qlayers is not None and fused != "off" and _fused_layer_ok(cfg, s, b):
+        attn_layer = fused_attn_int8_layer_gemma_plain if plain else fused_attn_int8_layer_gemma
+        mlp_layer = fused_mlp_int8_layer_plain if plain else fused_mlp_int8_layer
+        for li, (layer, lq) in enumerate(zip(params["layers"], qlayers)):
+            rope_cs = rope_global if is_global_layer(cfg, li) else rope_local
+            x = attn_layer(x, layer, lq, am, rope_cs, cfg)
+            x = mlp_layer(x, 1.0 + layer["pre_mlp_norm"].float(), lq["w_gate"], lq["w_up"],
+                          lq["w_down"], 1.0 + layer["post_mlp_norm"].float(), eps=eps,
+                          act="gelu_tanh")
+        return _gemma_rms_norm(x, params["final_norm"], eps)
     valid_full = mask[:, None, None, :].expand(b, 1, s, s)
+    # the raw window split across both directions on real positions:
+    # |d| < W // 2 + 1 (HF's bidirectional rewrite of sliding_window);
+    # where the core runs it cannot bind
     dist = (positions[:, :, None] - positions[:, None, :]).abs()
     valid_sliding = valid_full & (dist < cfg.sliding_window // 2 + 1)[:, None]
-    # each device's copies: the mask, and (rope tables, pair mask) by layer kind
-    on = {d: (am.to(d), {True: ([t.to(d) for t in rope_global], valid_full.to(d)),
-                         False: ([t.to(d) for t in rope_local], valid_sliding.to(d))})
-          for d in set(tp.devices)}
+    ams = tp.on_devices(am)
+
+    def attender(rope_cs, valid):
+        """The core of the layers of one kind (its RoPE tables and pair
+        mask) on `tp`."""
+        on = tp.on_devices(*rope_cs, valid)
+
+        def attend(q, k, v, dev, div, q_norm, k_norm):
+            cos, sin, valid_d = on[dev]
+            lcfg = _shard_cfg(cfg, div)
+            if core is None:
+                return _attention_math(q, k, v, q_norm, k_norm, valid_d, cos, sin, lcfg)
+            return core(q, k, v, q_norm, k_norm, ams[dev][0], cos, sin, lcfg).to(q.dtype)
+        return attend
+
+    attends = (attender(rope_local, valid_sliding), attender(rope_global, valid_full))
     for li, layer in enumerate(params["layers"]):
         glob = is_global_layer(cfg, li)
-        qn, kn = tp.rep(layer["q_norm"]), tp.rep(layer["k_norm"])
-
-        def core(q, k, v, dev, div):
-            lcfg = cfg.replace(num_heads=cfg.num_heads // div, num_kv_heads=cfg.num_kv_heads // div)
-            norms = {"q_norm": qn.to(dev), "k_norm": kn.to(dev)}
-            am_d, kinds = on[dev]
-            rope_cs, valid = kinds[glob]
-            if use_fused:
-                return _attention_core(norms, q, k, v, am_d, rope_cs, lcfg, plain).to(q.dtype)
-            return _attention_math(norms, q, k, v, valid, rope_cs, lcfg)
-
-        xs = tp.bcast(_gemma_rms_norm(x, layer["attn_norm"], eps))
-        attn = tp.attention(tp.col(xs, layer["wq"]), tp.col(xs, layer["wk"]), tp.col(xs, layer["wv"]),
-                            cfg.num_kv_heads, core)
-        x = x + _gemma_rms_norm(tp.row(attn, layer["wo"]), layer["post_attn_norm"], eps)
-        xs = tp.bcast(_gemma_rms_norm(x, layer["pre_mlp_norm"], eps))
-        h = [gelu_tanh(g.float()).to(x.dtype) * u
-             for g, u in zip(tp.col(xs, layer["w_gate"]), tp.col(xs, layer["w_up"]))]
-        x = x + _gemma_rms_norm(tp.row(h, layer["w_down"]), layer["post_mlp_norm"], eps)
+        if qlayers is not None:
+            attn = _attention_int8(layer, qlayers[li], x, am, valid_full if glob else valid_sliding,
+                                   rope_global if glob else rope_local, cfg, core is not None, plain)
+        else:
+            xs = tp.bcast(_gemma_rms_norm(x, layer["attn_norm"], eps))
+            attn = tp.row(tp.attention(tp.col(xs, layer["wq"]), tp.col(xs, layer["wk"]),
+                                       tp.col(xs, layer["wv"]), cfg.num_kv_heads, attends[glob],
+                                       layer["q_norm"], layer["k_norm"]), layer["wo"])
+        x = x + _gemma_rms_norm(attn, layer["post_attn_norm"], eps)
+        if qlayers is not None:
+            mlp = _mlp_int8(layer, qlayers[li], x, eps)
+        else:
+            mlp = _gated_mlp(tp, tp.bcast(_gemma_rms_norm(x, layer["pre_mlp_norm"], eps)), layer,
+                             gelu_tanh)
+        x = x + _gemma_rms_norm(mlp, layer["post_mlp_norm"], eps)
     return _gemma_rms_norm(x, params["final_norm"], eps)
-
-
-def _head_tp(params: Params, pooled: torch.Tensor) -> torch.Tensor:
-    """The ST head over sharded params: head_w1's column blocks (with the
-    matching blocks of the replicated head_b1, `TP.split`), head_w2's row
-    blocks, the partials summed on the first device (and over the row's
-    processes); f32 with TF32 off."""
-    tp = TP(params["head_w1"])
-    hs = [x @ w.float() for x, w in zip(tp.bcast(pooled), params["head_w1"].pieces)]
-    hs = [h + b1 for h, b1 in zip(hs, tp.split(params["head_b1"].float().to(tp.first)))]
-    return tp.reduce([h @ w.float() for h, w in zip(hs, params["head_w2"].pieces)]) + \
-        params["head_b2"].float().to(tp.first)
 
 
 def encode_pooled(
@@ -451,19 +409,19 @@ def encode_pooled(
 ) -> torch.Tensor:
     """Pooled embeddings (B, embedding_dim) f32: mean over valid tokens ->
     Dense -> Dense (with biases, f32, TF32 off) -> L2 normalize (the
-    sentence-transformers stack of embeddinggemma). A bare Gemma3 tower
-    without the head pools the hidden state itself."""
+    sentence-transformers stack of embeddinggemma), on the params'
+    placement (head_w1's column and head_w2's row blocks over the shards
+    where they are sharded). A bare Gemma3 tower without the head pools
+    the hidden state itself."""
     hidden = forward(params, input_ids, attention_mask, cfg, fused=fused, qlayers=qlayers,
                      fused_layers=fused_layers)
     m = attention_mask[:, :, None].float()
     pooled = (hidden.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1e-9)
-    if "head_w1" in params and is_sharded(params):
+    if "head_w1" in params:
+        tp = placement(params["head_w1"])
         with tf32_off():
-            pooled = _head_tp(params, pooled)
-    elif "head_w1" in params:
-        with tf32_off():
-            pooled = pooled @ params["head_w1"].float() + params["head_b1"].float()
-            pooled = pooled @ params["head_w2"].float() + params["head_b2"].float()
+            h = tp.col(tp.bcast(pooled), params["head_w1"].float(), params["head_b1"])
+            pooled = tp.row(h, params["head_w2"].float()) + params["head_b2"].float()
     if cfg.normalize:
         pooled = pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
     return pooled

@@ -26,16 +26,18 @@ kernels B3 and B4 on the card); the rest run the int8 op-chain.
 
 Tensor parallelism: `shard_params` places the params by the reference's
 rules (`param_sharding_rules`: q/k/v and gate/up column-sharded, wo and
-w_down row-sharded, the embedding vocab-sharded; `encoder/sharding.py`)
-and `forward` on such params runs `_forward_tp`: each shard multiplies
-the replicated activation by its column blocks, runs the attention core
-on its own heads where the kv heads divide over the shards (kernel B2
+w_down row-sharded, the embedding vocab-sharded; `encoder/sharding.py`).
+`forward` runs one bf16 layer loop on the params' placement
+(`sharding.placement`): on sharded params each shard multiplies the
+replicated activation by its column blocks, runs the attention core on
+its own heads where the kv heads divide over the shards (kernel B2
 forward and B7 backward once a shard), else on all heads gathered on the
 first device, and the row-sharded products are summed there.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -56,7 +58,7 @@ from ..kernels.layer_int8 import (
     rmsnorm_quant_plain,
 )
 from ..utils.device import resolve_device, tf32_off
-from .sharding import TP, is_sharded, place_params
+from .sharding import is_sharded, place_params, placement
 
 Params = dict[str, Any]
 
@@ -145,15 +147,14 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _attention_math(layer, q, k, v, mask, rope_cs, cfg: EncoderConfig) -> torch.Tensor:
+def _attention_math(q, k, v, q_norm, k_norm, mask, cos, sin, cfg: EncoderConfig) -> torch.Tensor:
     """The reference's XLA composition: per-head QK-RMSNorm -> RoPE ->
     GQA repeat -> masked softmax -> PV. (B, S, H*Dh) pre-wo."""
     b, s, _ = q.shape
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    cos, sin = rope_cs
     dtype = q.dtype
-    q = _rope(_rms_norm(q.view(b, s, h, dh), layer["q_norm"], cfg.rms_norm_eps), cos, sin)
-    k = _rope(_rms_norm(k.view(b, s, hk, dh), layer["k_norm"], cfg.rms_norm_eps), cos, sin)
+    q = _rope(_rms_norm(q.view(b, s, h, dh), q_norm, cfg.rms_norm_eps), cos, sin)
+    k = _rope(_rms_norm(k.view(b, s, hk, dh), k_norm, cfg.rms_norm_eps), cos, sin)
     rep = h // hk
     k = k.repeat_interleave(rep, dim=2)
     v = v.view(b, s, hk, dh).repeat_interleave(rep, dim=2)
@@ -165,12 +166,6 @@ def _attention_math(layer, q, k, v, mask, rope_cs, cfg: EncoderConfig) -> torch.
         probs = torch.softmax(logits, dim=-1).to(dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(dtype).reshape(b, s, h * dh)
-
-
-def _attention(layer, x, mask, rope_cs, cfg) -> torch.Tensor:
-    out = _attention_math(layer, x @ layer["wq"], x @ layer["wk"], x @ layer["wv"],
-                          mask, rope_cs, cfg)
-    return out @ layer["wo"]
 
 
 def _fused_ok(cfg: EncoderConfig, s: int, b: int) -> bool:
@@ -198,28 +193,54 @@ def _long_core_ok(cfg: EncoderConfig, s: int) -> bool:
     )
 
 
-def _attention_core(layer, q, k, v, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:
+def _fused_core(q, k, v, q_norm, k_norm, attention_mask, cos, sin, cfg,
+                plain: bool = False) -> torch.Tensor:
     """The fused attention core on projected q/k/v, through the autograd
     Function: kernel B2 forward and kernel B7 backward, or their plain
     versions for plain=True or CPU tensors. (B, S, H*Dh) pre-wo. Under
     inference mode it is the forward alone."""
     return QKNormRopeAttention.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), layer["q_norm"], layer["k_norm"],
-        rope_cs[0], rope_cs[1], attention_mask.to(torch.int32),
+        q.contiguous(), k.contiguous(), v.contiguous(), q_norm, k_norm,
+        cos, sin, attention_mask.to(torch.int32),
         cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rms_norm_eps, True,
         1.0 / np.sqrt(cfg.head_dim), plain)
 
 
-def _attention_fused(layer, x, attention_mask, rope_cs, cfg, plain: bool) -> torch.Tensor:
-    attn = _attention_core(layer, x @ layer["wq"], x @ layer["wk"], x @ layer["wv"],
-                           attention_mask, rope_cs, cfg, plain)
-    return attn.to(x.dtype) @ layer["wo"]
+_fused_core_plain = functools.partial(_fused_core, plain=True)
+
+
+def _core(fused: str, cfg: EncoderConfig, s: int, b: int):
+    """The attention core for a forward of `b` rows at width `s`, or None
+    for the reference's composition: kernel B2 through its autograd
+    Function (`_fused_core`: the CUDA kernel for CUDA tensors) for
+    fused="on", its plain version (`_fused_core_plain`) for "plain", where
+    `_fused_ok` or `_long_core_ok` takes the shapes."""
+    if fused not in ("on", "plain", "off"):
+        raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
+    if fused == "off" or not (_fused_ok(cfg, s, b) or _long_core_ok(cfg, s)):
+        return None
+    return _fused_core_plain if fused == "plain" else _fused_core
+
+
+def _shard_cfg(cfg, div: int):
+    """The config of one shard's heads (the config itself at div 1)."""
+    return cfg if div == 1 else cfg.replace(num_heads=cfg.num_heads // div,
+                                            num_kv_heads=cfg.num_kv_heads // div)
 
 
 def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu((x @ layer["w_gate"]).float()).to(x.dtype)
     up = x @ layer["w_up"]
     return (gate * up) @ layer["w_down"]
+
+
+def _gated_mlp(tp, xs, layer, act) -> torch.Tensor:
+    """`(act(x @ w_gate) * (x @ w_up)) @ w_down` on a placement (`TP` or
+    `Local`) from each shard's input `xs`: the gate's activation in f32,
+    the product summed over the shards."""
+    dtype = xs[0].dtype
+    gates = [act(g.float()).to(dtype) for g in tp.col(xs, layer["w_gate"])]
+    return tp.row([g * u for g, u in zip(gates, tp.col(xs, layer["w_up"]))], layer["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -274,9 +295,11 @@ def _attention_int8(layer, lq, x, attention_mask, rope_cs, cfg: EncoderConfig,
     xq, sx = _rmsnorm_quant_act(x, layer["attn_norm"], cfg.rms_norm_eps)
     q, k, v = (_q_matmul(xq, sx, lq[n], x.dtype) for n in ("wq", "wk", "wv"))
     if use_fused:
-        attn = _attention_core(layer, q, k, v, attention_mask, rope_cs, cfg, plain)
+        attn = _fused_core(q, k, v, layer["q_norm"], layer["k_norm"], attention_mask, *rope_cs, cfg,
+                           plain)
     else:
-        attn = _attention_math(layer, q, k, v, attention_mask.bool(), rope_cs, cfg)
+        attn = _attention_math(q, k, v, layer["q_norm"], layer["k_norm"], attention_mask.bool(),
+                               *rope_cs, cfg)
     aq, sa = _quant_act(attn.to(x.dtype))
     return _q_matmul(aq, sa, lq["wo"], x.dtype)
 
@@ -322,80 +345,52 @@ def forward(
     fused_layers: with qlayers set and fused not "off", each transformer
     sub-block whose shapes qualify (`_fused_layer_ok`) is one whole-layer
     call (kernels B3 and B4 on the card, their plain versions for
-    fused="plain" or CPU tensors)."""
-    if fused not in ("on", "plain", "off"):
-        raise ValueError(f"fused must be 'on', 'plain' or 'off', got {fused!r}")
-    if is_sharded(params):
-        if qlayers is not None:
-            raise ValueError(_INT8_TP)
-        return _forward_tp(params, input_ids, attention_mask, cfg, fused)
-    x = params["embed"][input_ids.long()].to(_DTYPES[cfg.dtype])
-    positions = torch.clamp(torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1, min=0)
-    mask = attention_mask.bool()
+    fused="plain" or CPU tensors).
+
+    On sharded params (`shard_params`, or a data row's view of them,
+    `sharding.row_params`) the same loop runs on their shards' devices
+    (`sharding.TP`) and the hidden states come back on the first; int8
+    runs on one device only."""
+    if qlayers is not None and is_sharded(params):
+        raise ValueError(_INT8_TP)
+    tp = placement(params["embed"])
+    ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
+    x = tp.embed(params["embed"], ids).to(_DTYPES[cfg.dtype])
+    positions = torch.clamp(torch.cumsum(am.to(torch.int32), dim=1) - 1, min=0)
+    mask = am.bool()
     rope_cs = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    b, s = input_ids.shape
-    use_fused = fused != "off" and (_fused_ok(cfg, s, b) or _long_core_ok(cfg, s))
+    b, s = ids.shape
+    core = _core(fused, cfg, s, b)
     plain = fused == "plain"
     if fused_layers and qlayers is not None and fused != "off" and _fused_layer_ok(cfg, s, b):
         attn_layer = fused_attn_int8_layer_plain if plain else fused_attn_int8_layer
         mlp_layer = fused_mlp_int8_layer_plain if plain else fused_mlp_int8_layer
         for layer, lq in zip(params["layers"], qlayers):
-            x = attn_layer(x, layer, lq, attention_mask, rope_cs, cfg)
+            x = attn_layer(x, layer, lq, am, rope_cs, cfg)
             x = mlp_layer(x, layer["mlp_norm"], lq["w_gate"], lq["w_up"], lq["w_down"],
                           eps=cfg.rms_norm_eps)
         return _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    on = tp.on_devices(*rope_cs, am, mask)
+
+    def attend(q, k, v, dev, div, q_norm, k_norm):
+        cos, sin, am_d, mask_d = on[dev]
+        lcfg = _shard_cfg(cfg, div)
+        if core is None:
+            return _attention_math(q, k, v, q_norm, k_norm, mask_d, cos, sin, lcfg)
+        return core(q, k, v, q_norm, k_norm, am_d, cos, sin, lcfg).to(q.dtype)
+
+    eps = cfg.rms_norm_eps
     for li, layer in enumerate(params["layers"]):
         if qlayers is not None:
-            x = x + _attention_int8(layer, qlayers[li], x, attention_mask, rope_cs, cfg,
-                                    use_fused, plain)
-            x = x + _mlp_int8(layer, qlayers[li], x, cfg.rms_norm_eps)
+            x = x + _attention_int8(layer, qlayers[li], x, am, rope_cs, cfg, core is not None,
+                                    plain)
+            x = x + _mlp_int8(layer, qlayers[li], x, eps)
             continue
-        xa = _rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
-        if use_fused:
-            x = x + _attention_fused(layer, xa, attention_mask, rope_cs, cfg, plain)
-        else:
-            x = x + _attention(layer, xa, mask, rope_cs, cfg)
-        x = x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps))
-    return _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-
-
-def _forward_tp(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                cfg: EncoderConfig, fused: str) -> torch.Tensor:
-    """`forward` over sharded params (`shard_params`, or a data row's view
-    of them, `sharding.row_params`), on the devices of their shards; the
-    hidden states come back on the first. The same attention dispatch as
-    the unsharded path (`_fused_ok` on the whole batch, or `_long_core_ok`),
-    with the core on each shard's heads where the kv heads divide over the
-    shards."""
-    tp = TP(params["embed"])
-    ids, am = input_ids.to(tp.first), attention_mask.to(tp.first)
-    x = tp.embed(params["embed"], ids).to(_DTYPES[cfg.dtype])
-    positions = torch.clamp(torch.cumsum(am.to(torch.int32), dim=1) - 1, min=0)
-    rope_cs = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    b, s = ids.shape
-    use_fused = fused != "off" and (_fused_ok(cfg, s, b) or _long_core_ok(cfg, s))
-    plain = fused == "plain"
-    eps = cfg.rms_norm_eps
-    on = {d: (rope_cs[0].to(d), rope_cs[1].to(d), am.to(d), am.bool().to(d)) for d in set(tp.devices)}
-    for layer in params["layers"]:
-        qn, kn = tp.rep(layer["q_norm"]), tp.rep(layer["k_norm"])
-
-        def core(q, k, v, dev, div):
-            lcfg = cfg.replace(num_heads=cfg.num_heads // div, num_kv_heads=cfg.num_kv_heads // div)
-            norms = {"q_norm": qn.to(dev), "k_norm": kn.to(dev)}
-            cos, sin, am_d, mask_d = on[dev]
-            if use_fused:
-                return _attention_core(norms, q, k, v, am_d, (cos, sin), lcfg, plain).to(q.dtype)
-            return _attention_math(norms, q, k, v, mask_d, (cos, sin), lcfg)
-
         xs = tp.bcast(_rms_norm(x, layer["attn_norm"], eps))
         attn = tp.attention(tp.col(xs, layer["wq"]), tp.col(xs, layer["wk"]), tp.col(xs, layer["wv"]),
-                            cfg.num_kv_heads, core)
+                            cfg.num_kv_heads, attend, layer["q_norm"], layer["k_norm"])
         x = x + tp.row(attn, layer["wo"])
-        xs = tp.bcast(_rms_norm(x, layer["mlp_norm"], eps))
-        h = [F.silu(g.float()).to(x.dtype) * u
-             for g, u in zip(tp.col(xs, layer["w_gate"]), tp.col(xs, layer["w_up"]))]
-        x = x + tp.row(h, layer["w_down"])
+        x = x + _gated_mlp(tp, tp.bcast(_rms_norm(x, layer["mlp_norm"], eps)), layer, F.silu)
     return _rms_norm(x, params["final_norm"], eps)
 
 

@@ -28,15 +28,16 @@ over the column group (`train/contrastive.py`). Where a data row spans
 several processes, each holds a block of the row's pieces, and the
 row's collectives run over the mesh's row group.
 
-A tensor-parallel forward (`TP`) multiplies the replicated activation by
-each shard's column block, sums the row-sharded products (the reference's
-psum) and runs the replicated work (norms, residual adds, pooling) on the
-first device. On a row split over processes it is SPMD, as Megatron-LM
-is: every process of the row holds the replicated activations and runs
-the replicated work itself, and the sums, the gathered attention core's
-gather and the gradients of replicated inputs go through the row's
-autograd collectives (`core/distributed.py:row_bcast`, `row_reduce`,
-`row_gather`).
+A tower's one forward runs on its params' `placement`: `TP` over sharded
+params, or its one-device counterpart `Local`. A tensor-parallel forward
+(`TP`) multiplies the replicated activation by each shard's column block,
+sums the row-sharded products (the reference's psum) and runs the
+replicated work (norms, residual adds, pooling) on the first device. On a
+row split over processes it is SPMD, as Megatron-LM is: every process of
+the row holds the replicated activations and runs the replicated work
+itself, and the sums, the gathered attention core's gather and the
+gradients of replicated inputs go through the row's autograd collectives
+(`core/distributed.py:row_bcast`, `row_reduce`, `row_gather`).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ import torch
 
 from ..core.distributed import all_gather, row_bcast, row_gather, row_reduce
 
-__all__ = ["ShardedTensor", "TP", "is_sharded", "place_params", "row_params", "unshard_params"]
+__all__ = ["Local", "ShardedTensor", "TP", "is_sharded", "place_params", "placement", "row_params",
+           "unshard_params"]
 
 
 class ShardedTensor:
@@ -105,6 +107,10 @@ class ShardedTensor:
     def map(self, fn) -> "ShardedTensor":
         """fn applied to every piece, the split kept."""
         return self.with_pieces([fn(p) for p in self.pieces])
+
+    def float(self) -> "ShardedTensor":
+        """Every piece in f32, as `torch.Tensor.float`."""
+        return self.map(torch.Tensor.float)
 
     def blocks(self, x: torch.Tensor) -> list[torch.Tensor]:
         """A replicated tensor of this leaf's logical shape cut as this
@@ -307,12 +313,14 @@ class TP:
         return acc.to(parts[0].dtype)
 
     def col(self, xs: Sequence[torch.Tensor], w: ShardedTensor,
-            b: ShardedTensor | None = None) -> list[torch.Tensor]:
+            b: ShardedTensor | torch.Tensor | None = None) -> list[torch.Tensor]:
         """Each shard's replicated input times its column block of `w`
-        (plus its block of the column bias `b`, cast to the input's dtype)."""
+        (plus its block of the column bias `b`, cast to the product's
+        dtype: a sharded leaf's pieces, or a replicated leaf's `split`)."""
         out = [x @ p for x, p in zip(xs, w.pieces)]
         if b is not None:
-            out = [o + bp.to(o.dtype) for o, bp in zip(out, b.pieces)]
+            bs = b.pieces if isinstance(b, ShardedTensor) else self.split(b)
+            out = [o + bp.to(o.dtype) for o, bp in zip(out, bs)]
         return out
 
     def row(self, parts: Sequence[torch.Tensor], w: ShardedTensor) -> torch.Tensor:
@@ -321,22 +329,34 @@ class TP:
         return self.reduce([p @ wp for p, wp in zip(parts, w.pieces)])
 
     def attention(self, q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
-                  v: Sequence[torch.Tensor], kv_heads: int, core) -> list[torch.Tensor]:
+                  v: Sequence[torch.Tensor], kv_heads: int, core, *leaves) -> list[torch.Tensor]:
         """The attention core over column-sharded q/k/v, as column blocks of
         its output (what the row-sharded wo takes).
 
         Head-local where `kv_heads` divides over the shards: a column block
         is then whole heads, and shard s's q heads are the ones grouped
         with its kv heads, so each local shard runs `core(q, k, v, device,
-        n)` on its heads (the tower's head counts divided by n). Otherwise
-        the blocks are gathered on the first device (across processes on
-        every process of the row), `core(..., first, 1)` runs over all
-        heads there, and its output is cut into the local column blocks.
-        Either way the core is the tower's own (the kernels on the card);
-        a replicated leaf it reads goes through `rep`."""
+        n, *leaves)` on its heads (the tower's head counts divided by n).
+        Otherwise the blocks are gathered on the first device (across
+        processes on every process of the row), `core(..., first, 1,
+        *leaves)` runs over all heads there, and its output is cut into
+        the local column blocks. Either way the core is the tower's own
+        (the kernels on the card). `leaves` are the layer's leaves the core
+        reads: a replicated one through `rep` and on each shard's device
+        (`bcast`), a sharded one (split over the heads) as each shard's
+        piece, or gathered whole."""
         if kv_heads % self.n == 0:
-            return [core(qi, ki, vi, d, self.n) for qi, ki, vi, d in zip(q, k, v, self.devices)]
-        return self.scatter(core(self.gather(q), self.gather(k), self.gather(v), self.first, 1))
+            on = [x.pieces if isinstance(x, ShardedTensor) else self.bcast(x) for x in leaves]
+            return [core(qi, ki, vi, d, self.n, *(x[j] for x in on))
+                    for j, (qi, ki, vi, d) in enumerate(zip(q, k, v, self.devices))]
+        whole = [self.gather(x.pieces) if isinstance(x, ShardedTensor) else self.rep(x).to(self.first)
+                 for x in leaves]
+        return self.scatter(core(self.gather(q), self.gather(k), self.gather(v), self.first, 1, *whole))
+
+    def on_devices(self, *ts: torch.Tensor) -> dict:
+        """Replicated tensors the core reads (masks, RoPE tables), copied once
+        a forward to each local shard's device: {device: tuple}."""
+        return {d: tuple(t.to(d) for t in ts) for d in set(self.devices)}
 
     def embed(self, table: ShardedTensor, ids: torch.Tensor) -> torch.Tensor:
         """A vocab-sharded lookup: each local shard gathers the ids in its
@@ -354,3 +374,40 @@ class TP:
         for part in parts[1:]:
             out = out + part.to(self.first)
         return out if self.group is None else row_reduce(out, self.group)
+
+
+class Local:
+    """The one-device counterpart of `TP`, with the calls a forward makes,
+    over whole tensors on `device`: each call is the op a one-device
+    forward runs (`col` one product, `row` one product with no f32 sum,
+    `embed` one gather), with no copy, cast or collective."""
+
+    def __init__(self, device: torch.device):
+        self.device = self.first = device
+
+    def bcast(self, x: torch.Tensor) -> list[torch.Tensor]:
+        return [x]
+
+    def col(self, xs: Sequence[torch.Tensor], w: torch.Tensor,
+            b: torch.Tensor | None = None) -> list[torch.Tensor]:
+        out = xs[0] @ w
+        return [out if b is None else out + b.to(out.dtype)]
+
+    def row(self, parts: Sequence[torch.Tensor], w: torch.Tensor) -> torch.Tensor:
+        return parts[0] @ w
+
+    def attention(self, q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
+                  v: Sequence[torch.Tensor], kv_heads: int, core, *leaves) -> list[torch.Tensor]:
+        return [core(q[0], k[0], v[0], self.device, 1, *leaves)]
+
+    def embed(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return table[ids.long()]
+
+    def on_devices(self, *ts: torch.Tensor) -> dict:
+        return {self.device: ts}
+
+
+def placement(leaf) -> TP | Local:
+    """The placement a tower's forward runs on, from one of its leaves:
+    `TP` over a sharded leaf's shards, else `Local` on the tensor's device."""
+    return TP(leaf) if isinstance(leaf, ShardedTensor) else Local(leaf.device)
